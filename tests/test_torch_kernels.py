@@ -1,0 +1,173 @@
+"""The port's attention (K1's plain version and dispatch) against the JAX
+package's on the CPU. Inputs are made with numpy from a seed and handed to
+both. The CUDA kernel itself is held against the plain version on the card
+in tests/test_torch_gpu.py and chip_smoke.py.
+
+Tolerances: fp32 3e-5 (as tests/test_kernels.py: the two sum the softmax in
+another order); bf16 2e-2 (both round an fp32 result to bf16 once, so they
+differ by at most one bf16 ulp of an output below 4).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.models.attention import attention_reference, flash_attention_jnp
+from repro_torch.kernels import build, ops
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ref as tref
+from test_kernels import FLASH_CASES
+
+
+def _inputs(shapes, dtype, seed=0):
+    """The same arrays for both packages: (jax list, torch list)."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    return ([jnp.asarray(a).astype(dtype) for a in arrs],
+            [torch.from_numpy(a).to(tdt) for a in arrs])
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _tol(dtype):
+    return 2e-2 if dtype == jnp.bfloat16 else 3e-5
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_plain_attention_matches_pallas_interpret(case):
+    B, Sq, Skv, Hq, Hkv, hd, causal, window, cap, dtype = case
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        [(B, Sq, Hq, hd), (B, Skv, Hkv, hd), (B, Skv, Hkv, hd)], dtype)
+    want = flash_attention_pallas(jq, jk, jv, causal=causal, window=window,
+                                  logit_cap=cap, block_q=32, block_k=32,
+                                  interpret=True)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window,
+                              logit_cap=cap)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(_np(got), _np(want), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_ref_matches_jax_ref(case):
+    B, Sq, Skv, Hq, Hkv, hd, causal, window, cap, dtype = case
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        [(B, Sq, Hq, hd), (B, Skv, Hkv, hd), (B, Skv, Hkv, hd)], dtype, 1)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window,
+                                    logit_cap=cap, q_offset=3)
+    got = tref.flash_attention_ref(tq, tk, tv, causal=causal, window=window,
+                                   logit_cap=cap, q_offset=3)
+    np.testing.assert_allclose(_np(got), _np(want), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+def test_decode_offset_matches_pallas_interpret():
+    """Single query at position q_offset against a longer KV."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        [(2, 1, 4, 32), (2, 40, 2, 32), (2, 40, 2, 32)], jnp.float32)
+    want = flash_attention_pallas(jq, jk, jv, causal=True, q_offset=39,
+                                  block_q=8, block_k=16, interpret=True)
+    got = ops.flash_attention(tq, tk, tv, causal=True, q_offset=39)
+    np.testing.assert_allclose(_np(got), _np(want), atol=3e-5, rtol=3e-5)
+
+
+def _ring_positions(C, first, last):
+    """kv positions of a ring of C slots holding positions first..last at
+    slots p % C; the other slots are empty (-1)."""
+    kpos = np.full((C,), -1, np.int32)
+    for p in range(first, last + 1):
+        kpos[p % C] = p
+    return kpos
+
+
+RING_CASES = [
+    # (Sq, C, first, last, window, cap)
+    (1, 40, 25, 57, None, None),     # wrapped, 7 empty slots
+    (1, 40, 0, 12, None, None),      # not yet wrapped, mostly empty
+    (3, 40, 30, 60, 16, None),       # three queries, window
+    (1, 48, 20, 70, None, 30.0),     # wrapped, full, softcap
+]
+
+
+@pytest.mark.parametrize("case", RING_CASES)
+@pytest.mark.parametrize("reference", ["attention_reference",
+                                       "flash_attention_jnp"])
+def test_ring_positions_match_jax(case, reference):
+    Sq, C, first, last, window, cap = case
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        [(2, Sq, 8, 32), (2, C, 2, 32), (2, C, 2, 32)], jnp.float32, 2)
+    kpos = _ring_positions(C, first, last)
+    qpos = np.arange(last - Sq + 1, last + 1, dtype=np.int32)
+    fn = {"attention_reference": attention_reference,
+          "flash_attention_jnp": flash_attention_jnp}[reference]
+    want = fn(jq, jk, jv, causal=True, window=window, logit_cap=cap,
+              q_positions=jnp.asarray(qpos), kv_positions=jnp.asarray(kpos))
+    got = ops.attention(tq, tk, tv, causal=True, window=window, logit_cap=cap,
+                        q_positions=torch.from_numpy(qpos),
+                        kv_positions=torch.from_numpy(kpos))
+    np.testing.assert_allclose(_np(got), _np(want), atol=3e-5, rtol=3e-5)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    q = torch.randn(1, 4, 4, 16)
+    k = torch.randn(1, 4, 2, 16)
+    before = tfa.launches
+    out = ops.flash_attention(q, k, k)
+    assert tfa.launches == before
+    torch.testing.assert_close(out, tref.flash_attention_ref(q, k, k),
+                               atol=0, rtol=0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfa.flash_fwd(q, k, k, q_positions=torch.arange(4, dtype=torch.int32),
+                      kv_positions=torch.arange(4, dtype=torch.int32))
+
+
+def _bad_inputs():
+    q, k = torch.zeros(1, 4, 4, 16), torch.zeros(1, 6, 2, 16)
+    qp, kp = torch.arange(4, dtype=torch.int32), torch.arange(6, dtype=torch.int32)
+    ok = dict(q=q, k=k, v=k, q_positions=qp, kv_positions=kp, window=None,
+              logit_cap=None)
+    return {
+        "fp16": dict(ok, q=q.half(), k=k.half(), v=k.half()),
+        "mixed dtypes": dict(ok, v=k.bfloat16()),
+        "hd not a multiple of 8": dict(ok, q=torch.zeros(1, 4, 4, 12),
+                                       k=torch.zeros(1, 6, 2, 12),
+                                       v=torch.zeros(1, 6, 2, 12)),
+        "hd above 256": dict(ok, q=torch.zeros(1, 4, 4, 264),
+                             k=torch.zeros(1, 6, 2, 264),
+                             v=torch.zeros(1, 6, 2, 264)),
+        "Hq not a multiple of Hkv": dict(ok, k=torch.zeros(1, 6, 3, 16),
+                                         v=torch.zeros(1, 6, 3, 16)),
+        "non-contiguous q": dict(ok, q=torch.zeros(1, 4, 16, 4).transpose(2, 3)),
+        "q off a 16-byte boundary": dict(ok, q=torch.zeros(257)[1:].view(1, 4, 4, 16)),
+        "int64 positions": dict(ok, q_positions=qp.long()),
+        "wrong position length": dict(ok, kv_positions=kp[:5]),
+        "window 0": dict(ok, window=0),
+        "cap 0": dict(ok, logit_cap=0.0),
+    }
+
+
+@pytest.mark.parametrize("name", list(_bad_inputs()))
+def test_kernel_wrapper_rejects(name):
+    args = _bad_inputs()[name]
+    with pytest.raises(ValueError):
+        tfa.check_inputs(args["q"], args["k"], args["v"], args["q_positions"],
+                         args["kv_positions"], args["window"],
+                         args["logit_cap"])
+
+
+def test_build_targets_hopper_from_the_repo_sources():
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert "-shared" in build.NVCC_FLAGS
+    assert build.SOURCE.is_file() and build.SOURCE.parent == build.CSRC
+    assert str(build.SOURCE).endswith("csrc/flash_fwd.cu")
+    path = build.library_path()
+    assert path.parent == build.BUILD_DIR and path == build.library_path()
+    assert path.name.startswith("libflash_fwd-")
+    assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")

@@ -1,0 +1,229 @@
+"""The port's model against the JAX package's on the CPU, in fp32.
+
+The building blocks get numpy inputs made from a seed; the backbone gets the
+JAX init grafted through repro_torch.bridge (jax.random and torch.Generator
+never agree). The reduced qwen3-4b here has three stacked layers, so the
+[R, ...] layout and the per-layer cache slices are exercised.
+
+Tolerances: 1e-5 for the blocks (one fp32 op order against another), 1e-4
+for logits and caches after three layers (the port's attention is the
+unchunked softmax, JAX's the chunked online one), 2e-3 for decode against a
+longer prefill (as tests/test_models.py: other reduction shapes).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import Backbone as JBackbone
+from repro.models import LayerGroup as JLayerGroup
+from repro.models import common as jcommon
+from repro.models import ffn as jffn
+from repro.models import get_config as jget_config
+from repro.models import reduced as jreduced
+from repro_torch import bridge
+from repro_torch.models import Backbone, LayerGroup, get_config, reduced
+from repro_torch.models import common, ffn
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def test_config_copy_matches_reference():
+    mine, ref = get_config("qwen3-4b"), jget_config("qwen3-4b")
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    assert mine.param_count() == ref.param_count()
+    assert (dataclasses.asdict(reduced(mine))
+            == dataclasses.asdict(jreduced(ref)))
+
+
+def test_other_archs_raise_naming_the_roadmap():
+    with pytest.raises(KeyError, match="ROADMAP"):
+        get_config("recurrentgemma-9b")
+
+
+@pytest.mark.parametrize("kind,slice_name", [("rec", "slice 4"),
+                                             ("rwkv", "slice 5")])
+def test_unported_layer_kinds_raise(kind, slice_name):
+    cfg = reduced(get_config("qwen3-4b"), groups=(LayerGroup((kind,), 1),))
+    with pytest.raises(NotImplementedError, match=slice_name):
+        Backbone(cfg, device="cpu")
+
+
+def test_rms_norm_matches_jax():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 48)).astype(np.float32) * 3
+    s = rng.standard_normal((48,)).astype(np.float32) * 0.1
+    want = jcommon.rms_norm(jnp.asarray(x), jnp.asarray(s), 1e-6)
+    got = common.rms_norm(torch.from_numpy(x), torch.from_numpy(s), 1e-6)
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("cap", [None, 30.0, 5.0])
+def test_softcap_matches_jax(cap):
+    x = np.random.default_rng(8).standard_normal((4, 9)).astype(np.float32) * 20
+    _close(common.softcap(torch.from_numpy(x), cap),
+           jcommon.softcap(jnp.asarray(x), cap), 1e-5)
+
+
+@pytest.mark.parametrize("rotary_pct", [1.0, 0.5, 0.3])
+def test_apply_rope_matches_jax(rotary_pct):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 7, 3, 20)).astype(np.float32)
+    pos = np.array([0, 1, 5, 9, 100, 1023, 4095], np.int32)
+    want = jcommon.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6,
+                              rotary_pct)
+    got = common.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e6,
+                            rotary_pct)
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("kind", ["swiglu", "geglu", "gelu"])
+def test_gated_mlp_matches_jax(kind):
+    rng = np.random.default_rng(2)
+    D, F = 16, 40
+    p = {"w_gate": rng.standard_normal((D, F)), "w_up": rng.standard_normal((D, F)),
+         "w_down": rng.standard_normal((F, D))}
+    if kind == "gelu":
+        p = {"w_gate": p["w_gate"], "b_gate": rng.standard_normal((F,)),
+             "w_down": p["w_down"], "b_down": rng.standard_normal((D,))}
+    p = {k: (v * 0.3).astype(np.float32) for k, v in p.items()}
+    x = rng.standard_normal((3, D)).astype(np.float32)
+    want = jffn.gated_mlp({k: jnp.asarray(v) for k, v in p.items()},
+                          jnp.asarray(x), kind)
+    got = ffn.gated_mlp({k: torch.from_numpy(v) for k, v in p.items()},
+                        torch.from_numpy(x), kind)
+    _close(got, want, 1e-5)
+
+
+def test_bridge_round_trip_keeps_keys_shapes_and_bits():
+    rng = np.random.default_rng(3)
+    tree = {"a": rng.standard_normal((2, 3)).astype(np.float32),
+            "g0": {"s0": {"w": rng.standard_normal((4, 5)).astype(np.float32),
+                          "i": np.arange(6, dtype=np.int32)}}}
+    back = bridge.params_to_numpy(bridge.params_from_numpy(tree, device="cpu"))
+    assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(tree)
+    for a, b in zip(jax.tree_util.tree_leaves(tree), jax.tree_util.tree_leaves(back)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    bf = np.asarray(jnp.asarray(tree["a"]).astype(jnp.bfloat16))
+    t = bridge.params_from_numpy({"a": bf}, device="cpu")["a"]
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.float().numpy(), bf.astype(np.float32))
+
+
+# --------------------------------------------------------------------------- #
+# The backbone, three stacked layers of reduced qwen3-4b                       #
+# --------------------------------------------------------------------------- #
+CTX = 40
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(jax backbone, jax params, port backbone, port params), grafted."""
+    jcfg = jreduced(jget_config("qwen3-4b"),
+                    groups=(JLayerGroup(("attn",), 3),))
+    tcfg = reduced(get_config("qwen3-4b"), groups=(LayerGroup(("attn",), 3),))
+    jbb = JBackbone(jcfg, compute_dtype=jnp.float32, remat=False)
+    jparams = jbb.init(jax.random.PRNGKey(0))
+    # non-zero norm scales, so (1 + scale) is exercised too
+    leaves, treedef = jax.tree_util.tree_flatten(jparams)
+    rng = np.random.default_rng(4)
+    leaves = [l + 0.1 * rng.standard_normal(l.shape).astype(np.float32)
+              if not np.any(np.asarray(l)) else l for l in leaves]
+    jparams = jax.tree_util.tree_unflatten(treedef, leaves)
+    tbb = Backbone(tcfg, compute_dtype=torch.float32, device="cpu")
+    tparams = bridge.params_from_numpy(_np_tree(jparams), device="cpu")
+    return jbb, jparams, tbb, tparams
+
+
+def test_init_layout_matches_reference(pair):
+    jbb, jparams, tbb, _ = pair
+    mine = bridge.params_to_numpy(tbb.init(0))
+    ref = _np_tree(jparams)
+    assert jax.tree_util.tree_structure(mine) == jax.tree_util.tree_structure(ref)
+    for a, b in zip(jax.tree_util.tree_leaves(mine), jax.tree_util.tree_leaves(ref)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    assert mine["g0"]["s0"]["wq"].shape[0] == 3
+
+
+def test_prefill_and_decode_match_jax(pair):
+    jbb, jparams, tbb, tparams = pair
+    rng = np.random.default_rng(5)
+    B, S, N = 2, 13, 4
+    toks = rng.integers(0, tbb.cfg.vocab, (B, S + N), dtype=np.int32)
+    jlog, jcache = jbb.prefill(jparams, {"tokens": jnp.asarray(toks[:, :S])},
+                               CTX)
+    tlog, tcache = tbb.prefill(tparams, {"tokens": torch.from_numpy(toks[:, :S])},
+                               CTX)
+    _close(tlog, jlog, 1e-4)
+    mine, ref = bridge.cache_to_numpy(tcache), _np_tree(jcache)
+    assert jax.tree_util.tree_structure(mine) == jax.tree_util.tree_structure(ref)
+    np.testing.assert_array_equal(mine["g0"]["s0"]["kpos"],
+                                  ref["g0"]["s0"]["kpos"])
+    assert int(mine["pos"]) == int(ref["pos"]) == S
+    for key in ("k", "v"):
+        _close(mine["g0"]["s0"][key], ref["g0"]["s0"][key], 1e-4)
+    jdec = jax.jit(jbb.decode_step)
+    for i in range(N):
+        tok = toks[:, S + i:S + i + 1]
+        jlog, jcache = jdec(jparams, jcache, jnp.asarray(tok))
+        tlog, tcache = tbb.decode_step(tparams, tcache, torch.from_numpy(tok))
+        _close(tlog, jlog, 1e-4)
+    mine, ref = bridge.cache_to_numpy(tcache), _np_tree(jcache)
+    np.testing.assert_array_equal(mine["g0"]["s0"]["kpos"],
+                                  ref["g0"]["s0"]["kpos"])
+    _close(mine["g0"]["s0"]["k"], ref["g0"]["s0"]["k"], 1e-4)
+    assert int(mine["pos"]) == S + N
+
+
+def test_decode_from_a_grafted_jax_cache(pair):
+    """The cache layouts agree in the other direction too: the port decodes
+    from JAX's prefill cache as JAX does."""
+    jbb, jparams, tbb, tparams = pair
+    toks = np.random.default_rng(9).integers(0, tbb.cfg.vocab, (2, 12),
+                                             dtype=np.int32)
+    _, jcache = jbb.prefill(jparams, {"tokens": jnp.asarray(toks[:, :11])}, CTX)
+    tcache = bridge.cache_from_numpy(_np_tree(jcache), device="cpu")
+    assert tcache["pos"] == 11
+    jlog, _ = jbb.decode_step(jparams, jcache, jnp.asarray(toks[:, 11:]))
+    tlog, _ = tbb.decode_step(tparams, tcache, torch.from_numpy(toks[:, 11:]))
+    _close(tlog, jlog, 1e-4)
+
+
+def test_prefill_wraps_the_ring_like_jax(pair):
+    """A context longer than the ring keeps the last C positions at
+    position % C, in both packages."""
+    jbb, jparams, tbb, tparams = pair
+    toks = np.random.default_rng(6).integers(0, tbb.cfg.vocab, (1, 29),
+                                             dtype=np.int32)
+    C = 16
+    jlog, jcache = jbb.prefill(jparams, {"tokens": jnp.asarray(toks)}, C)
+    tlog, tcache = tbb.prefill(tparams, {"tokens": torch.from_numpy(toks)}, C)
+    _close(tlog, jlog, 1e-4)
+    mine, ref = bridge.cache_to_numpy(tcache), _np_tree(jcache)
+    np.testing.assert_array_equal(mine["g0"]["s0"]["kpos"],
+                                  ref["g0"]["s0"]["kpos"])
+    _close(mine["g0"]["s0"]["v"], ref["g0"]["s0"]["v"], 1e-4)
+
+
+def test_decode_matches_longer_prefill(pair):
+    """Cache correctness in the port alone: decode(t_{S+1} | prefill(S)) ==
+    prefill(S+1)."""
+    _, _, tbb, tparams = pair
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, tbb.cfg.vocab, (2, 18), dtype=np.int32))
+    _, cache = tbb.prefill(tparams, {"tokens": toks[:, :17]}, CTX)
+    got, cache = tbb.decode_step(tparams, cache, toks[:, 17:])
+    want, _ = tbb.prefill(tparams, {"tokens": toks}, CTX)
+    _close(got, want, 2e-3)
+    assert cache["pos"] == 18
