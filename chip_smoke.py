@@ -7,23 +7,29 @@ Phases; each one that fails raises, and the process exits non-zero:
 
 1. The card: nvidia-smi's name and power limit, torch's device name. TF32
    is switched off, so fp32 matrix products are full fp32.
-2. Build the kernel with nvcc from the checkout's sources; print the
-   seconds and ``-Xptxas -v``.
+2. Build the kernels with nvcc from the checkout's sources, one nvcc per
+   source, all started together; print the seconds and ``-Xptxas -v``.
 3. Hold each kernel against its plain PyTorch version on the card, in fp32
-   and bf16, at the shapes of tests/test_kernels.py's FLASH_CASES, the
-   qwen3-4b prefill shape and a decode against a wrapped ring with empty
-   slots. Time each (CUDA events, after warm-up, inputs rotated through
-   copies larger than the L2 cache): the kernel, the plain version,
-   ``F.scaled_dot_product_attention`` with repeated KV as the library
-   yardstick (never called by the port), and the bound computed from the
-   inputs.
-4. The model at the full qwen3-4b width and depth 2: in fp32, decode
-   matches a longer prefill; in bf16, the kernel path matches the
-   plain-attention path with the same weights.
-5. Serve full qwen3-4b (36 layers, bf16 weights and compute, weights from
-   a seeded torch.Generator) through ``Server(slots=8, ctx=1024)``: 16
-   requests of 512 prompt tokens and 32 new tokens each, two synchronised
-   waves. The kernel's launch count must be 36 x (requests + decode steps).
+   and bf16 inputs, and time each (CUDA events, after warm-up, inputs
+   rotated through copies larger than the L2 cache) beside the plain
+   version, a library call where one computes the same function (never
+   called by the port) and the bound computed from the inputs:
+   K1 (flash_fwd) at tests/test_kernels.py's FLASH_CASES shapes, qwen3-4b's
+   prefill and ring decode, and recurrentgemma-9b's (hd 256, MQA 16/1,
+   window 2048); K2 (rglru_scan) at RGLRU_CASES shapes and recurrentgemma's
+   prefill and decode; K3 (wkv6_scan) at RWKV_CASES shapes, rwkv6-3b's
+   prefill and decode, and state chaining.
+4. Each model at full width and reduced depth (qwen3-4b and rwkv6-3b 2
+   layers, recurrentgemma-9b one (rec, rec, local) group with a prompt past
+   its window): in fp32, decode matches a longer prefill; in bf16, the
+   kernel path matches the all-plain path with the same weights.
+5. Serve each model at full depth (bf16 weights and compute, weights from a
+   seeded torch.Generator) through ``Server``, two synchronised waves of
+   16 requests (see SERVES). Every launch counter is set to 0 just before
+   the run and read just after: each kernel must have launched exactly
+   (its layers) x (requests + decode steps) times. The first tokens must
+   equal a direct prefill's; a torch.profiler trace shows where a prefill's
+   and a decode step's time goes. Each model is freed before the next.
 6. Print the kernels line, the card line and the result line.
 
 It exits 2 without a CUDA device, and fails where the repo's sources are
@@ -53,6 +59,12 @@ L2_BYTES = 50 * 2 ** 20
 # about 1e-6 to bf16 once, so they differ by at most one bf16 ulp of |want|
 # (2**-7 of it); the limit allows two, over a floor far above fp32's error.
 TOL = {torch.float32: (5e-5, 5e-5), torch.bfloat16: (1e-4, 2.0 ** -6)}
+# The scans return fp32 whatever their input type, and both sides see the
+# same input values, so bf16 inputs keep the fp32 limit (atol = rtol): 1e-5
+# for K2 (the kernel does the plain version's operations in its order; only
+# expf, log1pf and sqrtf round differently), 2e-4 for K3 (y sums 64 products
+# in another order), the JAX tests' limits for the two kernels.
+SCAN_TOL = {"rglru_scan": 1e-5, "wkv6_scan": 2e-4}
 MODEL_FP32_TOL = 2e-3      # decode vs longer prefill (tests/test_models.py)
 MODEL_BF16_TOL = 0.125     # kernel vs plain path: a few bf16 ulps of a logit
 
@@ -67,7 +79,18 @@ FLASH_SHAPES = [
     (1, 72, 72, 4, 2, 24, True, 32, 50.0),
     (2, 64, 64, 4, 2, 32, True, None, None),
 ]
-SERVE = dict(slots=8, ctx=1024, requests=16, prompt_len=512, max_new=32)
+# Serving runs: two synchronised waves of `requests / slots` requests each.
+# recurrentgemma's prompt is longer than its 2048-token window, so its local
+# ring wraps in prefill and in decode.
+SERVES = {
+    "qwen3-4b": dict(slots=8, ctx=1024, requests=16, prompt_len=512, max_new=32),
+    "recurrentgemma-9b": dict(slots=8, ctx=4096, requests=16, prompt_len=2560,
+                              max_new=32),
+    "rwkv6-3b": dict(slots=8, ctx=1024, requests=16, prompt_len=512, max_new=32),
+}
+SERVE = SERVES["qwen3-4b"]
+RG = SERVES["recurrentgemma-9b"]
+RW = SERVES["rwkv6-3b"]
 
 
 def log(msg: str) -> None:
@@ -125,6 +148,21 @@ def attention_bound(q, k, qp, kp, causal, window):
                                        else "bytes")
 
 
+def rotating(fn, inputs):
+    """A call of ``fn`` that takes the next set of ``inputs`` each time."""
+    i = [0]
+
+    def call():
+        i[0] = (i[0] + 1) % len(inputs)
+        return fn(*inputs[i[0]])
+    return call
+
+
+def n_buffers(nbytes: int) -> int:
+    """Sets of inputs to rotate through so that they exceed the L2 twice."""
+    return max(1, min(16, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+
+
 def kernel_case(name, B, Sq, Skv, Hq, Hkv, hd, causal, window, cap, dtype,
                 qpos=None, kpos=None):
     from repro_torch.kernels import flash_attention as fa
@@ -134,7 +172,7 @@ def kernel_case(name, B, Sq, Skv, Hq, Hkv, hd, causal, window, cap, dtype,
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     in_bytes = (B * Sq * Hq + 2 * B * Skv * Hkv) * hd * (4 if dtype == torch.float32 else 2)
-    nbuf = max(1, min(16, math.ceil(2 * L2_BYTES / in_bytes)))
+    nbuf = n_buffers(in_bytes)
     bufs = [tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
                   for shape in ((B, Sq, Hq, hd), (B, Skv, Hkv, hd),
                                 (B, Skv, Hkv, hd)))
@@ -157,14 +195,6 @@ def kernel_case(name, B, Sq, Skv, Hq, Hkv, hd, causal, window, cap, dtype,
                              f"version, max abs err {max_err} (atol {atol}, "
                              f"rtol {rtol})")
 
-    def rotating(fn, inputs):
-        i = [0]
-
-        def call():
-            i[0] = (i[0] + 1) % len(inputs)
-            return fn(*inputs[i[0]])
-        return call
-
     ms = time_ms(rotating(lambda a, b, c: fa.flash_fwd(a, b, c, **kw), bufs))
     plain_ms = time_ms(rotating(
         lambda a, b, c: ref.attention_plain(a, b, c, **kw), bufs), iters=5)
@@ -182,7 +212,8 @@ def kernel_case(name, B, Sq, Skv, Hq, Hkv, hd, causal, window, cap, dtype,
                 a, b, c, attn_mask=mask, is_causal=aligned), lib_bufs))
         del lib_bufs
     bound_ms, bound_by = attention_bound(q, k, qp, kp, causal, window)
-    row = dict(case=name, dtype=str(dtype).replace("torch.", ""),
+    row = dict(kernel="flash_fwd", case=name,
+               dtype=str(dtype).replace("torch.", ""),
                shape=[B, Sq, Skv, Hq, Hkv, hd], causal=causal, window=window,
                logit_cap=cap, max_abs_err=max_err, atol=atol, rtol=rtol, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
@@ -194,12 +225,22 @@ def kernel_case(name, B, Sq, Skv, Hq, Hkv, hd, causal, window, cap, dtype,
     return row
 
 
-def phase_kernels():
-    cfg = dict(Hq=32, Hkv=8, hd=128)
-    C, first, last = SERVE["ctx"], 600, 1500   # wrapped at 1024, 123 empty
+def _ring(C, first, last):
+    """kv positions of a C-slot ring holding first..last at slots p % C."""
     ring = np.full((C,), -1, np.int32)
     for p in range(first, last + 1):
         ring[p % C] = p
+    return ring
+
+
+def phase_flash():
+    qw = dict(Hq=32, Hkv=8, hd=128)
+    C, first, last = SERVE["ctx"], 600, 1500   # wrapped at 1024, 123 empty
+    ring = _ring(C, first, last)
+    # recurrentgemma's local layers: window 2048, MQA 16/1, hd 256; decode
+    # at the last step of a wave, the 2048-slot ring full and wrapped
+    rg_last = RG["prompt_len"] + RG["max_new"] - 2
+    rg_ring = _ring(2048, rg_last - 2047, rg_last)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for i, (B, Sq, Skv, Hq, Hkv, hd, causal, window, cap) in enumerate(
@@ -207,65 +248,203 @@ def phase_kernels():
             rows.append(kernel_case(f"flash_case_{i}", B, Sq, Skv, Hq, Hkv, hd,
                                     causal, window, cap, dtype))
         rows.append(kernel_case("qwen3_prefill", 1, SERVE["prompt_len"],
-                                SERVE["prompt_len"], cfg["Hq"], cfg["Hkv"],
-                                cfg["hd"], True, None, None, dtype))
+                                SERVE["prompt_len"], qw["Hq"], qw["Hkv"],
+                                qw["hd"], True, None, None, dtype))
         rows.append(kernel_case("qwen3_decode", SERVE["slots"], 1, C,
-                                cfg["Hq"], cfg["Hkv"], cfg["hd"], True, None,
+                                qw["Hq"], qw["Hkv"], qw["hd"], True, None,
                                 None, dtype, qpos=[last], kpos=ring))
+        rows.append(kernel_case("rgemma_prefill", 1, RG["prompt_len"],
+                                RG["prompt_len"], 16, 1, 256, True, 2048, None,
+                                dtype))
+        rows.append(kernel_case("rgemma_decode", RG["slots"], 1, 2048, 16, 1,
+                                256, True, 2048, None, dtype, qpos=[rg_last],
+                                kpos=rg_ring))
+    return rows
+
+
+def scan_case(kernel, name, dtype, make, run, plain, nbytes, flops):
+    """Hold one scan kernel against its plain version on ``make(seed)``'s
+    inputs and time both; the bound is the larger of ``nbytes`` over the
+    memory rate and ``flops`` of fp32 over the fp32 rate."""
+    atol = rtol = SCAN_TOL[kernel]
+    args = make(0)
+    got = run(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    max_err = 0.0
+    for g, w in zip(got, want):
+        err = (g - w).abs()
+        max_err = max(max_err, float(err.max()))
+        if g.dtype != torch.float32 or not bool(
+                (err <= atol + rtol * w.abs()).all()):
+            raise AssertionError(f"{kernel} {name} {dtype}: kernel disagrees "
+                                 f"with the plain version, max abs err "
+                                 f"{max_err} (atol = rtol = {atol})")
+    bufs = [args] + [make(s) for s in range(1, n_buffers(nbytes))]
+    ms = time_ms(rotating(run, bufs))
+    plain_ms = time_ms(rotating(plain, bufs), iters=3, warmup=1)
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    row = dict(kernel=kernel, case=name, dtype=str(dtype).replace("torch.", ""),
+               shape=list(args[0].shape), max_abs_err=max_err, atol=atol,
+               rtol=rtol, ms=ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=bound_ms, bound_by=bound_by)
+    log(f"[kernel] {kernel} {name:>15} {row['dtype']:>8} err {max_err:.3e} "
+        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library none "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    return row
+
+
+def _gen(seed):
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 1000 + seed)
+    return gen
+
+
+def phase_rglru():
+    """K2 at RGLRU_CASES shapes and recurrentgemma's prefill and decode:
+    random gates in (0, 1), random a_log, nonzero h0."""
+    from repro_torch.kernels import ref, rglru
+
+    shapes = [("rglru_case_0", 1, 32, 64), ("rglru_case_1", 2, 50, 96),
+              ("rglru_case_2", 2, 64, 128), ("rglru_case_3", 1, 33, 48),
+              ("rgemma_prefill", 1, RG["prompt_len"], 4096),
+              ("rgemma_decode", RG["slots"], 1, 4096)]
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, T, W in shapes:
+            def make(seed, B=B, T=T, W=W):
+                g = _gen(seed)
+                rnd = lambda *s: torch.randn(s, generator=g, device=DEVICE)
+                return (rnd(B, T, W).to(dtype), rnd(W).to(dtype),
+                        torch.sigmoid(rnd(B, T, W)).to(dtype),
+                        torch.sigmoid(rnd(B, T, W)).to(dtype), rnd(B, W))
+            es = torch.finfo(dtype).bits // 8
+            nbytes = es * (3 * B * T * W + W) + 4 * (B * T * W + 2 * B * W)
+            rows.append(scan_case("rglru_scan", name, dtype, make,
+                                  rglru.rglru_scan, ref.rglru_scan_plain,
+                                  nbytes, 9 * B * T * W))
+    return rows
+
+
+def phase_wkv():
+    """K3 at RWKV_CASES shapes and rwkv6's prefill and decode: random u, w
+    in (0, 1) in fp32 as the model passes it, a nonzero state; then state
+    chaining at the prefill shape."""
+    from repro_torch.kernels import ref, rwkv6
+
+    shapes = [("wkv_case_0", 1, 32, 2, 16), ("wkv_case_1", 2, 50, 4, 32),
+              ("wkv_case_2", 2, 64, 1, 8), ("wkv_case_3", 1, 33, 2, 16),
+              ("rwkv6_prefill", 1, RW["prompt_len"], 40, 64),
+              ("rwkv6_decode", RW["slots"], 1, 40, 64)]
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, T, H, hd in shapes:
+            def make(seed, B=B, T=T, H=H, hd=hd):
+                g = _gen(seed)
+                rnd = lambda *s: torch.randn(s, generator=g, device=DEVICE)
+                return (rnd(B, T, H, hd).to(dtype), rnd(B, T, H, hd).to(dtype),
+                        rnd(B, T, H, hd).to(dtype),
+                        torch.sigmoid(rnd(B, T, H, hd)), rnd(H, hd).to(dtype),
+                        rnd(B, H, hd, hd))
+            es = torch.finfo(dtype).bits // 8
+            n = B * T * H * hd
+            nbytes = es * (3 * n + H * hd) + 4 * (2 * n + 2 * B * H * hd * hd)
+            # the u-term factors out of y (see wkv6_scan.cu): 2 operations
+            # per state element for S^T r, 3 for w S + k v^T, 5 per element
+            # of r for u, k, r and v
+            rows.append(scan_case("wkv6_scan", name, dtype, make,
+                                  rwkv6.wkv6_scan, ref.rwkv6_scan_plain,
+                                  nbytes, (5 * hd + 5) * n))
+    # two half-length calls that hand the state on equal one full call
+    g = _gen(99)
+    r, k, v, w = (torch.randn(1, RW["prompt_len"], 40, 64, generator=g,
+                              device=DEVICE) for _ in range(4))
+    w, u = torch.sigmoid(w), torch.randn(40, 64, generator=g, device=DEVICE)
+    s0 = torch.randn(1, 40, 64, 64, generator=g, device=DEVICE)
+    half = RW["prompt_len"] // 2
+    y_full, s_full = rwkv6.wkv6_scan(r, k, v, w, u, s0)
+    parts = [t[:, :half].contiguous() for t in (r, k, v, w)]
+    y1, s1 = rwkv6.wkv6_scan(*parts, u, s0)
+    parts = [t[:, half:].contiguous() for t in (r, k, v, w)]
+    y2, s2 = rwkv6.wkv6_scan(*parts, u, s1)
+    tol = SCAN_TOL["wkv6_scan"]
+    err = max(float((torch.cat([y1, y2], 1) - y_full).abs().max()),
+              float((s2 - s_full).abs().max()))
+    log(f"[kernel] wkv6_scan state chaining: 2 x {half} steps vs {2 * half}, "
+        f"max abs err {err:.3e}")
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, atol=tol, rtol=tol)
+    torch.testing.assert_close(s2, s_full, atol=tol, rtol=tol)
     return rows
 
 
 # --------------------------------------------------------------------------- #
-# Phase 4: the model at full width, depth 2                                    #
+# Phase 4: each model at full width, reduced depth                             #
 # --------------------------------------------------------------------------- #
-def phase_model():
+# arch -> (layer groups, fp32 prefill length, bf16 prompt length, ctx)
+MODEL_CHECKS = {
+    "qwen3-4b": (((("attn",), 2),), 64, SERVE["prompt_len"], SERVE["ctx"]),
+    "recurrentgemma-9b": (((("rec", "rec", "local"), 1),), 2100, 2100,
+                          RG["ctx"]),
+    "rwkv6-3b": (((("rwkv",), 2),), 64, RW["prompt_len"], RW["ctx"]),
+}
+
+
+def phase_model(arch):
     from repro_torch.models import Backbone, LayerGroup, get_config
 
-    cfg = dataclasses.replace(get_config("qwen3-4b"),
-                              groups=(LayerGroup(("attn",), 2),))
+    groups, n32, n16, ctx = MODEL_CHECKS[arch]
+    cfg = dataclasses.replace(get_config(arch), groups=tuple(
+        LayerGroup(pattern, repeat) for pattern, repeat in groups))
+    depth = f"{cfg.n_layers} layers {'+'.join(cfg.layer_kinds())}"
     rng = np.random.default_rng(SEED)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 65),
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, n32 + 1),
                                          dtype=np.int32)).to(DEVICE)
 
     bb = Backbone(cfg, compute_dtype=torch.float32, param_dtype=torch.float32,
                   device=DEVICE)
     params = bb.init(SEED + 1)
-    _, cache = bb.prefill(params, {"tokens": toks[:, :64]}, 128)
-    got, _ = bb.decode_step(params, cache, toks[:, 64:])
-    want, _ = bb.prefill(params, {"tokens": toks}, 128)
+    _, cache = bb.prefill(params, {"tokens": toks[:, :n32]}, ctx)
+    got, _ = bb.decode_step(params, cache, toks[:, n32:])
+    want, _ = bb.prefill(params, {"tokens": toks}, ctx)
     if got.shape != (2, 1, bb.Vp) or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"fp32 decode logits {tuple(got.shape)} not finite")
+        raise AssertionError(f"{arch} fp32 decode logits {tuple(got.shape)} "
+                             "not finite")
     fp32_err = float((got - want).abs().max())
-    log(f"[model] full width, depth 2, fp32: decode vs longer prefill max abs "
-        f"err {fp32_err:.3e} (tol {MODEL_FP32_TOL})")
+    log(f"[model] {arch} full width, {depth}, fp32: decode after {n32} vs "
+        f"prefill of {n32 + 1}, max abs err {fp32_err:.3e} "
+        f"(tol {MODEL_FP32_TOL})")
     if fp32_err > MODEL_FP32_TOL:
-        raise AssertionError("fp32 decode disagrees with the longer prefill")
+        raise AssertionError(f"{arch}: fp32 decode disagrees with the longer "
+                             "prefill")
     del bb, params, cache, got, want
 
     kern = Backbone(cfg, compute_dtype=torch.bfloat16,
                     param_dtype=torch.bfloat16, device=DEVICE)
     plain = Backbone(cfg, compute_dtype=torch.bfloat16,
-                     param_dtype=torch.bfloat16, attn_impl="plain",
+                     param_dtype=torch.bfloat16, kernel_impl="plain",
                      device=DEVICE)
     params = kern.init(SEED + 2)
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, SERVE["prompt_len"] + 4),
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n16 + 4),
                                            dtype=np.int32)).to(DEVICE)
-    S = SERVE["prompt_len"]
     errs = []
-    lk, ck = kern.prefill(params, {"tokens": prompt[:, :S]}, SERVE["ctx"])
-    lp, cp = plain.prefill(params, {"tokens": prompt[:, :S]}, SERVE["ctx"])
+    lk, ck = kern.prefill(params, {"tokens": prompt[:, :n16]}, ctx)
+    lp, cp = plain.prefill(params, {"tokens": prompt[:, :n16]}, ctx)
     errs.append(float((lk.float() - lp.float()).abs().max()))
     for i in range(4):
-        t = prompt[:, S + i:S + i + 1]
+        t = prompt[:, n16 + i:n16 + i + 1]
         lk, ck = kern.decode_step(params, ck, t)
         lp, cp = plain.decode_step(params, cp, t)
         errs.append(float((lk.float() - lp.float()).abs().max()))
-    log(f"[model] full width, depth 2, bf16 (allow_bf16_reduced_precision_"
-        f"reduction={torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction})"
-        f": kernel vs plain attention, max abs logit err prefill {errs[0]:.3e}, "
-        f"decode {max(errs[1:]):.3e} (tol {MODEL_BF16_TOL})")
+    log(f"[model] {arch} full width, {depth}, bf16 (allow_bf16_reduced_"
+        f"precision_reduction="
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}"
+        f"): kernels vs plain versions, max abs logit err prefill of {n16} "
+        f"{errs[0]:.3e}, decode {max(errs[1:]):.3e} (tol {MODEL_BF16_TOL})")
     if max(errs) > MODEL_BF16_TOL:
-        raise AssertionError("bf16 kernel path disagrees with the plain path")
+        raise AssertionError(f"{arch}: bf16 kernel path disagrees with the "
+                             "plain path")
     del kern, plain, params, ck, cp
     torch.cuda.empty_cache()
     return {"fp32_decode_vs_prefill_err": fp32_err,
@@ -273,14 +452,20 @@ def phase_model():
 
 
 # --------------------------------------------------------------------------- #
-# Phase 5: serve full qwen3-4b                                                 #
+# Phase 5: serve each model at full depth                                      #
 # --------------------------------------------------------------------------- #
-def phase_serve():
-    from repro_torch.kernels import flash_attention as fa
+def _counters():
+    from repro_torch.kernels import flash_attention, rglru, rwkv6
+    return {"flash_fwd": flash_attention, "rglru_scan": rglru,
+            "wkv6_scan": rwkv6}
+
+
+def phase_serve(arch):
     from repro_torch.models import Backbone, get_config
     from repro_torch.runtime.serve_loop import Request, Server
 
-    cfg = get_config("qwen3-4b")
+    spec = SERVES[arch]
+    cfg = get_config(arch)
     bb = Backbone(cfg, compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
                   device=DEVICE)
     t0 = time.perf_counter()
@@ -290,75 +475,87 @@ def phase_serve():
         f"{cfg.param_count() / 1e9:.3f} B params in bf16, init "
         f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(SEED)
-    prompts = rng.integers(0, cfg.vocab, (SERVE["requests"], SERVE["prompt_len"]),
+    prompts = rng.integers(0, cfg.vocab, (spec["requests"], spec["prompt_len"]),
                            dtype=np.int32)
 
-    warm = Server(bb, params, slots=SERVE["slots"], ctx=SERVE["ctx"])
+    warm = Server(bb, params, slots=spec["slots"], ctx=spec["ctx"])
     warm.submit(Request(rid=-1, prompt=prompts[0], max_new=2))
     warm.run()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    srv = Server(bb, params, slots=SERVE["slots"], ctx=SERVE["ctx"])
-    reqs = [Request(rid=i, prompt=prompts[i], max_new=SERVE["max_new"])
-            for i in range(SERVE["requests"])]
+    srv = Server(bb, params, slots=spec["slots"], ctx=spec["ctx"])
+    reqs = [Request(rid=i, prompt=prompts[i], max_new=spec["max_new"])
+            for i in range(spec["requests"])]
     for r in reqs:
         srv.submit(r)
-    fa.launches = 0
+    counters = _counters()
+    for mod in counters.values():
+        mod.launches = 0
     t0 = time.perf_counter()
     srv.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa.launches
+    launches = {name: mod.launches for name, mod in counters.items()}
     peak = torch.cuda.max_memory_allocated()
 
     steps = srv.stats["steps"]
-    waves = SERVE["requests"] // SERVE["slots"]
-    if not all(r.done.is_set() and len(r.out) == SERVE["max_new"] for r in reqs):
+    waves = spec["requests"] // spec["slots"]
+    if not all(r.done.is_set() and len(r.out) == spec["max_new"] for r in reqs):
         raise AssertionError("not every request finished with max_new tokens")
     if not all(0 <= t < cfg.vocab for r in reqs for t in r.out):
         raise AssertionError("a token outside the vocabulary")
-    if steps != waves * (SERVE["max_new"] - 1):
+    if steps != waves * (spec["max_new"] - 1):
         raise AssertionError(f"{steps} decode steps, want "
-                             f"{waves * (SERVE['max_new'] - 1)}")
-    want = cfg.n_layers * (SERVE["requests"] + steps)
-    if launches != want:
-        raise AssertionError(f"flash kernel launched {launches} times on the "
-                             f"main path, want {want}")
+                             f"{waves * (spec['max_new'] - 1)}")
+    kinds = cfg.layer_kinds()
+    layers = {"flash_fwd": sum(k in ("attn", "local") for k in kinds),
+              "rglru_scan": kinds.count("rec"), "wkv6_scan": kinds.count("rwkv")}
+    calls = spec["requests"] + steps
+    for name, n in layers.items():
+        if launches[name] != n * calls:
+            raise AssertionError(f"{arch}: {name} launched {launches[name]} "
+                                 f"times on the main path, want {n} x "
+                                 f"({spec['requests']} + {steps})")
     # the first token of a request is the argmax of a direct prefill
     for r in reqs[:2]:
         logits, _ = bb.prefill(params, {"tokens": torch.from_numpy(
-            r.prompt[None, :]).to(DEVICE)}, SERVE["ctx"])
+            r.prompt[None, :]).to(DEVICE)}, spec["ctx"])
         if logits.shape != (1, 1, bb.Vp) or not bool(torch.isfinite(logits).all()):
             raise AssertionError("prefill logits not finite")
         if r.out[0] != int(torch.argmax(logits[0, -1, :cfg.vocab])):
             raise AssertionError("served first token != direct prefill argmax")
     tokens = sum(len(r.out) for r in reqs)
     out = {
-        "requests": len(reqs), "decode_steps": steps, "flash_launches": launches,
+        "arch": arch, "requests": len(reqs), "prompt_len": spec["prompt_len"],
+        "decode_steps": steps, "launches": launches,
         "prefill_ms_per_request": srv.timing["prefill_s"] / len(reqs) * 1e3,
         "decode_ms_per_step": srv.timing["decode_s"] / steps * 1e3,
         "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
         "max_memory_allocated_gb": peak / 1e9,
     }
-    log(f"[serve] {len(reqs)} requests, {steps} decode steps, {tokens} tokens "
-        f"in {wall:.3f} s ({out['tokens_per_s']:.1f} tok/s); prefill "
+    counts = ", ".join(f"{name} {launches[name]} = {n} x ({len(reqs)} + "
+                       f"{steps})" for name, n in layers.items() if n)
+    log(f"[serve] {arch}: {len(reqs)} requests of {spec['prompt_len']} tokens, "
+        f"{steps} decode steps, {tokens} tokens in {wall:.3f} s "
+        f"({out['tokens_per_s']:.1f} tok/s); prefill "
         f"{out['prefill_ms_per_request']:.2f} ms/request, decode "
-        f"{out['decode_ms_per_step']:.2f} ms/step; flash launches {launches} "
-        f"= {cfg.n_layers} x ({len(reqs)} + {steps}); peak memory "
-        f"{out['max_memory_allocated_gb']:.2f} GB")
+        f"{out['decode_ms_per_step']:.2f} ms/step; launches {counts}; peak "
+        f"memory {out['max_memory_allocated_gb']:.2f} GB")
     log("[serve] " + json.dumps(out))
-    out["trace"] = phase_trace(bb, params, prompts)
+    out["trace"] = phase_trace(bb, params, prompts, spec)
+    del srv, warm, bb, params
+    torch.cuda.empty_cache()
     return out
 
 
-def phase_trace(bb, params, prompts):
+def phase_trace(bb, params, prompts, spec):
     """Where the time goes: torch.profiler over 3 batch-1 prefills and over
     3 decode steps of all slots. Device busy time is the union of the CUDA
     activity intervals; the idle share is 1 - busy / host wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    slots, ctx = SERVE["slots"], SERVE["ctx"]
+    slots, ctx = spec["slots"], spec["ctx"]
     _, cache = bb.prefill(params, {"tokens": torch.from_numpy(
         prompts[:slots]).to(DEVICE)}, ctx)
     tok = torch.zeros((slots, 1), dtype=torch.int32, device=DEVICE)
@@ -396,21 +593,35 @@ def phase_trace(bb, params, prompts):
             if e > end:
                 busy += e - max(s, end)
                 end = e
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+        # the top 8, and the port's own kernels wherever they rank
+        shown = ranked[:8] + [kv for kv in ranked[8:] if any(
+            f"{k}_kernel" in kv[0] for k in SOURCE)]
         result[name] = {
             "host_ms_per_call": wall_us / 3e3,
             "device_busy_ms_per_call": busy / 3e3,
             "device_idle_share": 1.0 - busy / wall_us,
             "top_kernels_ms_per_call": {
-                k[:80]: [t / 3e3, n // 3] for k, (t, n) in top},
+                k[:80]: [t / 3e3, n // 3] for k, (t, n) in shown},
         }
         r = result[name]
-        log(f"[trace] {name}: host {r['host_ms_per_call']:.3f} ms/call, device "
-            f"busy {r['device_busy_ms_per_call']:.3f} ms, idle share "
-            f"{r['device_idle_share']:.3f}")
+        log(f"[trace] {bb.cfg.name} {name}: host {r['host_ms_per_call']:.3f} "
+            f"ms/call, device busy {r['device_busy_ms_per_call']:.3f} ms, idle "
+            f"share {r['device_idle_share']:.3f}")
         for k, (t, n) in r["top_kernels_ms_per_call"].items():
             log(f"[trace]   {t:9.4f} ms  x{n:<5d} {k}")
     return result
+
+
+# The row of each kernel that stands for it in the kernels line, and the TPU
+# kernel it replaces
+HEADLINE = {
+    "flash_fwd": ("qwen3_prefill", "src/repro/kernels/flash_attention.py:28"),
+    "rglru_scan": ("rgemma_prefill", "src/repro/kernels/rglru_kernel.py:22"),
+    "wkv6_scan": ("rwkv6_prefill", "src/repro/kernels/rwkv6_kernel.py:26"),
+}
+SOURCE = {"flash_fwd": "flash_fwd.cu", "rglru_scan": "rglru_scan.cu",
+          "wkv6_scan": "wkv6_scan.cu"}
 
 
 def main() -> int:
@@ -431,26 +642,30 @@ def main() -> int:
         f"| {kind} | devices {torch.cuda.device_count()} | allow_tf32 False")
 
     b = build.build()
-    log(f"[build] {build.SOURCE.name}: {b['seconds']:.2f} s -> {b['path']}\n"
-        f"{b['log']}")
+    log(f"[build] {', '.join(src.name for src in build.SOURCES)}: "
+        f"{b['seconds']:.2f} s -> {b['path']}\n{b['log']}")
 
-    rows = phase_kernels()
-    model = phase_model()
-    serve = phase_serve()
+    rows = phase_flash() + phase_rglru() + phase_wkv()
+    model = {arch: phase_model(arch) for arch in SERVES}
+    serve = {arch: phase_serve(arch) for arch in SERVES}
 
-    head = next(r for r in rows if r["case"] == "qwen3_prefill"
-                and r["dtype"] == "bfloat16")
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:28",
-        "launches": serve["flash_launches"],
-        "max_abs_err": head["max_abs_err"], "ms": head["ms"],
-        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "at": "qwen3_prefill bfloat16 [B,Sq,Skv,Hq,Hkv,hd]=" + str(head["shape"]),
-        "cases": rows,
-    }]
+    kernels = []
+    for name, (case, replaces) in HEADLINE.items():
+        head = next(r for r in rows if r["kernel"] == name and r["case"] == case
+                    and r["dtype"] == "bfloat16")
+        by_path = {arch: s["launches"][name] for arch, s in serve.items()
+                   if s["launches"][name]}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{SOURCE[name]}",
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "at": f"{case} bfloat16 {head['shape']}",
+            "cases": [r for r in rows if r["kernel"] == name],
+        })
     log("[summary] " + json.dumps({"model": model, "serve": serve,
                                    "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))

@@ -1,11 +1,13 @@
-"""Build the CUDA source under ``csrc/`` with nvcc and load it with ctypes.
+"""Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
 
-The source is compiled into a shared library with a plain C interface (no
-PyTorch headers, so a build takes seconds)::
+Every ``csrc/*.cu`` is compiled to an object file, all nvcc processes started
+together, and the objects are linked into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds)::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-        -Xcompiler -fPIC -Xptxas -v -o build/kernels/libflash_fwd-<hash>.so \\
-        flash_fwd.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+        -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<name>.cu   # each source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+        -o build/kernels/librepro_torch_kernels-<hash>.so <objs>
 
 into ``build/kernels/`` at the root of the checkout, at first use. The file
 name carries a hash of the sources and flags, so a library built from other
@@ -25,9 +27,12 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCE = CSRC / "flash_fwd.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = tuple(sorted(CSRC.glob("*.cu")))
+LIB_NAME = "librepro_torch_kernels"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v")
+LINK_FLAGS = ARCH + ("-shared",)
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -46,43 +51,71 @@ def nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC.iterdir()):
         if src.suffix in (".cu", ".cuh", ".h"):
             digest.update(src.name.encode())
             digest.update(src.read_bytes())
-    return BUILD_DIR / f"lib{SOURCE.stem}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{LIB_NAME}-{digest.hexdigest()[:16]}.so"
 
 
 def build() -> dict:
-    """Compile the source unless its library is already built.
+    """Compile the sources unless their library is already built.
 
-    Returns ``{"path", "seconds", "log"}``; ``log`` holds nvcc's output (the
-    ``-Xptxas -v`` register and shared-memory report), or says the library
-    was built before. Raises with that output if the build fails.
+    Returns ``{"path", "seconds", "log"}``; ``log`` holds nvcc's output for
+    each source (the ``-Xptxas -v`` register and shared-memory report), or
+    says the library was built before. Raises with that output if a build
+    fails.
     """
     out = library_path()
     if out.exists():
         return {"path": str(out), "seconds": 0.0,
                 "log": "built before from the same sources"}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    work = out.with_name(f"{out.stem}.{os.getpid()}.d")
+    work.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    jobs = [(src, work / f"{src.stem}.o") for src in SOURCES]
+    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in jobs]
+    logs, failed = [], []
+    for (src, _), proc in zip(jobs, procs):
+        text = proc.communicate()[0]
+        logs.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (exit {proc.returncode})")
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run([nvcc(), *LINK_FLAGS, "-o", str(tmp),
+                               *(str(obj) for _, obj in jobs)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        logs.append(f"== link\n{link.stdout}")
+        if link.returncode != 0:
+            failed.append(f"link (exit {link.returncode})")
+    shutil.rmtree(work, ignore_errors=True)
+    log = "".join(logs)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {SOURCE.name} "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
     os.replace(tmp, out)
-    return {"path": str(out), "seconds": seconds, "log": proc.stdout}
+    return {"path": str(out), "seconds": time.perf_counter() - t0, "log": log}
 
 
 def load() -> ctypes.CDLL:
     """The loaded library, built first if it is missing."""
     global _lib
     if _lib is None:
-        _lib = ctypes.CDLL(build()["path"])
+        lib = ctypes.CDLL(build()["path"])
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
     return _lib
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error code."""
+    if rc != 0:
+        msg = load().cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: cuda error {rc} ({msg})")

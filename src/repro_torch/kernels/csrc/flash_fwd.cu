@@ -48,6 +48,10 @@
 //   decode B=slots, Sq=1, against a C=ctx ring: each cached K and V element
 //     (2 bytes in bf16) feeds 2 flops for each of the G=4 query heads of its
 //     kv head, 4 flop/byte: bound by the bytes of the K and V cache.
+//   recurrentgemma-9b's local layers run it at hd 256 (HDM 256: 151,040
+//     bytes of shared memory a CTA, and a small register spill) with MQA
+//     16/1 and a 2048-token window: prefill is bound by operations, decode
+//     by the bytes of the 2048-slot ring, on only B CTAs.
 // chip_smoke.py computes both bounds from each run's inputs. This first
 // version does not use the tensor cores and overlaps no load with compute:
 // it is far from both bounds. mma/wgmma, TMA pipelining and split-KV decode
@@ -371,10 +375,6 @@ int flash_fwd(const void* q, const void* k, const void* v, const int* q_pos,
                                            Skv, Hq, Hkv, hd, causal, window,
                                            logit_cap, scale, st);
   return (int)cudaErrorInvalidValue;
-}
-
-const char* flash_fwd_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

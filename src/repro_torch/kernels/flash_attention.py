@@ -34,8 +34,6 @@ def _library() -> ctypes.CDLL:
         lib.flash_fwd.argtypes = ([ptr] * 6 + [i32] * 9
                                   + [ctypes.c_float, ctypes.c_float, ptr])
         lib.flash_fwd.restype = i32
-        lib.flash_fwd_error_string.argtypes = [i32]
-        lib.flash_fwd_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
@@ -98,8 +96,6 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            o.data_ptr(), B, Sq, Skv, Hq, Hkv, hd,
                            _DTYPES[q.dtype], int(causal), window or 0,
                            float(logit_cap or 0.0), float(hd ** -0.5), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed: cuda error {rc} "
-                           f"({lib.flash_fwd_error_string(rc).decode()})")
+    build.check_launch("flash_fwd", rc)
     launches += 1
     return o

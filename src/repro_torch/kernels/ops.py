@@ -6,12 +6,12 @@ and no fallback. The models only ever call these functions.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import flash_attention as fa
-from . import ref
+from . import ref, rglru, rwkv6
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -24,8 +24,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: [B,Sq,Hq,hd]; k, v: [B,Skv,Hkv,hd] -> [B,Sq,Hq,hd] in q's dtype.
     """
     if q.device.type == "cpu":
-        if any(t.device != q.device for t in (k, v, q_positions, kv_positions)):
-            raise ValueError("all inputs must be on one device")
+        _same_device(q, k, v, q_positions, kv_positions)
         return ref.attention_plain(q, k, v, causal=causal, window=window,
                                    logit_cap=logit_cap,
                                    q_positions=q_positions,
@@ -47,3 +46,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return attention(q, k, v, causal=causal, window=window,
                      logit_cap=logit_cap, q_positions=q_positions,
                      kv_positions=kv_positions)
+
+
+def _same_device(first: torch.Tensor, *rest: Optional[torch.Tensor]) -> None:
+    if any(t is not None and t.device != first.device for t in rest):
+        raise ValueError("all inputs must be on one device")
+
+
+def rglru_scan(x: torch.Tensor, a_log: torch.Tensor, gate_r: torch.Tensor,
+               gate_i: torch.Tensor, h0: torch.Tensor, *,
+               h_out: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU scan. x, gate_r, gate_i: [B,T,W]; a_log: [W]; h0: [B,W]
+    fp32 -> (y [B,T,W] fp32, h_T [B,W] fp32), h_T written into ``h_out``
+    when one is given (it may be ``h0``)."""
+    if x.device.type == "cpu":
+        _same_device(x, a_log, gate_r, gate_i, h0, h_out)
+        return ref.rglru_scan_plain(x, a_log, gate_r, gate_i, h0, h_out=h_out)
+    return rglru.rglru_scan(x, a_log, gate_r, gate_i, h0, h_out=h_out)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, state: torch.Tensor, *,
+               state_out: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The WKV scan. r, k, v, w: [B,T,H,hd]; u: [H,hd]; state [B,H,hd,hd]
+    fp32 -> (y [B,T,H,hd] fp32, S_T fp32), S_T written into ``state_out``
+    when one is given (it may be ``state``)."""
+    if r.device.type == "cpu":
+        _same_device(r, k, v, w, u, state, state_out)
+        return ref.rwkv6_scan_plain(r, k, v, w, u, state, state_out=state_out)
+    return rwkv6.wkv6_scan(r, k, v, w, u, state, state_out=state_out)

@@ -2,16 +2,17 @@
 
 They are the semantics of record for the port: the CPU path runs them, the
 CPU tests hold them against the JAX package, and ``chip_smoke.py`` holds each
-CUDA kernel against them on the card. Both compute in fp32 and return
-``q.dtype``.
+CUDA kernel against them on the card. All compute in fp32; attention returns
+``q.dtype``, the scans return fp32.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 MASK_VALUE = -1e30
+RGLRU_C = 8.0
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -64,3 +65,53 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return attention_plain(q, k, v, causal=causal, window=window,
                            logit_cap=logit_cap, q_positions=q_pos,
                            kv_positions=kv_pos)
+
+
+def rglru_scan_plain(x: torch.Tensor, a_log: torch.Tensor,
+                     gate_r: torch.Tensor, gate_i: torch.Tensor,
+                     h0: torch.Tensor, *, h_out: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential RG-LRU. x, gate_r, gate_i: [B,T,W]; a_log: [W]; h0: [B,W].
+
+    a_t = exp(-8 softplus(a_log) r_t);  h_t = a_t h + sqrt(max(1-a_t², 0))
+    (i_t x_t). Returns (y [B,T,W] fp32, h_T [B,W] fp32); h_T is copied into
+    ``h_out`` when one is given (it may be ``h0`` itself). The terms that do
+    not depend on h are computed for all steps at once; only the chain loops.
+    """
+    al = a_log.float()
+    decay = torch.clamp_min(al, 0.0) + torch.log1p(torch.exp(-al.abs()))
+    a = torch.exp((-RGLRU_C * decay) * gate_r.float())
+    scale = torch.sqrt(torch.clamp_min(1.0 - a * a, 0.0))
+    b = scale * (gate_i.float() * x.float())
+    h = h0.float()
+    ys = []
+    for t in range(x.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        ys.append(h)
+    if h_out is not None:
+        h = h_out.copy_(h)
+    return torch.stack(ys, dim=1), h
+
+
+def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor, state: torch.Tensor, *,
+                     state_out: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential WKV. r, k, v, w: [B,T,H,hd]; u: [H,hd]; state:
+    [B,H,hd,hd], k-major.
+
+    y_t = (S + (u⊙k_t) v_tᵀ)ᵀ r_t with S before the update; then
+    S ← diag(w_t) S + k_t v_tᵀ. Returns (y [B,T,H,hd] fp32, S_T fp32); S_T is
+    copied into ``state_out`` when one is given (it may be ``state`` itself).
+    """
+    r, k, v, w = (a.float() for a in (r, k, v, w))
+    u = u.float()[..., :, None]
+    s = state.float()
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]     # [B,H,hd,hd]
+        ys.append(torch.einsum("bhkv,bhk->bhv", s + u * kv, r[:, t]))
+        s = w[:, t, :, :, None] * s + kv
+    if state_out is not None:
+        s = state_out.copy_(s)
+    return torch.stack(ys, dim=1), s

@@ -1,53 +1,61 @@
-"""The decoder backbone for the attention layer kinds (``attn``, ``local``).
+"""The decoder backbone for the layer kinds ``attn``, ``local``, ``rec`` and
+``rwkv``.
 
 The port of ``repro.models.backbone.Backbone`` for serving: the same
 parameter tree (``g{i}/s{j}/<leaf>``, each group's leaves stacked ``[R, ...]``
-over its repeat axis, ``x @ W`` weights ``[in, out]``), the same cache
-(``[R,B,C,KV,hd]`` rings plus ``kpos [R,C]``) and the same entry points:
+over its repeat axis, ``x @ W`` weights ``[in, out]``), the same cache (per
+attention layer ``[R,B,C,KV,hd]`` rings plus ``kpos [R,C]``; per ``rec``
+layer ``conv [R,B,K-1,W]`` and ``h [R,B,W]`` fp32; per ``rwkv`` layer
+``shift1``/``shift2 [R,B,D]`` and ``wkv [R,B,H,hd,hd]`` fp32) and the same
+entry points:
 
 * ``prefill(params, batch, ctx)``        — run the context; last-token logits
   and a filled decode cache
 * ``decode_step(params, cache, tokens)`` — one token against the cache
 
-The repeat axis is a Python loop. Attention goes through
-:mod:`repro_torch.kernels.ops` (the Hopper kernel on the card, the plain
-version on the CPU), or straight to the plain version with
-``attn_impl="plain"``, which exists to hold the kernel path against it.
-The other layer kinds and MoE raise ``NotImplementedError`` naming their
-slice in ROADMAP.md; training comes in slice 2.
+The repeat axis is a Python loop. Attention and the two scans go through
+:mod:`repro_torch.kernels.ops` (the Hopper kernels on the card, the plain
+versions on the CPU), or straight to the plain versions with
+``kernel_impl="plain"``, which exists to hold the kernel path against them.
+The encoder-decoder kinds and MoE raise ``NotImplementedError`` naming their
+slice in ROADMAP.md; training comes in its own slice.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels.ref import attention_plain
+from repro_torch.kernels import ops, ref
 
+from . import rwkv6
 from .attention import flash_attention
 from .common import (apply_rope_table, dense_init, embed_init, resolve_device,
                      rms_norm, rope_table)
 from .config import ModelConfig
 from .ffn import gated_mlp
 from .partition import IDENTITY_PLAN, PartitionPlan
+from .rglru import causal_conv1d
 
 Params = Dict[str, Any]
 
+_KINDS = ("attn", "local", "rec", "rwkv")
 _KIND_SLICE = {
-    "rec": "slice 4 (recurrentgemma-9b)",
-    "rwkv": "slice 5 (rwkv6-3b)",
     "enc": "slice 7 (whisper-tiny)",
     "dec": "slice 7 (whisper-tiny)",
 }
+_RWKV_LORA = 64       # rank of the decay LoRA
+_DDLERP_RANK = 32     # rank of the token-shift LoRA
 
 
 class Backbone:
     def __init__(self, cfg: ModelConfig, plan: PartitionPlan = IDENTITY_PLAN,
                  *, compute_dtype=torch.bfloat16, param_dtype=torch.float32,
-                 device="cuda", attn_impl: str = "kernel"):
+                 device="cuda", kernel_impl: str = "kernel"):
         plan.check(cfg)
         for kind in cfg.layer_kinds():
-            if kind not in ("attn", "local"):
+            if kind not in _KINDS:
                 raise NotImplementedError(
                     f"layer kind {kind!r} is not ported yet: ROADMAP.md "
                     f"queue 1, {_KIND_SLICE.get(kind, 'unknown kind')}")
@@ -55,52 +63,103 @@ class Backbone:
             raise NotImplementedError(
                 f"ffn kind {cfg.ffn_kind!r} is not ported yet: ROADMAP.md "
                 "queue 1, slice 6 (MoE)")
-        if attn_impl not in ("kernel", "plain"):
-            raise ValueError(f"attn_impl {attn_impl!r}: want 'kernel' or "
+        if kernel_impl not in ("kernel", "plain"):
+            raise ValueError(f"kernel_impl {kernel_impl!r}: want 'kernel' or "
                              "'plain'")
         self.cfg = cfg
         self.plan = plan
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.param_dtype = param_dtype
-        self.attn_impl = attn_impl
+        plain = kernel_impl == "plain"
+        self._attend_fn = ref.attention_plain if plain else flash_attention
+        self._rglru_scan = ref.rglru_scan_plain if plain else ops.rglru_scan
+        self._wkv_scan = ref.rwkv6_scan_plain if plain else ops.rwkv6_scan
         self.H = plan.eff_heads(cfg)
         self.KV = plan.eff_kv_heads(cfg)
         self.hd = cfg.hd
         self.Vp = plan.eff_vocab(cfg)
+        self.rwkv_H = plan.eff_rwkv_heads(cfg)
+        self.W = cfg.rglru_width or cfg.d_model
+        self._has_attn = any(k in ("attn", "local") for k in cfg.layer_kinds())
 
     # ------------------------------------------------------------------ #
     # Parameter construction                                             #
     # ------------------------------------------------------------------ #
     def _leaf_specs(self, kind: str) -> Dict[str, Tuple[Tuple[int, ...], str]]:
         cfg = self.cfg
-        D, F = cfg.d_model, cfg.d_ff
-        H, KV, hd = self.H, self.KV, self.hd
-        specs: Dict[str, Tuple[Tuple[int, ...], str]] = {
-            "ln1": ((D,), "zero"),
-            "wq": ((D, H * hd), "dense"),
-            "wk": ((D, KV * hd), "dense"),
-            "wv": ((D, KV * hd), "dense"),
-            "wo": ((H * hd, D), "dense"),
-        }
-        if cfg.qkv_bias:
-            specs["bq"] = ((H * hd,), "zero")
-            specs["bk"] = ((KV * hd,), "zero")
-            specs["bv"] = ((KV * hd,), "zero")
-        if cfg.qk_norm:
-            specs["q_norm"] = ((hd,), "zero")
-            specs["k_norm"] = ((hd,), "zero")
+        D, F_ = cfg.d_model, cfg.d_ff
+        specs: Dict[str, Tuple[Tuple[int, ...], str]] = {"ln1": ((D,), "zero")}
+        if kind == "rwkv":
+            Dr = self.rwkv_H * cfg.rwkv_head_dim
+            for n in ("r", "k", "v", "g", "w"):
+                specs[f"mu_{n}"] = ((D,), "zero")
+                specs[f"dd_b_{n}"] = ((_DDLERP_RANK, D), "zero")
+            specs["dd_a"] = ((D, _DDLERP_RANK), "dense")
+            for n in ("r", "k", "v", "g"):
+                specs[f"w_{n}"] = ((D, Dr), "dense")
+            specs["w0"] = ((Dr,), "zero")
+            specs["wd_a"] = ((D, _RWKV_LORA), "dense")
+            specs["wd_b"] = ((_RWKV_LORA, Dr), "zero")
+            specs["u"] = ((Dr,), "zero")
+            specs["ln_x"] = ((Dr,), "zero")
+            specs["w_o"] = ((Dr, D), "dense")
+            specs["ln2"] = ((D,), "zero")
+            specs["mu_k2"] = ((D,), "zero")
+            specs["mu_r2"] = ((D,), "zero")
+            specs["w_in"] = ((D, F_), "dense")
+            specs["w_out"] = ((F_, D), "dense")
+            specs["w_rgate"] = ((D, D), "dense")
+            return specs
+        if kind == "rec":
+            W, NB = self.W, cfg.n_heads      # NB gate blocks
+            wb = W // NB
+            specs["w_in"] = ((D, W), "dense")
+            specs["w_gate_branch"] = ((D, W), "dense")
+            specs["conv_w"] = ((cfg.conv1d_width, W), "dense")
+            specs["conv_b"] = ((W,), "zero")
+            specs["gw_a"] = ((NB, wb, wb), "dense")
+            specs["gb_a"] = ((W,), "zero")
+            specs["gw_x"] = ((NB, wb, wb), "dense")
+            specs["gb_x"] = ((W,), "zero")
+            specs["a_log"] = ((W,), "lru")
+            specs["w_out"] = ((W, D), "dense")
+        else:  # attn, local
+            H, KV, hd = self.H, self.KV, self.hd
+            specs["wq"] = ((D, H * hd), "dense")
+            specs["wk"] = ((D, KV * hd), "dense")
+            specs["wv"] = ((D, KV * hd), "dense")
+            specs["wo"] = ((H * hd, D), "dense")
+            if cfg.qkv_bias:
+                specs["bq"] = ((H * hd,), "zero")
+                specs["bk"] = ((KV * hd,), "zero")
+                specs["bv"] = ((KV * hd,), "zero")
+            if cfg.qk_norm:
+                specs["q_norm"] = ((hd,), "zero")
+                specs["k_norm"] = ((hd,), "zero")
         specs["ln2"] = ((D,), "zero")
         if cfg.ffn_kind in ("swiglu", "geglu"):
-            specs["w_gate"] = ((D, F), "dense")
-            specs["w_up"] = ((D, F), "dense")
-            specs["w_down"] = ((F, D), "dense")
+            specs["w_gate"] = ((D, F_), "dense")
+            specs["w_up"] = ((D, F_), "dense")
+            specs["w_down"] = ((F_, D), "dense")
         else:  # gelu
-            specs["w_gate"] = ((D, F), "dense")
-            specs["b_gate"] = ((F,), "zero")
-            specs["w_down"] = ((F, D), "dense")
+            specs["w_gate"] = ((D, F_), "dense")
+            specs["b_gate"] = ((F_,), "zero")
+            specs["w_down"] = ((F_, D), "dense")
             specs["b_down"] = ((D,), "zero")
         return specs
+
+    def _init_leaf(self, gen: torch.Generator, shape, init: str
+                   ) -> torch.Tensor:
+        pd, dev = self.param_dtype, self.device
+        if init == "zero":
+            return torch.zeros(shape, dtype=pd, device=dev)
+        if init == "lru":
+            # Λ such that softplus(Λ) is uniform in (0.05, 0.6): the inverse
+            # softplus of the reference's draw
+            u = torch.rand(shape, generator=gen, device=dev) * 0.55 + 0.05
+            return torch.log(torch.expm1(u)).to(pd)
+        return dense_init(gen, shape, dtype=pd, device=dev)
 
     def init(self, seed: int = 0) -> Params:
         """Random parameters from a seeded ``torch.Generator`` on the
@@ -118,13 +177,9 @@ class Backbone:
         for gi, group in enumerate(cfg.groups):
             gp: Dict[str, Any] = {}
             for si, kind in enumerate(group.pattern):
-                sub: Dict[str, Any] = {}
-                for name, (shape, init) in self._leaf_specs(kind).items():
-                    shape = (group.repeat,) + shape
-                    sub[name] = (torch.zeros(shape, dtype=pd, device=dev)
-                                 if init == "zero" else
-                                 dense_init(gen, shape, dtype=pd, device=dev))
-                gp[f"s{si}"] = sub
+                gp[f"s{si}"] = {
+                    name: self._init_leaf(gen, (group.repeat,) + shape, init)
+                    for name, (shape, init) in self._leaf_specs(kind).items()}
             params[f"g{gi}"] = gp
         return params
 
@@ -161,11 +216,11 @@ class Backbone:
 
     def _attend(self, q, k, v, kind: str, q_positions, kv_positions):
         cfg = self.cfg
-        attend = attention_plain if self.attn_impl == "plain" else flash_attention
-        return attend(q, k, v, causal=True,
-                      window=cfg.attn_window if kind == "local" else None,
-                      logit_cap=cfg.attn_logit_softcap,
-                      q_positions=q_positions, kv_positions=kv_positions)
+        return self._attend_fn(q, k, v, causal=True,
+                               window=cfg.attn_window if kind == "local" else None,
+                               logit_cap=cfg.attn_logit_softcap,
+                               q_positions=q_positions,
+                               kv_positions=kv_positions)
 
     def _ffn_sublayer(self, p, x):
         h = rms_norm(x, p["ln2"], self.cfg.norm_eps)
@@ -176,8 +231,8 @@ class Backbone:
         return rope_table(positions, self.hd, cfg.rope_theta, cfg.rotary_pct)
 
     def _layer_fwd(self, p, x, kind: str, positions, rope):
-        """One layer over a sequence. Returns (x, k, v): the rotated keys and
-        the values, which prefill keeps in the cache."""
+        """One attention layer over a sequence. Returns (x, k, v): the
+        rotated keys and the values, which prefill keeps in the cache."""
         cfg = self.cfg
         B, S, _ = x.shape
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -187,6 +242,55 @@ class Backbone:
         o = self._attend(q, k, v, kind, positions, positions)
         x = x + o.reshape(B, S, self.H * self.hd) @ p["wo"]
         return x + self._ffn_sublayer(p, x), k, v
+
+    # -- the recurrent kinds: one function for prefill and decode -----------
+    # Prefill starts from the zero state of a fresh cache, as the reference
+    # starts from zeros; each call reads layer r's state from the cache and
+    # writes the new state back in place (the scans write theirs directly).
+    def _rglru_apply(self, p, h, conv_state, h_state):
+        """Griffin recurrent block with block-diagonal gates. h: [B,T,D];
+        conv_state [B,K-1,W] and h_state [B,W] fp32 are updated in place."""
+        NB = self.cfg.n_heads
+        wb = self.W // NB
+        branch = h @ p["w_in"]
+        gate = F.gelu(h @ p["w_gate_branch"], approximate="tanh")
+        branch, conv_new = causal_conv1d(p, branch, conv_state)
+        conv_state.copy_(conv_new)
+        bb = branch.reshape(*branch.shape[:-1], NB, wb)
+        r = torch.sigmoid(torch.einsum("...nw,nwv->...nv", bb, p["gw_a"])
+                          .reshape(branch.shape) + p["gb_a"])
+        i = torch.sigmoid(torch.einsum("...nw,nwv->...nv", bb, p["gw_x"])
+                          .reshape(branch.shape) + p["gb_x"])
+        y, _ = self._rglru_scan(branch, p["a_log"], r, i, h_state,
+                                h_out=h_state)
+        return (y.to(h.dtype) * gate) @ p["w_out"]
+
+    def _rec_layer(self, p, x, sub, r: int):
+        h = rms_norm(x, p["ln1"], self.cfg.norm_eps)
+        x = x + self._rglru_apply(p, h, sub["conv"][r], sub["h"][r]).to(x.dtype)
+        return x + self._ffn_sublayer(p, x)
+
+    def _rwkv_layer(self, p, x, sub, r: int):
+        cfg = self.cfg
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        wkv = sub["wkv"][r]
+        y, shift1, _ = rwkv6.time_mix(p, h, sub["shift1"][r], wkv, self.rwkv_H,
+                                      cfg.rwkv_head_dim, wkv_out=wkv,
+                                      scan=self._wkv_scan)
+        sub["shift1"][r].copy_(shift1)
+        x = x + y.to(x.dtype)
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        y, shift2 = rwkv6.channel_mix(
+            {"mu_k": p["mu_k2"], "mu_r": p["mu_r2"], "w_in": p["w_in"],
+             "w_out": p["w_out"], "w_rgate": p["w_rgate"]},
+            h, sub["shift2"][r])
+        sub["shift2"][r].copy_(shift2)
+        return x + y
+
+    def _recurrent_layer(self, p, x, kind: str, sub, r: int):
+        if kind == "rec":
+            return self._rec_layer(p, x, sub, r)
+        return self._rwkv_layer(p, x, sub, r)
 
     def _embed_tokens(self, params, tokens) -> torch.Tensor:
         cfg = self.cfg
@@ -220,30 +324,47 @@ class Backbone:
         return ctx
 
     def init_cache(self, B: int, ctx: int, dtype=None) -> Params:
-        """An empty cache: ``pos`` (a Python int; JAX keeps an int32 scalar)
-        and per attention layer ``k``/``v`` rings [R,B,C,KV,hd] with their
-        positions ``kpos`` [R,C], -1 for an empty slot."""
+        """An empty cache: ``pos`` (a Python int; JAX keeps an int32 scalar);
+        per attention layer ``k``/``v`` rings [R,B,C,KV,hd] with their
+        positions ``kpos`` [R,C], -1 for an empty slot; per ``rec`` layer
+        ``conv`` [R,B,K-1,W] and ``h`` [R,B,W] fp32; per ``rwkv`` layer
+        ``shift1``/``shift2`` [R,B,D] and ``wkv`` [R,B,H,hd,hd] fp32."""
+        cfg = self.cfg
         dtype = dtype or self.compute_dtype
+        dev = self.device
+
+        def zeros(shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
         cache: Params = {"pos": 0}
-        for gi, group in enumerate(self.cfg.groups):
+        for gi, group in enumerate(cfg.groups):
             R = group.repeat
             gc: Dict[str, Any] = {}
             for si, kind in enumerate(group.pattern):
-                C = self.cache_len(kind, ctx)
-                shape = (R, B, C, self.KV, self.hd)
-                gc[f"s{si}"] = {
-                    "k": torch.zeros(shape, dtype=dtype, device=self.device),
-                    "v": torch.zeros(shape, dtype=dtype, device=self.device),
-                    "kpos": torch.full((R, C), -1, dtype=torch.int32,
-                                       device=self.device),
-                }
+                if kind == "rec":
+                    sub = {"conv": zeros((R, B, cfg.conv1d_width - 1, self.W)),
+                           "h": zeros((R, B, self.W), torch.float32)}
+                elif kind == "rwkv":
+                    hdr = cfg.rwkv_head_dim
+                    sub = {"shift1": zeros((R, B, cfg.d_model)),
+                           "wkv": zeros((R, B, self.rwkv_H, hdr, hdr),
+                                        torch.float32),
+                           "shift2": zeros((R, B, cfg.d_model))}
+                else:
+                    C = self.cache_len(kind, ctx)
+                    sub = {"k": zeros((R, B, C, self.KV, self.hd)),
+                           "v": zeros((R, B, C, self.KV, self.hd)),
+                           "kpos": torch.full((R, C), -1, dtype=torch.int32,
+                                              device=dev)}
+                gc[f"s{si}"] = sub
             cache[f"g{gi}"] = gc
         return cache
 
     def _layer_decode(self, p, x, kind: str, sub, r: int, pos: int, posv,
                       rope):
-        """One-token step of layer ``r`` of a group. x: [B,1,D]. Writes the
-        token's key and value into ring slot ``pos % C`` before attending."""
+        """One-token step of attention layer ``r`` of a group. x: [B,1,D].
+        Writes the token's key and value into ring slot ``pos % C`` before
+        attending."""
         cfg = self.cfg
         B = x.shape[0]
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -264,21 +385,26 @@ class Backbone:
         """tokens: [B, 1] -> (logits [B, 1, Vp], cache).
 
         The cache is updated in place (JAX returns a new one, which would
-        cost a copy of every ring here): each layer's slot ``pos % C`` and
-        ``kpos``, then ``pos + 1``.
+        cost a copy of every ring and state here): each attention layer's
+        slot ``pos % C`` and ``kpos``, each recurrent layer's state, then
+        ``pos + 1``.
         """
         pos = int(cache["pos"])
         tokens = torch.as_tensor(tokens, device=self.device)
         x = self._embed_tokens(params, tokens)
         posv = torch.full((1,), pos, dtype=torch.int32, device=self.device)
-        rope = self._rope(posv)
+        rope = self._rope(posv) if self._has_attn else None
         for gi, group in enumerate(self.cfg.groups):
             gp, gc = params[f"g{gi}"], cache[f"g{gi}"]
             for r in range(group.repeat):
                 lp = self._layer_params(gp, r)
                 for si, kind in enumerate(group.pattern):
-                    x = self._layer_decode(lp[f"s{si}"], x, kind,
-                                           gc[f"s{si}"], r, pos, posv, rope)
+                    p, sub = lp[f"s{si}"], gc[f"s{si}"]
+                    if kind in ("rec", "rwkv"):
+                        x = self._recurrent_layer(p, x, kind, sub, r)
+                    else:
+                        x = self._layer_decode(p, x, kind, sub, r, pos, posv,
+                                               rope)
         cache["pos"] = pos + 1
         return self._logits(params, x), cache
 
@@ -286,15 +412,17 @@ class Backbone:
                 ) -> Tuple[torch.Tensor, Params]:
         """Run the full context; return (last-token logits, filled cache).
 
-        Each layer's rotated keys and values are kept from its forward (JAX
-        recomputes them, with identical numbers); a ring of C slots keeps
-        the last ``min(C, S)`` positions at slots ``position % C``.
+        Each attention layer's rotated keys and values are kept from its
+        forward (JAX recomputes them, with identical numbers); a ring of C
+        slots keeps the last ``min(C, S)`` positions at slots
+        ``position % C``. Each recurrent layer runs from the fresh cache's
+        zero state and leaves its final state there.
         """
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         B, S = tokens.shape
         x = self._embed_tokens(params, tokens)
         positions = torch.arange(S, dtype=torch.int32, device=self.device)
-        rope = self._rope(positions)
+        rope = self._rope(positions) if self._has_attn else None
         cache = self.init_cache(B, ctx, x.dtype)
         cache["pos"] = S
         for gi, group in enumerate(self.cfg.groups):
@@ -302,9 +430,11 @@ class Backbone:
             for r in range(group.repeat):
                 lp = self._layer_params(gp, r)
                 for si, kind in enumerate(group.pattern):
-                    sub = gc[f"s{si}"]
-                    x, k, v = self._layer_fwd(lp[f"s{si}"], x, kind,
-                                              positions, rope)
+                    p, sub = lp[f"s{si}"], gc[f"s{si}"]
+                    if kind in ("rec", "rwkv"):
+                        x = self._recurrent_layer(p, x, kind, sub, r)
+                        continue
+                    x, k, v = self._layer_fwd(p, x, kind, positions, rope)
                     C = sub["kpos"].shape[1]
                     n = min(C, S)
                     sel = positions[S - n:]

@@ -166,8 +166,8 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 # The architectures the port runs. The rest of the reference's ten wait in
-# ROADMAP.md, queue 1 (slices 2-6).
-ARCH_NAMES = ["qwen3-4b"]
+# ROADMAP.md, queue 1.
+ARCH_NAMES = ["qwen3-4b", "recurrentgemma-9b", "rwkv6-3b"]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

@@ -1,4 +1,5 @@
-"""The Hopper kernels against their plain versions, on the card.
+"""The Hopper kernels (K1 attention, K2 RG-LRU scan, K3 WKV scan) against
+their plain versions, on the card.
 
 Every test here needs a CUDA device and skips without one (decided in the
 ``cuda`` fixture, never at import). It imports torch and the port only, so
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, ref, rglru, rwkv6
 from repro_torch.models import Backbone, LayerGroup, get_config, reduced
 
 pytestmark = pytest.mark.gpu
@@ -128,3 +129,125 @@ def test_model_decode_matches_prefill_on_the_card(cuda):
     got, _ = bb.decode_step(params, cache, toks[:, 17:])
     want, _ = bb.prefill(params, {"tokens": toks}, 40)
     torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+
+
+# --------------------------------------------------------------------------- #
+# K2 (RG-LRU scan) and K3 (WKV scan) against their plain versions             #
+# --------------------------------------------------------------------------- #
+# Both scans return fp32 and both sides see the same input values, so the
+# bf16-input cases keep the fp32 tolerance: atol = rtol = 1e-5 for the RG-LRU
+# (the kernel computes the plain version's operations in its order; only
+# expf, log1pf and sqrtf round differently), 2e-4 for the WKV (its y sums
+# 64 products in another order), the JAX tests' limits for the two kernels.
+RGLRU_SHAPES = [(1, 32, 64), (2, 50, 96), (2, 64, 128), (1, 33, 48),
+                (1, 300, 4096), (8, 1, 4096)]
+WKV_SHAPES = [(1, 32, 2, 16), (2, 50, 4, 32), (2, 64, 1, 8), (1, 33, 2, 16),
+              (1, 100, 40, 64), (8, 1, 40, 64)]
+SCAN_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _gates(shape, device, seed):
+    return torch.sigmoid(_randn(shape, torch.float32, device, seed))
+
+
+def _rglru_args(B, T, W, dt, dev):
+    return (_randn((B, T, W), dt, dev, 11), _randn((W,), dt, dev, 12),
+            _gates((B, T, W), dev, 13).to(dt), _gates((B, T, W), dev, 14).to(dt),
+            _randn((B, W), torch.float32, dev, 15))
+
+
+def _wkv_args(B, T, H, hd, dt, dev):
+    # w in fp32, as the model passes it and as the kernel takes it
+    return (_randn((B, T, H, hd), dt, dev, 21), _randn((B, T, H, hd), dt, dev, 22),
+            _randn((B, T, H, hd), dt, dev, 23),
+            _gates((B, T, H, hd), dev, 24), _randn((H, hd), dt, dev, 25),
+            _randn((B, H, hd, hd), torch.float32, dev, 26))
+
+
+@pytest.mark.parametrize("dtype", list(SCAN_DTYPES))
+@pytest.mark.parametrize("shape", RGLRU_SHAPES, ids=str)
+def test_rglru_kernel_matches_plain(cuda, shape, dtype):
+    args = _rglru_args(*shape, SCAN_DTYPES[dtype], cuda)
+    y, h = rglru.rglru_scan(*args)
+    torch.cuda.synchronize()
+    y_want, h_want = ref.rglru_scan_plain(*args)
+    assert y.dtype == h.dtype == torch.float32 and y.shape == args[0].shape
+    torch.testing.assert_close(y, y_want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h, h_want, atol=1e-5, rtol=1e-5)
+    # the state can be written over h0 in place, as decode does
+    h0 = args[4].clone()
+    y2, h2 = rglru.rglru_scan(*args[:4], h0, h_out=h0)
+    assert h2 is h0
+    torch.testing.assert_close(y2, y, atol=0, rtol=0)
+    torch.testing.assert_close(h0, h, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", list(SCAN_DTYPES))
+@pytest.mark.parametrize("shape", WKV_SHAPES, ids=str)
+def test_wkv_kernel_matches_plain(cuda, shape, dtype):
+    args = _wkv_args(*shape, SCAN_DTYPES[dtype], cuda)
+    y, s = rwkv6.wkv6_scan(*args)
+    torch.cuda.synchronize()
+    y_want, s_want = ref.rwkv6_scan_plain(*args)
+    assert y.dtype == s.dtype == torch.float32 and y.shape == args[0].shape
+    torch.testing.assert_close(y, y_want, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(s, s_want, atol=2e-4, rtol=2e-4)
+    s0 = args[5].clone()
+    y2, s2 = rwkv6.wkv6_scan(*args[:5], s0, state_out=s0)
+    assert s2 is s0
+    torch.testing.assert_close(y2, y, atol=0, rtol=0)
+    torch.testing.assert_close(s0, s, atol=0, rtol=0)
+
+
+def test_wkv_state_chaining_on_the_card(cuda):
+    """Two half-length calls that hand the state on equal one full call."""
+    r, k, v, w, u, s0 = _wkv_args(1, 40, 2, 64, torch.float32, cuda)
+    y_full, s_full = rwkv6.wkv6_scan(r, k, v, w, u, s0)
+    y1, s1 = rwkv6.wkv6_scan(r[:, :20].contiguous(), k[:, :20].contiguous(),
+                             v[:, :20].contiguous(), w[:, :20].contiguous(), u, s0)
+    y2, s2 = rwkv6.wkv6_scan(r[:, 20:].contiguous(), k[:, 20:].contiguous(),
+                             v[:, 20:].contiguous(), w[:, 20:].contiguous(), u, s1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(s2, s_full, atol=2e-4, rtol=2e-4)
+
+
+def test_scan_wrappers_count_launches_and_reject_what_they_cannot_take(cuda):
+    x, a_log, gr, gi, h0 = _rglru_args(1, 8, 64, torch.bfloat16, cuda)
+    r, k, v, w, u, s0 = _wkv_args(1, 8, 2, 64, torch.bfloat16, cuda)
+    before = (rglru.launches, rwkv6.launches)
+    ops.rglru_scan(x, a_log, gr, gi, h0)
+    ops.rwkv6_scan(r, k, v, w, u, s0)
+    ops.rwkv6_scan(r, k, v, w, u, s0)
+    assert (rglru.launches, rwkv6.launches) == (before[0] + 1, before[1] + 2)
+    with pytest.raises(ValueError):
+        ops.rglru_scan(x.half(), a_log, gr.half(), gi.half(), h0)
+    with pytest.raises(ValueError):
+        ops.rglru_scan(x, a_log, gr, gi, h0.bfloat16())
+    with pytest.raises(ValueError):
+        ops.rwkv6_scan(r, k, v, w, u, s0.bfloat16())
+    with pytest.raises(ValueError):
+        ops.rwkv6_scan(r, k, v, w.bfloat16(), u, s0)
+    big = _wkv_args(1, 4, 1, 72, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        ops.rwkv6_scan(*big)
+    with pytest.raises(ValueError):
+        ops.rwkv6_scan(r, k, v, w, u, s0.cpu())
+    assert (rglru.launches, rwkv6.launches) == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.parametrize("arch,groups", [
+    ("recurrentgemma-9b", None), ("rwkv6-3b", (("rwkv",), 3))])
+def test_recurrent_decode_matches_prefill_on_the_card(cuda, arch, groups):
+    kw = {} if groups is None else {"groups": (LayerGroup(*groups),)}
+    cfg = reduced(get_config(arch), **kw)
+    bb = Backbone(cfg, compute_dtype=torch.float32, device=cuda)
+    params = bb.init(0)
+    toks = torch.from_numpy(np.random.default_rng(10).integers(
+        0, cfg.vocab, (2, 41), dtype=np.int32)).to(cuda)
+    launched = (fa.launches, rglru.launches, rwkv6.launches)
+    _, cache = bb.prefill(params, {"tokens": toks[:, :40]}, 64)
+    got, _ = bb.decode_step(params, cache, toks[:, 40:])
+    want, _ = bb.prefill(params, {"tokens": toks}, 64)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+    scans = (rglru.launches - launched[1], rwkv6.launches - launched[2])
+    assert scans == ((3 * 3, 0) if arch == "recurrentgemma-9b" else (0, 3 * 3))

@@ -164,10 +164,12 @@ def test_kernel_wrapper_rejects(name):
 
 def test_build_targets_hopper_from_the_repo_sources():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    assert "-shared" in build.NVCC_FLAGS
-    assert build.SOURCE.is_file() and build.SOURCE.parent == build.CSRC
-    assert str(build.SOURCE).endswith("csrc/flash_fwd.cu")
+    assert "-shared" in build.LINK_FLAGS and "-shared" not in build.NVCC_FLAGS
+    names = [src.name for src in build.SOURCES]
+    assert names == sorted(p.name for p in build.CSRC.glob("*.cu"))
+    assert {"flash_fwd.cu", "rglru_scan.cu", "wkv6_scan.cu"} <= set(names)
+    assert all(src.parent == build.CSRC for src in build.SOURCES)
     path = build.library_path()
     assert path.parent == build.BUILD_DIR and path == build.library_path()
-    assert path.name.startswith("libflash_fwd-")
+    assert path.name.startswith(build.LIB_NAME + "-")
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")

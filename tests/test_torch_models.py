@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.models import ARCH_NAMES as JARCH_NAMES
 from repro.models import Backbone as JBackbone
 from repro.models import LayerGroup as JLayerGroup
 from repro.models import common as jcommon
@@ -25,7 +26,8 @@ from repro.models import ffn as jffn
 from repro.models import get_config as jget_config
 from repro.models import reduced as jreduced
 from repro_torch import bridge
-from repro_torch.models import Backbone, LayerGroup, get_config, reduced
+from repro_torch.models import (ARCH_NAMES, Backbone, LayerGroup, get_config,
+                                reduced)
 from repro_torch.models import common, ffn
 
 
@@ -39,8 +41,9 @@ def _close(got, want, tol):
                                atol=tol, rtol=tol)
 
 
-def test_config_copy_matches_reference():
-    mine, ref = get_config("qwen3-4b"), jget_config("qwen3-4b")
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_config_copy_matches_reference(arch):
+    mine, ref = get_config(arch), jget_config(arch)
     assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
     assert mine.param_count() == ref.param_count()
     assert (dataclasses.asdict(reduced(mine))
@@ -48,12 +51,13 @@ def test_config_copy_matches_reference():
 
 
 def test_other_archs_raise_naming_the_roadmap():
+    assert "gemma2-2b" in JARCH_NAMES and "gemma2-2b" not in ARCH_NAMES
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("recurrentgemma-9b")
+        get_config("gemma2-2b")
 
 
-@pytest.mark.parametrize("kind,slice_name", [("rec", "slice 4"),
-                                             ("rwkv", "slice 5")])
+@pytest.mark.parametrize("kind,slice_name", [("enc", "slice 7"),
+                                             ("dec", "slice 7")])
 def test_unported_layer_kinds_raise(kind, slice_name):
     cfg = reduced(get_config("qwen3-4b"), groups=(LayerGroup((kind,), 1),))
     with pytest.raises(NotImplementedError, match=slice_name):
