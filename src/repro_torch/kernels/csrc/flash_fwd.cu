@@ -4,8 +4,8 @@
 // kernel, called through flash_attention_pallas). The Pallas kernel takes a
 // contiguous q_offset and a kv_len; this kernel takes the function that both
 // it and the model's flash_attention_jnp compute: q_pos [Sq] and kv_pos [Skv]
-// (kv_pos -1 marks an empty ring-cache slot), so one kernel serves prefill and
-// decode against the ring cache.
+// (kv_pos -1 marks an empty ring-cache slot), so it serves prefill against
+// the ring cache too.
 //
 //   s   = (q . k) * scale                  scale = 1/sqrt(hd), fp32
 //   s   = cap * tanh(s / cap)              if logit_cap > 0
@@ -23,45 +23,66 @@
 // Layout: q [B,Sq,Hq,hd], k/v [B,Skv,Hkv,hd], out [B,Sq,Hq,hd], contiguous;
 // fp32 or bf16; hd a multiple of 8, at most 256.
 //
-// Design. One CTA of 128 threads per (b, kv head, block of 64 rows), where a
-// row is (query position x one of the G = Hq/Hkv heads that share the kv
-// head). GQA thus reads each K/V tile once for all G heads and never
-// materialises repeated KV; decode (Sq=1, G=4) fills 4 rows of the block,
-// and the rows past the end skip the arithmetic.
-// The CTA stages Q [64 x hd] in shared memory as fp32, then walks the keys in
-// tiles of 64: K tile -> S = Q K^T in registers (each thread a 4x8 block of
-// S) -> online softmax (row max and sum over the 8 lanes sharing a row, by
-// warp shuffles) -> P to shared memory -> V tile over the K tile's buffer ->
-// acc += P V (each thread 4 rows x hd/8 columns). Tiles move as 16-byte
-// vectors, several in flight per thread. Key tiles that no row of the CTA
-// can see (empty slots, beyond the causal edge, outside the window) are
-// skipped whole, which halves causal prefill.
+// Two bodies, chosen by dtype. ops.attention sends every call with more
+// than one query position here; one query position goes to flash_decode.cu.
+// Both bodies take one CTA per (b, kv head, block of rows), where a row is
+// (query position x one of the G = Hq/Hkv heads that share the kv head):
+// GQA reads each K/V tile once for all G heads and never materialises
+// repeated KV. Key tiles that no row of the CTA can see (empty slots,
+// beyond the causal edge, outside the window) are skipped whole, which
+// halves causal prefill and bounds windowed prefill by the window.
 //
-// Bound at the main path's shapes (qwen3-4b; H100 SXM peaks: 989 TFLOP/s
-// bf16 tensor cores, 67 TFLOP/s fp32, 3.35 TB/s):
-//   prefill B=1, S=512, Hq=32, Hkv=8, hd=128, causal: 4*hd*Hq*S(S+1)/2 =
-//     2.15 GFLOP over 10.5 MB of q, k, v and out in bf16 (205 flop/byte,
-//     against the card's 295): 2.2 us of tensor-core work against 3.1 us of
-//     bytes, so by the card's peaks it sits at the edge, on the bytes side.
-//     In fp32 it is bound by operations (32 us). This kernel multiplies in
-//     scalar fp32 FMAs, so for it the operations are the bound in practice.
-//   decode B=slots, Sq=1, against a C=ctx ring: each cached K and V element
-//     (2 bytes in bf16) feeds 2 flops for each of the G=4 query heads of its
-//     kv head, 4 flop/byte: bound by the bytes of the K and V cache.
-//   recurrentgemma-9b's local layers run it at hd 256 (HDM 256: 151,040
-//     bytes of shared memory a CTA, and a small register spill) with MQA
-//     16/1 and a 2048-token window: prefill is bound by operations, decode
-//     by the bytes of the 2048-slot ring, on only B CTAs.
-// chip_smoke.py computes both bounds from each run's inputs. This first
-// version does not use the tensor cores and overlaps no load with compute:
-// it is far from both bounds. mma/wgmma, TMA pipelining and split-KV decode
-// are queued in ROADMAP.md.
+// bf16 (the serving type): flash_fwd_mma_kernel, on the tensor cores in the
+// FlashAttention-2 form. 8 warps of 16 rows (128 rows a CTA) over tiles of
+// 64 keys. Q stays in shared memory as bf16; K and V tiles stream through
+// two cp.async stages, the next tile's copies in flight while the current
+// one computes. Rows are padded by 16 bytes so that ldmatrix's eight row
+// addresses fall on distinct banks. S = Q K^T is mma.sync m16n8k16 with
+// fp32 accumulation (K fragments by ldmatrix); the online softmax runs on
+// the accumulator fragments in registers (row max and sum over the quad of
+// lanes that share a row); P is rounded to bf16 in registers and is the A
+// operand of O += P V (V fragments by ldmatrix.trans). Statistics and O
+// stay fp32. Rounding P to bf16 is the one step the fp32 Pallas kernel does
+// not take: it moves each output by at most 2^-8 of the probability-
+// weighted mean of |v|, which the checks' limit carries (chip_smoke.py,
+// test_torch_gpu.py). Tiles that every row sees whole skip the per-element
+// mask. The last row blocks are launched first: under a causal mask they
+// see the most keys, and a wave that ended on them would idle the card.
+// Registers: O is hd/8 fp32 fragments of 4 a thread (128 at hd 256), the
+// scores 32; ptxas fits hd 256 in 215 registers without a spill. Shared
+// memory: Q 128 x (hd+8) + 2 stages x (K + V) x 64 x (hd+8) bf16: 203,264
+// bytes at hd 256 (one CTA an SM), 104,960 at hd 128 (two).
+//
+// fp32 (the checks' type): flash_fwd_kernel, unchanged since its first
+// version: 128 threads, 64 rows a CTA, Q and K/V tiles widened to fp32 in
+// shared memory, S = Q K^T and acc += P V in scalar fp32 FMAs (each thread
+// a 4x8 block of S, 4 rows x hd/8 columns of acc), synchronous 16-byte
+// loads. TF32 would break the fp32 limits, and no served model runs fp32.
+//
+// Bound at the main path's shapes (H100 SXM peaks: 989 TFLOP/s bf16 tensor
+// cores, 67 TFLOP/s fp32, 3.35 TB/s):
+//   qwen3-4b prefill B=1, S=512, Hq=32, Hkv=8, hd=128, causal:
+//     4*hd*Hq*S(S+1)/2 = 2.15 GFLOP over 10.5 MB of q, k, v and out in bf16
+//     (205 flop/byte against the card's 295): 2.2 us of tensor-core work
+//     against 3.1 us of bytes, at the edge, on the bytes side. The CTAs of
+//     the last rows walk all 8 key tiles in series, so the latency of one
+//     tile (loads, two products, the softmax between them, two barriers)
+//     bounds it in practice.
+//   recurrentgemma-9b's local layers, prefill 1 x 2560, MQA 16/1, hd 256,
+//     window 2048: 51.6 GFLOP of valid pairs, bound by operations (52 us).
+//     mma.sync with 16-row warps reads each K and V fragment from shared
+//     memory once per 16 rows; wgmma (64-row warpgroups, operands straight
+//     from shared memory) is the step after this one (ROADMAP.md).
+// chip_smoke.py computes both bounds from each run's inputs.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <climits>
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
+
+#include "flash_common.cuh"
 
 namespace {
 
@@ -72,21 +93,12 @@ constexpr int RPT = BM / 16;    // rows per thread (16 row groups)
 constexpr int CPT = BN / 8;     // score columns per thread (8 column groups)
 
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // 16 bytes of T -> fp32 in shared memory (dst 16-byte aligned).
 __device__ __forceinline__ void put_f32(float* dst, const uint4& u, float) {
   *reinterpret_cast<float4*>(dst) = make_float4(
       __uint_as_float(u.x), __uint_as_float(u.y), __uint_as_float(u.z),
       __uint_as_float(u.w));
-}
-__device__ __forceinline__ void put_f32(float* dst, const uint4& u,
-                                        __nv_bfloat16) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-  *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
-  *reinterpret_cast<float4*>(dst + 4) = make_float4(c.x, c.y, d.x, d.y);
 }
 
 // Stage a 64-row tile of hd-long rows into shared memory as fp32 [64][LD].
@@ -316,23 +328,246 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// --------------------------------------------------------------------------
+// bf16 body on the tensor cores
+// --------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+// 8 warps of 16 rows over 64-key tiles, at every head dim: the fastest of
+// the tilings timed at the serving prefills (16 or 32 rows a warp, 4 or 8
+// warps, tiles of 16 to 64 keys; PERF.md).
+constexpr int MMA_NW = 8;               // warps per CTA
+constexpr int MMA_NT = MMA_NW * 32;     // threads per CTA
+constexpr int MMA_BM = MMA_NW * 16;     // rows per CTA
+constexpr int MMA_BN = 64;              // keys per tile
+
+// Bytes of one stage: K and V tiles [MMA_BN][HDM+8] bf16 and their positions.
+template <int HDM>
+__host__ __device__ constexpr size_t mma_stage_bytes() {
+  return (size_t)2 * MMA_BN * (HDM + 8) * sizeof(bf16) + MMA_BN * sizeof(int);
+}
+
+// Q [MMA_BM][HDM+8] bf16 and two stages; then two bitmasks over the key
+// tiles, sized at launch.
+template <int HDM>
+__host__ __device__ constexpr size_t mma_smem_fixed() {
+  return (size_t)MMA_BM * (HDM + 8) * sizeof(bf16) + 2 * mma_stage_bytes<HDM>();
+}
+
+template <int HDM>
+__global__ void __launch_bounds__(MMA_NT)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const int* __restrict__ q_pos,
+                     const int* __restrict__ kv_pos, bf16* __restrict__ o,
+                     int Sq, int Skv, int Hq, int Hkv, int hd, int causal,
+                     int window, float logit_cap, float scale) {
+  using namespace flash;
+  constexpr int BN = MMA_BN, BM = MMA_BM, NTH = MMA_NT;
+  constexpr int LDS = HDM + 8;  // padded row: ldmatrix rows on distinct banks
+  constexpr int VPR = HDM / 8;  // 16-byte chunks per row
+  constexpr int NB = BN / 8;    // score fragments per warp (16 x 8 each)
+  constexpr int NO = HDM / 8;   // output fragments per warp
+  constexpr size_t STAGE = mma_stage_bytes<HDM>();
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(smem4);
+  bf16* Qs = reinterpret_cast<bf16*>(base);
+  char* stages = base + (size_t)BM * LDS * sizeof(bf16);
+  const int nt = (Skv + BN - 1) / BN;
+  unsigned* live = reinterpret_cast<unsigned*>(stages + 2 * STAGE);
+  unsigned* full = live + (nt + 31) / 32;
+  __shared__ int qrange[2];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv;
+  const int nrows = Sq * G;
+  // The last row blocks start first: under a causal mask they see the most
+  // keys, and a wave that ended on them would leave the card idle.
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int wrow = warp * 16;  // this warp's first row in the CTA
+
+  // Q tile, row r = query (row0+r)/G, head kvh*G + (row0+r)%G; zeros past
+  // the last row and past hd.
+  for (int i = tid; i < BM * VPR; i += NTH) {
+    const int r = i / VPR, c = i % VPR, gr = row0 + r;
+    const bool ok = gr < nrows && c * 8 < hd;
+    const bf16* src =
+        ok ? q + ((size_t)(b * Sq + gr / G) * Hq + kvh * G + gr % G) * hd + c * 8
+           : q;
+    cp_async16(Qs + r * LDS + c * 8, src, ok);
+  }
+  cp_async_commit();
+
+  if (tid == 0) {
+    qrange[0] = INT_MAX;
+    qrange[1] = INT_MIN;
+  }
+  __syncthreads();
+  if (tid < BM) {
+    const int p = q_pos[min(row0 + tid, nrows - 1) / G];
+    atomicMin(&qrange[0], p);
+    atomicMax(&qrange[1], p);
+  }
+  int qp[2];  // positions of this lane's rows g and g+8 (rows past the end
+              // take the last query's; they are never stored)
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    qp[r] = q_pos[min(row0 + wrow + g + 8 * r, nrows - 1) / G];
+  __syncthreads();
+  mark_live_tiles(live, full, kv_pos, 0, Skv, BN, qrange[0], qrange[1],
+                  causal, window, tid, NTH);
+
+  auto issue = [&](int tile, int st) {
+    bf16* ks = reinterpret_cast<bf16*>(stages + st * STAGE);
+    bf16* vs = ks + BN * LDS;
+    int* kp = reinterpret_cast<int*>(vs + BN * LDS);
+    const int n0 = tile * BN;
+    for (int i = tid; i < BN * VPR; i += NTH) {
+      const int r = i / VPR, c = i % VPR, n = n0 + r;
+      const bool ok = n < Skv && c * 8 < hd;
+      const size_t off = ok ? ((size_t)(b * Skv + n) * Hkv + kvh) * hd + c * 8 : 0;
+      cp_async16(ks + r * LDS + c * 8, k + off, ok);
+      cp_async16(vs + r * LDS + c * 8, v + off, ok);
+    }
+    if (tid < BN) {
+      if (n0 + tid < Skv)
+        cp_async4(kp + tid, kv_pos + n0 + tid);
+      else
+        kp[tid] = -1;
+    }
+  };
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  int tile = next_live(live, 0, nt), st = 0;
+  if (tile < nt) issue(tile, 0);
+  cp_async_commit();
+  while (tile < nt) {
+    const int nxt = next_live(live, tile + 1, nt);
+    if (nxt < nt) issue(nxt, st ^ 1);  // in flight while this tile computes
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* ks = reinterpret_cast<const bf16*>(stages + st * STAGE);
+    const bf16* vs = ks + BN * LDS;
+    const int* kp = reinterpret_cast<const int*>(vs + BN * LDS);
+
+    float s[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HDM / 16; ++kk) {
+      if (kk * 16 >= hd) continue;
+      unsigned a[4];
+      ldsm_x4(a, Qs + (wrow + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < NB / 2; ++np) {
+        unsigned bb[4];
+        ldsm_x4(bb, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS +
+                        kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], a, bb[0], bb[1]);
+        mma_bf16(s[2 * np + 1], a, bb[2], bb[3]);
+      }
+    }
+    // every row sees every key of a full tile: no per-element mask
+    const bool whole = (full[tile >> 5] >> (tile & 31)) & 1u;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = logit2(s[j][e],
+                         whole || key_ok(qp[e >> 1], kp[j * 8 + 2 * t + (e & 1)],
+                                         causal, window),
+                         scale, logit_cap);
+    softmax_update(s, m, l, acc);
+#pragma unroll
+    for (int kc = 0; kc < BN / 16; ++kc) {
+      const unsigned a[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+                             pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+                             pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+                             pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < HDM / 16; ++dp) {
+        if (dp * 16 >= hd) continue;
+        unsigned bb[4];
+        ldsm_x4_trans(bb, vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
+                              dp * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * dp], a, bb[0], bb[1]);
+        mma_bf16(acc[2 * dp + 1], a, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it refills
+    tile = nxt;
+    st ^= 1;
+  }
+  cp_async_wait<0>();
+
+  finish_rowsum(l);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int gr = row0 + wrow + g + 8 * r;
+    if (gr >= nrows) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;  // no valid key: 0
+    bf16* orow = o + ((size_t)(b * Sq + gr / G) * Hq + kvh * G + gr % G) * hd;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const int d = j * 8 + 2 * t;
+      if (d < hd) store2(orow + d, acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+    }
+  }
+}
+
+template <int HDM>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       const int* q_pos, const int* kv_pos, void* o, int B,
+                       int Sq, int Skv, int Hq, int Hkv, int hd, int causal,
+                       int window, float logit_cap, float scale,
+                       cudaStream_t stream) {
+  const int nt = (Skv + MMA_BN - 1) / MMA_BN;
+  const size_t smem = mma_smem_fixed<HDM>() + (size_t)((nt + 31) / 32) * 8;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_mma_kernel<HDM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const int G = Hq / Hkv;
+  dim3 grid((Sq * G + MMA_BM - 1) / MMA_BM, Hkv, B);
+  flash_fwd_mma_kernel<HDM><<<grid, MMA_NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), q_pos, kv_pos, static_cast<bf16*>(o), Sq,
+      Skv, Hq, Hkv, hd, causal, window, logit_cap, scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int HDM>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* q_pos, const int* kv_pos, void* o, int B, int Sq,
                    int Skv, int Hq, int Hkv, int hd, int causal, int window,
                    float logit_cap, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HDM>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HDM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const int G = Hq / Hkv;
-  dim3 grid((Sq * G + BM - 1) / BM, Hkv, B);
-  flash_fwd_kernel<T, HDM><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(o), Sq, Skv,
-      Hq, Hkv, hd, causal, window, logit_cap, scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_mma<HDM>(q, k, v, q_pos, kv_pos, o, B, Sq, Skv, Hq, Hkv, hd,
+                           causal, window, logit_cap, scale, stream);
+  } else {
+    constexpr size_t smem = smem_bytes<HDM>();
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<T, HDM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    const int G = Hq / Hkv;
+    dim3 grid((Sq * G + BM - 1) / BM, Hkv, B);
+    flash_fwd_kernel<T, HDM><<<grid, NT, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(o), Sq, Skv,
+        Hq, Hkv, hd, causal, window, logit_cap, scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>
@@ -358,7 +593,7 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = fp32, 1 = bf16. window <= 0: none. logit_cap <= 0: none.
+// dtype: 0 = fp32 (SIMT body), 1 = bf16 (tensor cores). window <= 0: none. logit_cap <= 0: none.
 // Returns the cudaError_t of the launch (0 on success). The caller has
 // checked shapes, contiguity, hd % 8 == 0, hd <= 256 and Hq % Hkv == 0.
 int flash_fwd(const void* q, const void* k, const void* v, const int* q_pos,
@@ -378,3 +613,4 @@ int flash_fwd(const void* q, const void* k, const void* v, const int* q_pos,
 }
 
 }  // extern "C"
+

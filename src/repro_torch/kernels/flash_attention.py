@@ -2,9 +2,10 @@
 
 The kernel replaces ``src/repro/kernels/flash_attention.py::_fwd_kernel``,
 generalised from a contiguous ``q_offset`` to explicit int32 query and key
-positions, so that prefill and decode against the ring cache both run it.
-Its plain version is :func:`repro_torch.kernels.ref.attention_plain`;
-:mod:`repro_torch.kernels.ops` picks between the two by the tensors' device.
+positions, so that it runs against the ring cache too. Its plain version is
+:func:`repro_torch.kernels.ref.attention_plain`; :mod:`repro_torch.kernels.ops`
+picks between the two by the tensors' device, and sends a CUDA call with one
+query position to :mod:`repro_torch.kernels.flash_decode` instead.
 """
 from __future__ import annotations
 

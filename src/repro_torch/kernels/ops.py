@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import flash_attention as fa
+from . import flash_decode as fd
 from . import ref, rglru, rwkv6
 
 
@@ -21,7 +22,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               ) -> torch.Tensor:
     """Attention with explicit int32 positions (kv position -1: empty slot).
 
-    q: [B,Sq,Hq,hd]; k, v: [B,Skv,Hkv,hd] -> [B,Sq,Hq,hd] in q's dtype.
+    q: [B,Sq,Hq,hd]; k, v: [B,Skv,Hkv,hd] -> [B,Sq,Hq,hd] in q's dtype. On
+    the card, Sq == 1 runs ``flash_decode`` and any other Sq ``flash_fwd``.
     """
     if q.device.type == "cpu":
         _same_device(q, k, v, q_positions, kv_positions)
@@ -29,9 +31,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    logit_cap=logit_cap,
                                    q_positions=q_positions,
                                    kv_positions=kv_positions)
-    return fa.flash_fwd(q, k, v, causal=causal, window=window,
-                        logit_cap=logit_cap, q_positions=q_positions,
-                        kv_positions=kv_positions)
+    # by shape: one query position (a decode step) splits the keys across
+    # CTAs; more (prefill) tile the query rows
+    kernel = fd.flash_decode if q.shape[1] == 1 else fa.flash_fwd
+    return kernel(q, k, v, causal=causal, window=window, logit_cap=logit_cap,
+                  q_positions=q_positions, kv_positions=kv_positions)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -7,6 +7,7 @@ CUDA kernel against them on the card. All compute in fp32; attention returns
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -50,6 +51,54 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return out.reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
+def attention_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: Optional[int] = None,
+                          logit_cap: Optional[float] = None,
+                          q_positions: torch.Tensor,
+                          kv_positions: torch.Tensor, n_splits: int
+                          ) -> torch.Tensor:
+    """The two passes of the split-KV decode (``csrc/flash_decode.cu``),
+    plainly: the keys are cut into ``n_splits`` contiguous chunks of
+    ceil(Skv / n_splits); each chunk gives per row its max m, sum l and
+    unnormalised acc (m = -inf, l = 0 where it holds no valid key); then
+    out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s. A row with no
+    valid key in any chunk gets 0, as the kernels give it. Shapes and masks
+    as :func:`attention_plain`; any Sq.
+    """
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, hd).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * hd ** -0.5
+    if logit_cap is not None:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    dpos = q_positions[:, None].long() - kv_positions[None, :].long()
+    valid = (kv_positions[None, :] >= 0).expand(Sq, Skv)
+    if causal:
+        valid = valid & (dpos >= 0)
+    if window is not None:
+        valid = valid & (dpos < window)
+    s = s.masked_fill(~valid, -math.inf)
+    chunk = -(-Skv // n_splits)
+    ms, ls, accs = [], [], []
+    for k0 in range(0, chunk * n_splits, chunk):
+        part = s[..., k0:k0 + chunk]
+        m = part.amax(-1, keepdim=True) if part.shape[-1] else torch.full_like(
+            s[..., :1], -math.inf)
+        p = torch.exp(part - torch.where(m == -math.inf, 0.0, m))
+        ms.append(m)
+        ls.append(p.sum(-1, keepdim=True))
+        accs.append(torch.einsum("bhgqk,bkhd->bhgqd", p,
+                                 v[:, k0:k0 + chunk].float()))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    big = m.amax(0)
+    w = torch.where(m == -math.inf, 0.0, torch.exp(m - torch.where(
+        big == -math.inf, 0.0, big)))
+    num, den = (w * acc).sum(0), (w * l).sum(0)
+    out = torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hd).to(q.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

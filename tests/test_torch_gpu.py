@@ -7,16 +7,22 @@ it runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances, as |got - want| <= atol + rtol * |want|: fp32 atol = rtol = 5e-5
-(the kernel and the plain version sum in another order); bf16 atol 1e-4,
-rtol 2**-6 (both round an fp32 result to bf16 once, so they differ by at
-most one bf16 ulp, 2**-7 of |want|; the limit allows two).
+Tolerances of attention, as |got - want| <= atol + rtol * |want| (+ a third
+term in bf16): fp32 atol = rtol = 5e-5 (the kernels and the plain version
+sum in another order). bf16 atol 1e-4, rtol 2**-6: both round an fp32
+result to bf16 once, so they differ by at most one bf16 ulp, 2**-7 of
+|want|, and the limit allows two. The tensor-core bodies also round each
+probability to bf16 before P V (the plain version and the fp32 Pallas
+kernel do not): at most 2**-8 of it, which moves an output by at most 2**-8
+of the probability-weighted mean of |v|, attention_plain(q, k, |v|); the
+bf16 limit adds that term.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops, ref, rglru, rwkv6
 from repro_torch.models import Backbone, LayerGroup, get_config, reduced
 
@@ -35,9 +41,13 @@ SHAPES = [
     (2, 130, 130, 8, 2, 64, True, None, None),
     (1, 200, 200, 32, 8, 128, True, None, None),
     (1, 65, 65, 4, 1, 256, True, None, None),
+    # recurrentgemma's local layers: Sq not a multiple of a CTA's 4 query
+    # positions nor of the 32-key tile, the window cutting in
+    (1, 2103, 2103, 16, 1, 256, True, 2048, None),
 ]
 DTYPES = {"fp32": (torch.float32, (5e-5, 5e-5)),
           "bf16": (torch.bfloat16, (1e-4, 2.0 ** -6))}
+P_ROUND = 2.0 ** -8     # bf16 rounding of P before P V (see above)
 
 
 @pytest.fixture
@@ -53,11 +63,26 @@ def _randn(shape, dtype, device, seed):
     return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
+def _assert_attention_close(got, q, k, v, kw, dtype):
+    """got against attention_plain within the limits stated above."""
+    dt, (atol, rtol) = DTYPES[dtype]
+    want = ref.attention_plain(q, k, v, **kw).float()
+    limit = atol + rtol * want.abs()
+    if dt == torch.bfloat16:
+        limit = limit + P_ROUND * ref.attention_plain(
+            q.float(), k.float(), v.float().abs(), **kw)
+    err = (got.float() - want).abs()
+    assert got.dtype == dt and got.shape == q.shape
+    assert bool((err <= limit).all()), (
+        f"max abs err {float(err.max())}, worst excess "
+        f"{float((err - limit).max())}")
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
 def test_kernel_matches_plain(cuda, shape, dtype):
     B, Sq, Skv, Hq, Hkv, hd, causal, window, cap = shape
-    dt, (atol, rtol) = DTYPES[dtype]
+    dt = DTYPES[dtype][0]
     q = _randn((B, Sq, Hq, hd), dt, cuda, 0)
     k = _randn((B, Skv, Hkv, hd), dt, cuda, 1)
     v = _randn((B, Skv, Hkv, hd), dt, cuda, 2)
@@ -67,14 +92,12 @@ def test_kernel_matches_plain(cuda, shape, dtype):
               kv_positions=kp)
     got = fa.flash_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
-    want = ref.attention_plain(q, k, v, **kw)
-    assert got.dtype == dt and got.shape == q.shape
-    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    _assert_attention_close(got, q, k, v, kw, dtype)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_kernel_decode_against_a_wrapped_ring(cuda, dtype):
-    dt, (atol, rtol) = DTYPES[dtype]
+    dt = DTYPES[dtype][0]
     B, C, Hq, Hkv, hd = 3, 200, 32, 8, 128
     kpos = np.full((C,), -1, np.int32)
     for p in range(150, 331):           # wrapped at 200, 19 empty slots
@@ -87,10 +110,49 @@ def test_kernel_decode_against_a_wrapped_ring(cuda, dtype):
                   q_positions=torch.tensor([330], dtype=torch.int32,
                                            device=cuda),
                   kv_positions=torch.from_numpy(kpos).to(cuda))
-        got = fa.flash_fwd(q, k, v, **kw)
-        torch.testing.assert_close(got.float(),
-                                   ref.attention_plain(q, k, v, **kw).float(),
-                                   atol=atol, rtol=rtol)
+        for kernel in (fa.flash_fwd, fd.flash_decode):
+            _assert_attention_close(kernel(q, k, v, **kw), q, k, v, kw, dtype)
+
+
+def _ring(C, first, last):
+    """kv positions of a C-slot ring holding first..last at slots p % C."""
+    kpos = np.full((C,), -1, np.int32)
+    for p in range(first, last + 1):
+        kpos[p % C] = p
+    return kpos
+
+
+# (B, C, Hq, Hkv, hd, first, last, window, cap): one query at position
+# `last` against a C-slot ring holding positions first..last
+DECODE_CASES = [
+    (8, 2048, 16, 1, 256, 542, 2589, 2048, None),  # recurrentgemma, wrapped
+    (8, 2048, 16, 1, 256, 0, 1023, 2048, None),    # half the ring empty
+    (1, 1024, 32, 8, 128, 600, 1500, None, None),  # qwen3, B = 1, wrapped
+    (8, 1024, 32, 8, 128, 600, 1500, None, None),  # qwen3, B = 8
+    (8, 1024, 32, 8, 128, 0, 200, None, None),     # every split but one empty
+    (3, 200, 32, 8, 128, 150, 330, 64, 20.0),      # window with softcap
+    (2, 512, 16, 1, 64, 0, 100, None, None),       # G = 16, hd 64, mostly empty
+    (2, 512, 8, 2, 64, 0, 700, 100, None),         # most chunks outside window
+    (4, 300, 4, 1, 32, 0, 299, None, 30.0),        # ragged last tile
+    (2, 256, 32, 1, 128, 0, 255, None, None),      # G = 32: two row blocks
+    (1, 100, 4, 2, 24, 0, 99, 32, 50.0),           # hd 24, window, softcap
+]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", DECODE_CASES, ids=str)
+def test_flash_decode_matches_plain(cuda, case, dtype):
+    B, C, Hq, Hkv, hd, first, last, window, cap = case
+    dt = DTYPES[dtype][0]
+    q = _randn((B, 1, Hq, hd), dt, cuda, 30)
+    k = _randn((B, C, Hkv, hd), dt, cuda, 31)
+    v = _randn((B, C, Hkv, hd), dt, cuda, 32)
+    kw = dict(causal=True, window=window, logit_cap=cap,
+              q_positions=torch.tensor([last], dtype=torch.int32, device=cuda),
+              kv_positions=torch.from_numpy(_ring(C, first, last)).to(cuda))
+    got = fd.flash_decode(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_attention_close(got, q, k, v, kw, dtype)
 
 
 def test_fully_masked_rows_are_zero(cuda):
@@ -105,6 +167,25 @@ def test_fully_masked_rows_are_zero(cuda):
                                                  device=cuda))
     assert out[:, :2].abs().max().item() == 0.0
     assert out[:, 2:].abs().max().item() > 0.0
+    # the split decode, whose combine sees every split empty
+    kp = torch.tensor([-1, -1, 5, 6, -1, 9, 7, 8], dtype=torch.int32, device=cuda)
+    for qpos, empty in ((4, True), (6, False)):
+        out = fd.flash_decode(q[:, :1], k, k, causal=True, kv_positions=kp,
+                              q_positions=torch.tensor([qpos], dtype=torch.int32,
+                                                       device=cuda))
+        assert (out.abs().max().item() == 0.0) == empty
+
+
+def test_ops_attention_picks_the_kernel_by_query_length(cuda):
+    q = _randn((2, 5, 4, 32), torch.bfloat16, cuda, 40)
+    k = _randn((2, 9, 2, 32), torch.bfloat16, cuda, 41)
+    kp = torch.arange(9, dtype=torch.int32, device=cuda)
+    for sq, moved in ((1, (0, 1)), (5, (1, 0))):
+        before = (fa.launches, fd.launches)
+        ops.attention(q[:, :sq].contiguous(), k, k, kv_positions=kp,
+                      q_positions=torch.arange(9 - sq, 9, dtype=torch.int32,
+                                               device=cuda))
+        assert (fa.launches - before[0], fd.launches - before[1]) == moved
 
 
 def test_wrapper_counts_launches_and_rejects_what_it_cannot_take(cuda):

@@ -17,6 +17,7 @@ from repro.kernels.flash_attention import flash_attention_pallas
 from repro.models.attention import attention_reference, flash_attention_jnp
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import ref as tref
 from test_kernels import FLASH_CASES
 
@@ -115,6 +116,90 @@ def test_ring_positions_match_jax(case, reference):
     np.testing.assert_allclose(_np(got), _np(want), atol=3e-5, rtol=3e-5)
 
 
+# (Sq, C, first, last, window, cap, n_splits): the split mirror of the
+# decode kernel against the unsplit plain version; chunks of ceil(C / n)
+SPLIT_CASES = [
+    (1, 40, 25, 57, None, None, 1),
+    (1, 40, 25, 57, None, None, 3),
+    (1, 40, 25, 57, None, None, 8),
+    (1, 40, 0, 12, None, None, 3),   # chunks 2 and 3 hold no valid key
+    (1, 40, 0, 12, None, None, 8),   # six of eight chunks empty
+    (1, 64, 10, 90, 16, None, 8),    # the window leaves most chunks empty
+    (1, 48, 20, 70, None, 30.0, 3),  # softcap
+    (1, 48, 20, 70, 24, 30.0, 8),    # window and softcap
+    (3, 40, 30, 60, 16, None, 3),    # three queries, window
+    (1, 10, 0, 9, None, None, 8),    # more splits than keys: last ones empty
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_split_plain_matches_plain(case):
+    Sq, C, first, last, window, cap, n = case
+    _, (tq, tk, tv) = _inputs([(2, Sq, 8, 32), (2, C, 2, 32), (2, C, 2, 32)],
+                              jnp.float32, 3)
+    kw = dict(causal=True, window=window, logit_cap=cap,
+              q_positions=torch.arange(last - Sq + 1, last + 1,
+                                       dtype=torch.int32),
+              kv_positions=torch.from_numpy(_ring_positions(C, first, last)))
+    got = tref.attention_split_plain(tq, tk, tv, n_splits=n, **kw)
+    want = tref.attention_plain(tq, tk, tv, **kw)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n_splits", [1, 3, 8])
+@pytest.mark.parametrize("case", RING_CASES)
+def test_split_plain_matches_jax_ring(case, n_splits):
+    """The two passes against the JAX package's attention_reference."""
+    Sq, C, first, last, window, cap = case
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        [(2, Sq, 8, 32), (2, C, 2, 32), (2, C, 2, 32)], jnp.float32, 2)
+    kpos = _ring_positions(C, first, last)
+    qpos = np.arange(last - Sq + 1, last + 1, dtype=np.int32)
+    want = attention_reference(jq, jk, jv, causal=True, window=window,
+                               logit_cap=cap, q_positions=jnp.asarray(qpos),
+                               kv_positions=jnp.asarray(kpos))
+    got = tref.attention_split_plain(
+        tq, tk, tv, causal=True, window=window, logit_cap=cap,
+        q_positions=torch.from_numpy(qpos), kv_positions=torch.from_numpy(kpos),
+        n_splits=n_splits)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+
+
+def test_split_plain_rows_without_a_valid_key_are_zero():
+    """As the kernels give it; attention_plain gives the mean of V there."""
+    _, (tq, tk, tv) = _inputs([(1, 1, 2, 16), (1, 8, 1, 16), (1, 8, 1, 16)],
+                              jnp.float32, 4)
+    kp = torch.tensor([-1, -1, 5, 6, -1, 9, 7, 8], dtype=torch.int32)
+    for qpos, empty in ((4, True), (6, False)):
+        out = tref.attention_split_plain(
+            tq, tk, tv, q_positions=torch.tensor([qpos], dtype=torch.int32),
+            kv_positions=kp, n_splits=3)
+        assert (out.abs().max().item() == 0.0) == empty
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 1, 16, 2048), (8, 8, 4, 1024), (1, 1, 16, 2048), (3, 8, 4, 200),
+    (1, 8, 4, 10), (2, 1, 32, 256), (1, 2, 2, 70000), (128, 8, 4, 1024)],
+    ids=str)
+def test_split_plan_fills_the_card_in_whole_tiles(shape):
+    B, Hkv, G, Skv = shape
+    n, keys = tfd.split_plan(B, Hkv, G, Skv)
+    assert keys % tfd.SPLIT_TILE == 0 and keys >= tfd.SPLIT_TILE
+    assert n * keys >= Skv and (n - 1) * keys < max(Skv, 1)  # none empty
+    ctas = B * Hkv * -(-G // tfd.ROWS_PER_CTA)
+    # one tile a split, or enough splits for a CTA on every SM ...
+    assert keys == tfd.SPLIT_TILE or n * ctas >= tfd.SMS
+    # ... and no more than about two waves of them
+    assert n == 1 or n * ctas < 2 * tfd.CTAS_PER_SM * tfd.SMS
+
+
+def test_split_plan_at_the_serving_shapes():
+    # recurrentgemma-9b decode: 8 slots, MQA 16/1, the 2048-slot local ring
+    assert tfd.split_plan(8, 1, 16, 2048) == (32, 64)
+    # qwen3-4b decode: 8 slots, GQA 32/8, the 1024-slot ring
+    assert tfd.split_plan(8, 8, 4, 1024) == (4, 256)
+
+
 def test_cpu_tensors_take_the_plain_version():
     q = torch.randn(1, 4, 4, 16)
     k = torch.randn(1, 4, 2, 16)
@@ -126,6 +211,24 @@ def test_cpu_tensors_take_the_plain_version():
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfa.flash_fwd(q, k, k, q_positions=torch.arange(4, dtype=torch.int32),
                       kv_positions=torch.arange(4, dtype=torch.int32))
+
+
+def test_cpu_decode_takes_the_plain_version():
+    """One query position on the CPU: attention_plain, no kernel launched."""
+    q, k = torch.randn(2, 1, 4, 16), torch.randn(2, 6, 2, 16)
+    kw = dict(q_positions=torch.tensor([5], dtype=torch.int32),
+              kv_positions=torch.arange(6, dtype=torch.int32), window=4)
+    before = (tfa.launches, tfd.launches)
+    out = ops.attention(q, k, k, **kw)
+    assert (tfa.launches, tfd.launches) == before
+    torch.testing.assert_close(out, tref.attention_plain(q, k, k, **kw),
+                               atol=0, rtol=0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfd.flash_decode(q, k, k, **kw)
+    with pytest.raises(ValueError, match="one query position"):
+        tfd.flash_decode(torch.randn(2, 2, 4, 16), k, k, window=4,
+                         q_positions=torch.tensor([4, 5], dtype=torch.int32),
+                         kv_positions=kw["kv_positions"])
 
 
 def _bad_inputs():
@@ -167,9 +270,23 @@ def test_build_targets_hopper_from_the_repo_sources():
     assert "-shared" in build.LINK_FLAGS and "-shared" not in build.NVCC_FLAGS
     names = [src.name for src in build.SOURCES]
     assert names == sorted(p.name for p in build.CSRC.glob("*.cu"))
-    assert {"flash_fwd.cu", "rglru_scan.cu", "wkv6_scan.cu"} <= set(names)
+    assert {"flash_fwd.cu", "flash_decode.cu", "rglru_scan.cu",
+            "wkv6_scan.cu"} <= set(names)
     assert all(src.parent == build.CSRC for src in build.SOURCES)
     path = build.library_path()
     assert path.parent == build.BUILD_DIR and path == build.library_path()
     assert path.name.startswith(build.LIB_NAME + "-")
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")
+
+
+def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+    """flash_common.cuh is compiled into two sources, not on its own: a
+    change to it must still give the library another name."""
+    for src in build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    assert (tmp_path / "flash_common.cuh").exists()
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build.library_path()
+    (tmp_path / "flash_common.cuh").write_text("// changed\n")
+    assert build.library_path() != before
+    assert "flash_common.cuh" not in [s.name for s in build.SOURCES]
