@@ -18,9 +18,12 @@ Phases; each one that fails raises, and the process exits non-zero:
    FLASH_CASES shapes and the prefills of qwen3-4b and recurrentgemma-9b
    (hd 256, MQA 16/1, window 2048), and as flash_decode (one query position,
    split over the keys) at their ring decodes, a half-empty ring and a ring
-   where every split but one is empty; K2 (rglru_scan) at RGLRU_CASES shapes
-   and recurrentgemma's prefill and decode; K3 (wkv6_scan) at RWKV_CASES
-   shapes, rwkv6-3b's prefill and decode, and state chaining.
+   where every split but one is empty; K2 (rglru_scan) at RGLRU_CASES shapes,
+   a ragged chunked shape and recurrentgemma's prefill and decode; K3
+   (wkv6_scan) at RWKV_CASES shapes, a ragged chunked shape, rwkv6-3b's
+   prefill and decode; each scan case through both bodies (sequential and
+   chunked, the plan's choice and the other), against the sequential plain
+   version; and state chaining for both scans.
 4. Each model at full width and reduced depth (qwen3-4b and rwkv6-3b 2
    layers, recurrentgemma-9b one (rec, rec, local) group with a prompt past
    its window): in fp32, decode matches a longer prefill; in bf16, the
@@ -30,7 +33,9 @@ Phases; each one that fails raises, and the process exits non-zero:
    16 requests (see SERVES). Every launch counter is set to 0 just before
    the run and read just after: each kernel must have launched exactly
    (its layers) x (its calls) times: flash_fwd once a request (prefill),
-   flash_decode once a decode step, the scans once each. The first tokens must
+   flash_decode once a decode step, the scans once each, the prefills
+   through the scans' chunked bodies and the decode steps through their
+   sequential bodies (each body counts its own launches). The first tokens must
    equal a direct prefill's; a torch.profiler trace shows where a prefill's
    and a decode step's time goes. Each model is freed before the next.
 6. Print the kernels line, the card line and the result line.
@@ -69,10 +74,14 @@ TOL = {torch.float32: (5e-5, 5e-5), torch.bfloat16: (1e-4, 2.0 ** -6)}
 # computes as attention_plain(q, k, |v|). The bf16 limit adds that term.
 P_ROUND = 2.0 ** -8
 # The scans return fp32 whatever their input type, and both sides see the
-# same input values, so bf16 inputs keep the fp32 limit (atol = rtol): 1e-5
-# for K2 (the kernel does the plain version's operations in its order; only
-# expf, log1pf and sqrtf round differently), 2e-4 for K3 (y sums 64 products
-# in another order), the JAX tests' limits for the two kernels.
+# same input values, so bf16 inputs keep the fp32 limit (atol = rtol), the
+# JAX tests' limits for the two kernels: 1e-5 for K2 (the sequential body
+# does the plain version's operations in its order, only expf, log1pf and
+# sqrtf round differently; the chunked body composes the same a_t, b_t into
+# chunk maps and a carry, which regroups the chain's products and sums by a
+# few fp32 ulps), 2e-4 for K3 (the sequential body sums y's 64 products in
+# another order; the chunked body runs its products in 3xTF32 and its
+# decays as exp of sums of log w).
 SCAN_TOL = {"rglru_scan": 1e-5, "wkv6_scan": 2e-4}
 MODEL_FP32_TOL = 2e-3      # decode vs longer prefill (tests/test_models.py)
 MODEL_BF16_TOL = 0.125     # kernel vs plain path: a few bf16 ulps of a logit
@@ -291,10 +300,12 @@ def phase_flash():
     return rows
 
 
-def scan_case(kernel, name, dtype, make, run, plain, nbytes, flops):
-    """Hold one scan kernel against its plain version on ``make(seed)``'s
-    inputs and time both; the bound is the larger of ``nbytes`` over the
-    memory rate and ``flops`` of fp32 over the fp32 rate."""
+def scan_case(kernel, name, dtype, make, run, plain, nbytes, flops, body,
+              planned):
+    """Hold one body of a scan kernel against the sequential plain version
+    on ``make(seed)``'s inputs and time both; the bound is the larger of
+    ``nbytes`` over the memory rate and ``flops`` of fp32 over the fp32
+    rate. ``planned`` is the body the plan picks at this shape."""
     atol = rtol = SCAN_TOL[kernel]
     args = make(0)
     got = run(*args)
@@ -306,7 +317,7 @@ def scan_case(kernel, name, dtype, make, run, plain, nbytes, flops):
         max_err = max(max_err, float(err.max()))
         if g.dtype != torch.float32 or not bool(
                 (err <= atol + rtol * w.abs()).all()):
-            raise AssertionError(f"{kernel} {name} {dtype}: kernel disagrees "
+            raise AssertionError(f"{kernel} {name} {dtype} {body}: kernel disagrees "
                                  f"with the plain version, max abs err "
                                  f"{max_err} (atol = rtol = {atol})")
     bufs = [args] + [make(s) for s in range(1, n_buffers(nbytes))]
@@ -316,10 +327,13 @@ def scan_case(kernel, name, dtype, make, run, plain, nbytes, flops):
     bound_ms = max(t_ops, t_bytes) * 1e3
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     row = dict(kernel=kernel, case=name, dtype=str(dtype).replace("torch.", ""),
+               body=body, planned=body == planned,
                shape=list(args[0].shape), max_abs_err=max_err, atol=atol,
                rtol=rtol, ms=ms, plain_ms=plain_ms, library_ms=None,
                bound_ms=bound_ms, bound_by=bound_by)
-    log(f"[kernel] {kernel} {name:>15} {row['dtype']:>8} err {max_err:.3e} "
+    mark = "" if body == planned else " (not the plan's)"
+    log(f"[kernel] {kernel} {name:>15} {row['dtype']:>8} {body}{mark} "
+        f"err {max_err:.3e} "
         f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library none "
         f"bound {bound_ms:.4f} ms ({bound_by})")
     return row
@@ -331,13 +345,19 @@ def _gen(seed):
     return gen
 
 
+BODIES = ("sequential", "chunked")
+
+
 def phase_rglru():
-    """K2 at RGLRU_CASES shapes and recurrentgemma's prefill and decode:
-    random gates in (0, 1), random a_log, nonzero h0."""
+    """K2 at RGLRU_CASES shapes, a ragged chunked shape (T and W not whole
+    chunks and vectors) and recurrentgemma's prefill and decode, through both
+    bodies: random gates in (0, 1), random a_log, nonzero h0; then state
+    chaining at the prefill shape."""
     from repro_torch.kernels import ref, rglru
 
     shapes = [("rglru_case_0", 1, 32, 64), ("rglru_case_1", 2, 50, 96),
               ("rglru_case_2", 2, 64, 128), ("rglru_case_3", 1, 33, 48),
+              ("rglru_ragged", 2, 131, 100),
               ("rgemma_prefill", 1, RG["prompt_len"], 4096),
               ("rgemma_decode", RG["slots"], 1, 4096)]
     rows = []
@@ -351,20 +371,50 @@ def phase_rglru():
                         torch.sigmoid(rnd(B, T, W)).to(dtype), rnd(B, W))
             es = torch.finfo(dtype).bits // 8
             nbytes = es * (3 * B * T * W + W) + 4 * (B * T * W + 2 * B * W)
-            rows.append(scan_case("rglru_scan", name, dtype, make,
-                                  rglru.rglru_scan, ref.rglru_scan_plain,
-                                  nbytes, 9 * B * T * W))
+            for body in BODIES:
+                rows.append(scan_case(
+                    "rglru_scan", name, dtype, make,
+                    lambda *a, body=body: rglru.rglru_scan(*a, body=body),
+                    ref.rglru_scan_plain, nbytes, 9 * B * T * W, body,
+                    rglru.plan(B, T, W, dtype).body))
+    # two half-length calls that hand the state on equal one full call
+    g = _gen(98)
+    T, W = RG["prompt_len"], 4096
+    x, gr, gi = (torch.randn(1, T, W, generator=g, device=DEVICE)
+                 .to(torch.bfloat16) for _ in range(3))
+    gr, gi = torch.sigmoid(gr), torch.sigmoid(gi)
+    a_log, h0 = (torch.randn(*s, generator=g, device=DEVICE) for s in ((W,), (1, W)))
+    y_full, h_full = rglru.rglru_scan(x, a_log, gr, gi, h0)
+    half = T // 2
+    parts = [t[:, :half].contiguous() for t in (x, gr, gi)]
+    y1, h1 = rglru.rglru_scan(parts[0], a_log, parts[1], parts[2], h0)
+    parts = [t[:, half:].contiguous() for t in (x, gr, gi)]
+    y2, h2 = rglru.rglru_scan(parts[0], a_log, parts[1], parts[2], h1)
+    _check_chaining("rglru_scan", half, torch.cat([y1, y2], 1), y_full, h2,
+                    h_full)
     return rows
 
 
+def _check_chaining(kernel, half, y_two, y_full, s_two, s_full):
+    tol = SCAN_TOL[kernel]
+    err = max(float((y_two - y_full).abs().max()),
+              float((s_two - s_full).abs().max()))
+    log(f"[kernel] {kernel} state chaining: 2 x {half} steps vs {2 * half}, "
+        f"max abs err {err:.3e}")
+    torch.testing.assert_close(y_two, y_full, atol=tol, rtol=tol)
+    torch.testing.assert_close(s_two, s_full, atol=tol, rtol=tol)
+
+
 def phase_wkv():
-    """K3 at RWKV_CASES shapes and rwkv6's prefill and decode: random u, w
+    """K3 at RWKV_CASES shapes, a ragged chunked shape (hd 24, T not whole
+    chunks) and rwkv6's prefill and decode, through both bodies: random u, w
     in (0, 1) in fp32 as the model passes it, a nonzero state; then state
     chaining at the prefill shape."""
     from repro_torch.kernels import ref, rwkv6
 
     shapes = [("wkv_case_0", 1, 32, 2, 16), ("wkv_case_1", 2, 50, 4, 32),
               ("wkv_case_2", 2, 64, 1, 8), ("wkv_case_3", 1, 33, 2, 16),
+              ("wkv_ragged", 2, 131, 3, 24),
               ("rwkv6_prefill", 1, RW["prompt_len"], 40, 64),
               ("rwkv6_decode", RW["slots"], 1, 40, 64)]
     rows = []
@@ -383,9 +433,12 @@ def phase_wkv():
             # the u-term factors out of y (see wkv6_scan.cu): 2 operations
             # per state element for S^T r, 3 for w S + k v^T, 5 per element
             # of r for u, k, r and v
-            rows.append(scan_case("wkv6_scan", name, dtype, make,
-                                  rwkv6.wkv6_scan, ref.rwkv6_scan_plain,
-                                  nbytes, (5 * hd + 5) * n))
+            for body in BODIES:
+                rows.append(scan_case(
+                    "wkv6_scan", name, dtype, make,
+                    lambda *a, body=body: rwkv6.wkv6_scan(*a, body=body),
+                    ref.rwkv6_scan_plain, nbytes, (5 * hd + 5) * n, body,
+                    rwkv6.plan(B, T, H, hd).body))
     # two half-length calls that hand the state on equal one full call
     g = _gen(99)
     r, k, v, w = (torch.randn(1, RW["prompt_len"], 40, 64, generator=g,
@@ -398,13 +451,8 @@ def phase_wkv():
     y1, s1 = rwkv6.wkv6_scan(*parts, u, s0)
     parts = [t[:, half:].contiguous() for t in (r, k, v, w)]
     y2, s2 = rwkv6.wkv6_scan(*parts, u, s1)
-    tol = SCAN_TOL["wkv6_scan"]
-    err = max(float((torch.cat([y1, y2], 1) - y_full).abs().max()),
-              float((s2 - s_full).abs().max()))
-    log(f"[kernel] wkv6_scan state chaining: 2 x {half} steps vs {2 * half}, "
-        f"max abs err {err:.3e}")
-    torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, atol=tol, rtol=tol)
-    torch.testing.assert_close(s2, s_full, atol=tol, rtol=tol)
+    _check_chaining("wkv6_scan", half, torch.cat([y1, y2], 1), y_full, s2,
+                    s_full)
     return rows
 
 
@@ -521,11 +569,15 @@ def phase_serve(arch):
     counters = _counters()
     for mod in counters.values():
         mod.launches = 0
+        for body in getattr(mod, "body_launches", {}):
+            mod.body_launches[body] = 0
     t0 = time.perf_counter()
     srv.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in counters.items()}
+    bodies = {name: dict(mod.body_launches) for name, mod in counters.items()
+              if hasattr(mod, "body_launches")}
     peak = torch.cuda.max_memory_allocated()
 
     steps = srv.stats["steps"]
@@ -549,6 +601,14 @@ def phase_serve(arch):
         if launches[name] != n * calls:
             raise AssertionError(f"{arch}: {name} launched {launches[name]} "
                                  f"times on the main path, want {n} x {why}")
+    # the scans: every prefill through the chunked body, every decode step
+    # through the sequential one
+    for name, n in (("rglru_scan", kinds.count("rec")),
+                    ("wkv6_scan", kinds.count("rwkv"))):
+        want = {"chunked": n * req, "sequential": n * steps}
+        if bodies[name] != want:
+            raise AssertionError(f"{arch}: {name} bodies launched "
+                                 f"{bodies[name]}, want {want}")
     # the first token of a request is the argmax of a direct prefill
     for r in reqs[:2]:
         logits, _ = bb.prefill(params, {"tokens": torch.from_numpy(
@@ -561,13 +621,17 @@ def phase_serve(arch):
     out = {
         "arch": arch, "requests": len(reqs), "prompt_len": spec["prompt_len"],
         "decode_steps": steps, "launches": launches,
+        "body_launches": bodies,
         "prefill_ms_per_request": srv.timing["prefill_s"] / len(reqs) * 1e3,
         "decode_ms_per_step": srv.timing["decode_s"] / steps * 1e3,
         "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
         "max_memory_allocated_gb": peak / 1e9,
     }
-    counts = ", ".join(f"{name} {launches[name]} = {n} x {why}"
-                       for name, (n, _, why) in expect.items() if n)
+    counts = ", ".join(
+        f"{name} {launches[name]} = {n} x {why}"
+        + (f" ({bodies[name]['chunked']} chunked, {bodies[name]['sequential']}"
+           " sequential)" if name in bodies else "")
+        for name, (n, _, why) in expect.items() if n)
     log(f"[serve] {arch}: {len(reqs)} requests of {spec['prompt_len']} tokens, "
         f"{steps} decode steps, {tokens} tokens in {wall:.3f} s "
         f"({out['tokens_per_s']:.1f} tok/s); prefill "
@@ -628,7 +692,7 @@ def phase_trace(bb, params, prompts, spec):
         ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
         # the top 8, and the port's own kernels wherever they rank
         shown = ranked[:8] + [kv for kv in ranked[8:] if any(
-            k in kv[0] for k in SOURCE)]
+            k in kv[0] for k in TRACE_NAMES)]
         result[name] = {
             "host_ms_per_call": wall_us / 3e3,
             "device_busy_ms_per_call": busy / 3e3,
@@ -653,8 +717,12 @@ HEADLINE = {
     "rglru_scan": ("rgemma_prefill", "src/repro/kernels/rglru_kernel.py:22"),
     "wkv6_scan": ("rwkv6_prefill", "src/repro/kernels/rwkv6_kernel.py:26"),
 }
+# the source of each kernel's headline body, and every source of the kernel
 SOURCE = {"flash_fwd": "flash_fwd.cu", "flash_decode": "flash_decode.cu",
-          "rglru_scan": "rglru_scan.cu", "wkv6_scan": "wkv6_scan.cu"}
+          "rglru_scan": "rglru_scan.cu", "wkv6_scan": "wkv6_chunk.cu"}
+SOURCES = {"wkv6_scan": ("wkv6_chunk.cu", "wkv6_scan.cu")}
+# the port's kernel names in a profiler trace start with one of these
+TRACE_NAMES = ("flash_", "rglru_", "wkv")
 
 
 def main() -> int:
@@ -685,18 +753,24 @@ def main() -> int:
     kernels = []
     for name, (case, replaces) in HEADLINE.items():
         head = next(r for r in rows if r["kernel"] == name and r["case"] == case
-                    and r["dtype"] == "bfloat16")
+                    and r["dtype"] == "bfloat16" and r.get("planned", True))
         by_path = {arch: s["launches"][name] for arch, s in serve.items()
                    if s["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{SOURCE[name]}",
+            "sources": [f"src/repro_torch/kernels/csrc/{f}"
+                        for f in SOURCES.get(name, (SOURCE[name],))],
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
+            "launches_by_body": {arch: s["body_launches"][name]
+                                 for arch, s in serve.items()
+                                 if name in s["body_launches"] and by_path.get(arch)},
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "at": f"{case} bfloat16 {head['shape']}",
+            "at": f"{case} bfloat16 {head['shape']}"
+                  + (f" ({head['body']} body)" if "body" in head else ""),
             "cases": [r for r in rows if r["kernel"] == name],
         })
     log("[summary] " + json.dumps({"model": model, "serve": serve,

@@ -14,6 +14,11 @@ import torch
 
 MASK_VALUE = -1e30
 RGLRU_C = 8.0
+# log w is clamped here before the chunked WKV form sums it: w may be exactly
+# 0 (the model's exp(-exp(.)) underflows), and exp(-88) is already below
+# fp32's normal range, so the clamp changes no decay by more than fp32 can
+# resolve next to the other terms, and keeps every sum of log w finite
+LOG_W_FLOOR = -88.0
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -116,6 +121,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            kv_positions=kv_pos)
 
 
+def _rglru_terms(x, a_log, gate_r, gate_i):
+    """a_t and b_t of the RG-LRU for every step (neither depends on h)."""
+    al = a_log.float()
+    decay = torch.clamp_min(al, 0.0) + torch.log1p(torch.exp(-al.abs()))
+    a = torch.exp((-RGLRU_C * decay) * gate_r.float())
+    return a, torch.sqrt(torch.clamp_min(1.0 - a * a, 0.0)) * (
+        gate_i.float() * x.float())
+
+
 def rglru_scan_plain(x: torch.Tensor, a_log: torch.Tensor,
                      gate_r: torch.Tensor, gate_i: torch.Tensor,
                      h0: torch.Tensor, *, h_out: Optional[torch.Tensor] = None
@@ -127,11 +141,7 @@ def rglru_scan_plain(x: torch.Tensor, a_log: torch.Tensor,
     ``h_out`` when one is given (it may be ``h0`` itself). The terms that do
     not depend on h are computed for all steps at once; only the chain loops.
     """
-    al = a_log.float()
-    decay = torch.clamp_min(al, 0.0) + torch.log1p(torch.exp(-al.abs()))
-    a = torch.exp((-RGLRU_C * decay) * gate_r.float())
-    scale = torch.sqrt(torch.clamp_min(1.0 - a * a, 0.0))
-    b = scale * (gate_i.float() * x.float())
+    a, b = _rglru_terms(x, a_log, gate_r, gate_i)
     h = h0.float()
     ys = []
     for t in range(x.shape[1]):
@@ -140,6 +150,60 @@ def rglru_scan_plain(x: torch.Tensor, a_log: torch.Tensor,
     if h_out is not None:
         h = h_out.copy_(h)
     return torch.stack(ys, dim=1), h
+
+
+def rglru_scan_chunked_plain(x: torch.Tensor, a_log: torch.Tensor,
+                             gate_r: torch.Tensor, gate_i: torch.Tensor,
+                             h0: torch.Tensor, *,
+                             h_out: Optional[torch.Tensor] = None,
+                             chunk: int = 32
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked body of ``csrc/rglru_scan.cu``, plainly; the function of
+    :func:`rglru_scan_plain`.
+
+    Time is cut into chunks of ``chunk`` steps (the last padded with a = 1,
+    b = 0, which leave h as it is), each into 4 quarters. Pass 1 scans every
+    quarter from 0 for its map h -> A h + E (A = prod a, E = the local end
+    state) and composes a chunk's 4 maps; the carry applies the chunk maps
+    in order from h0 (the kernel's look-back may group them otherwise, the
+    same maps in the same order); pass 2 rescans each quarter from its carry
+    with pass 1's a_t and b_t and writes y. h_T is the last rescanned h, so
+    y[:, -1] == h_T.
+    """
+    if chunk % 4 or chunk < 4:
+        raise ValueError(f"chunk {chunk}: want a positive multiple of 4")
+    a, b = _rglru_terms(x, a_log, gate_r, gate_i)
+    B, T, W = x.shape
+    n, sub = -(-T // chunk), chunk // 4
+    pad = n * chunk - T
+    a = torch.cat([a, a.new_ones(B, pad, W)], 1).reshape(B, n, 4, sub, W)
+    b = torch.cat([b, b.new_zeros(B, pad, W)], 1).reshape(B, n, 4, sub, W)
+    A, E = a.new_ones(B, n, 4, W), a.new_zeros(B, n, 4, W)
+    for j in range(sub):                                 # pass 1
+        E = a[:, :, :, j] * E + b[:, :, :, j]
+        A = A * a[:, :, :, j]
+    cA, cE = A[:, :, 0], E[:, :, 0]                      # the chunk's map
+    for q in range(1, 4):
+        cA, cE = A[:, :, q] * cA, A[:, :, q] * cE + E[:, :, q]
+    h, carry = h0.float(), []
+    for c in range(n):                                   # the carry
+        carry.append(h)
+        h = cA[:, c] * h + cE[:, c]
+    h = torch.stack(carry, 1)                            # [B, n, W]
+    quarters = []
+    for q in range(4):
+        quarters.append(h)
+        h = A[:, :, q] * h + E[:, :, q]
+    h = torch.stack(quarters, 2)                         # [B, n, 4, W]
+    ys = []
+    for j in range(sub):                                 # pass 2
+        h = a[:, :, :, j] * h + b[:, :, :, j]
+        ys.append(h)
+    y = torch.stack(ys, 3).reshape(B, n * chunk, W)[:, :T]
+    h = y[:, -1].clone()
+    if h_out is not None:
+        h = h_out.copy_(h)
+    return y, h
 
 
 def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -164,3 +228,89 @@ def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if state_out is not None:
         s = state_out.copy_(s)
     return torch.stack(ys, dim=1), s
+
+
+def _sums_before(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """Σ of the entries before each along ``dim`` (0 for the first)."""
+    z = torch.zeros_like(a.narrow(dim, 0, 1))
+    return torch.cat([z, torch.cumsum(a, dim).narrow(dim, 0, a.shape[dim] - 1)],
+                     dim)
+
+
+def _sums_after(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """Σ of the entries after each along ``dim`` (0 for the last)."""
+    return _sums_before(a.flip(dim), dim).flip(dim)
+
+
+def rwkv6_scan_chunked_plain(r: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+                             state: torch.Tensor, *,
+                             state_out: Optional[torch.Tensor] = None,
+                             chunk: int = 64, sub: int = 16
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked matrix form of ``csrc/wkv6_chunk.cu``, plainly; the
+    function of :func:`rwkv6_scan_plain`.
+
+    Time is cut into chunks of ``chunk`` steps (the last padded with r, k,
+    v = 0 and w = 1), each into sub-chunks of ``sub`` steps. With
+    lw = max(log w, LOG_W_FLOOR), every decay from step s to step t-1 is
+    exp(Σ_{s<m<t} lw_m), and the kernel sums only runs of lw inside a
+    sub-chunk (p: from its start up to t, exclusive; q: after s to its end)
+    and whole sub-chunks (G): sums of terms of one sign, so no decay comes
+    from the difference of two large sums, which would lose the small decay
+    of a short run behind a long one.
+
+    1. summaries: D = exp(Σ G), ΔS = (k ⊙ exp(q[s] + G after s's sub-chunk))ᵀ V;
+    2. carry: S_{c+1} = diag(D_c) S_c + ΔS_c from ``state``;
+    3. outputs: y = (r ⊙ exp(G before + p[t])) S_c + A V, where A[t,s] for s
+       in an earlier sub-chunk is (r_t ⊙ exp(p[t])) · (k_s ⊙ exp(q[s] + G
+       between)), within a sub-chunk Σ_k r_t k_s Π_{s<m<t} w_m (the
+       sequential version's products), and A[t,t] = Σ_k r_t u k_t (the
+       u-term).
+    """
+    if chunk % sub or sub < 1:
+        raise ValueError(f"chunk {chunk}, sub {sub}: want sub | chunk")
+    B, T, H, hd = r.shape
+    n, m = -(-T // chunk), chunk // sub
+    pad = n * chunk - T
+
+    def blocks(a, fill):  # [B,T,H,hd] -> [B,H,n,m,sub,hd], padded with fill
+        a = torch.cat([a.float(), a.new_full((B, pad, H, hd), fill).float()], 1)
+        return a.reshape(B, n, m, sub, H, hd).permute(0, 4, 1, 2, 3, 5)
+
+    r, k, v, w = blocks(r, 0), blocks(k, 0), blocks(v, 0), blocks(w, 1)
+    lw = torch.clamp_min(torch.log(w), LOG_W_FLOOR)
+    p, q = _sums_before(lw, 4), _sums_after(lw, 4)
+    g = lw.sum(4)                                        # [B,H,n,m,hd]
+    g_before, g_after = _sums_before(g, 3), _sums_after(g, 3)
+    # 1. summaries
+    d = torch.exp(g.sum(3))                              # [B,H,n,hd]
+    kt = k * torch.exp(q + g_after[..., None, :])
+    ds = torch.einsum("bhnjsk,bhnjsv->bhnkv", kt, v)
+    # 2. carry
+    s, starts = state.float(), []
+    for c in range(n):
+        starts.append(s)
+        s = d[:, :, c, :, None] * s + ds[:, :, c]
+    sc = torch.stack(starts, 2)                          # [B,H,n,hd,hd]
+    # 3. outputs
+    rt = r * torch.exp(g_before[..., None, :] + p)
+    y = torch.einsum("bhnitk,bhnkv->bhnitv", rt, sc)
+    rh = r * torch.exp(p)
+    for i in range(1, m):
+        between = _sums_after(g[..., :i, :], 3)
+        kh = k[..., :i, :, :] * torch.exp(q[..., :i, :, :] + between[..., None, :])
+        a = torch.einsum("bhntk,bhnjsk->bhntjs", rh[..., i, :, :], kh)
+        y[..., i, :, :] += torch.einsum("bhntjs,bhnjsv->bhntv", a, v[..., :i, :, :])
+    diag = torch.diag_embed((r * u.float()[:, None, None, None, :] * k).sum(-1))
+    decay = torch.ones_like(w)                           # Π_{s<m<s+dt} w_m
+    for dt in range(1, sub):
+        pair = (r[..., dt:, :] * k[..., :-dt, :] * decay[..., :-dt, :]).sum(-1)
+        diag = diag + torch.diag_embed(pair, -dt)
+        decay = torch.cat([decay[..., :-dt, :] * w[..., dt:, :],
+                           torch.ones_like(w[..., :dt, :])], 4)
+    y = y + torch.einsum("bhnits,bhnisv->bhnitv", diag, v)
+    y = y.permute(0, 2, 3, 4, 1, 5).reshape(B, n * chunk, H, hd)[:, :T]
+    if state_out is not None:
+        s = state_out.copy_(s)
+    return y, s

@@ -1,22 +1,57 @@
 """Wrapper of the Hopper RG-LRU scan kernel (``csrc/rglru_scan.cu``).
 
 The kernel replaces ``src/repro/kernels/rglru_kernel.py::_rglru_kernel``.
-Its plain version is :func:`repro_torch.kernels.ref.rglru_scan_plain`;
-:mod:`repro_torch.kernels.ops` picks between the two by the tensors' device.
+It has two bodies, chosen by :func:`plan` from the shapes: a sequential one
+(one thread per channel walks all T steps; decode and short T) and a
+chunk-parallel one (chunks of time scanned in parallel and joined by a
+decoupled look-back; prefill). Its plain version is
+:func:`repro_torch.kernels.ref.rglru_scan_plain`, and
+:func:`repro_torch.kernels.ref.rglru_scan_chunked_plain` repeats the chunked
+body's arithmetic; :mod:`repro_torch.kernels.ops` picks between kernel and
+plain version by the tensors' device.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SEQ_THREADS = 64   # sequential body: channels per CTA
+CHUNK = 32         # chunked body: steps per chunk; longer T take this body
+LANES = 32         # chunked body: lanes of a quarter, 16 bytes of channels each
 
-# Launches of the kernel since the last reset (set it to 0 to reset).
+# Launches of the kernel since the last reset (set it to 0 to reset), and of
+# each body (set both entries to 0 to reset).
 launches = 0
+body_launches = {"sequential": 0, "chunked": 0}
+
+
+class Plan(NamedTuple):
+    body: str                      # "sequential" or "chunked"
+    chunk: int                     # steps a CTA takes
+    grid: Tuple[int, int, int]
+
+
+def plan(B: int, T: int, W: int, dtype: torch.dtype = torch.bfloat16,
+         body: Optional[str] = None) -> Plan:
+    """The body, chunk length and grid for x [B,T,W] of ``dtype``: the
+    sequential body for T up to one chunk, else the chunked body with one
+    CTA per (chunk, batch row, block of 32 x 16 bytes of channels). ``body``
+    names one instead (tests and timing run both at every shape)."""
+    body = body or ("sequential" if T <= CHUNK else "chunked")
+    if body == "sequential":
+        return Plan(body, T, (math.ceil(W / SEQ_THREADS), B, 1))
+    if body != "chunked":
+        raise ValueError(f"body {body!r}: want 'sequential' or 'chunked'")
+    per_cta = LANES * 16 // (torch.finfo(dtype).bits // 8)
+    return Plan(body, CHUNK,
+                (math.ceil(T / CHUNK) * B * math.ceil(W / per_cta), 1, 1))
+
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -29,6 +64,10 @@ def _library() -> ctypes.CDLL:
         # x, r, i, a_log, h0, y, h_out; B, T, W, dtype, alog_dtype; stream
         lib.rglru_scan.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
         lib.rglru_scan.restype = i32
+        # x, r, i, a_log, h0, y, h_out, flags, pairs; B, T, W, dtype,
+        # alog_dtype, chunk, vector; stream
+        lib.rglru_scan_chunked.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
+        lib.rglru_scan_chunked.restype = i32
         _lib = lib
     return _lib
 
@@ -67,10 +106,12 @@ def check_inputs(x: torch.Tensor, a_log: torch.Tensor, gate_r: torch.Tensor,
 
 def rglru_scan(x: torch.Tensor, a_log: torch.Tensor, gate_r: torch.Tensor,
                gate_i: torch.Tensor, h0: torch.Tensor, *,
-               h_out: Optional[torch.Tensor] = None
+               h_out: Optional[torch.Tensor] = None,
+               body: Optional[str] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on CUDA tensors: (y [B,T,W] fp32, h_T [B,W] fp32).
-    h_T is written into ``h_out`` when one is given (it may be ``h0``)."""
+    h_T is written into ``h_out`` when one is given (it may be ``h0``).
+    :func:`plan` picks the body unless ``body`` names one."""
     global launches
     check_inputs(x, a_log, gate_r, gate_i, h0, h_out)
     if x.device.type != "cuda":
@@ -79,13 +120,29 @@ def rglru_scan(x: torch.Tensor, a_log: torch.Tensor, gate_r: torch.Tensor,
     y = torch.empty((B, T, W), dtype=torch.float32, device=x.device)
     if h_out is None:
         h_out = torch.empty_like(h0)
+    p = plan(B, T, W, x.dtype, body)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = (x.data_ptr(), gate_r.data_ptr(), gate_i.data_ptr(),
+            a_log.data_ptr(), h0.data_ptr(), y.data_ptr(), h_out.data_ptr())
     with torch.cuda.device(x.device):
-        rc = lib.rglru_scan(x.data_ptr(), gate_r.data_ptr(), gate_i.data_ptr(),
-                            a_log.data_ptr(), h0.data_ptr(), y.data_ptr(),
-                            h_out.data_ptr(), B, T, W, _DTYPES[x.dtype],
-                            _DTYPES[a_log.dtype], stream)
-    build.check_launch("rglru_scan", rc)
+        if p.body == "sequential":
+            rc = lib.rglru_scan(*ptrs, B, T, W, _DTYPES[x.dtype],
+                                _DTYPES[a_log.dtype], stream)
+        else:
+            n_chunks = math.ceil(T / p.chunk)
+            # the look-back's flags, zero, and the ticket after them
+            flags = torch.zeros(p.grid[0] + 1, dtype=torch.int32,
+                                device=x.device)
+            pairs = torch.empty((3, B, n_chunks, W), dtype=torch.float32,
+                                device=x.device)
+            vector = (W * x.element_size()) % 16 == 0 and all(
+                t.data_ptr() % 16 == 0 for t in (x, gate_r, gate_i))
+            rc = lib.rglru_scan_chunked(*ptrs, flags.data_ptr(),
+                                        pairs.data_ptr(), B, T, W,
+                                        _DTYPES[x.dtype], _DTYPES[a_log.dtype],
+                                        p.chunk, int(vector), stream)
+    build.check_launch(f"rglru_scan ({p.body})", rc)
     launches += 1
+    body_launches[p.body] += 1
     return y, h_out

@@ -217,13 +217,24 @@ def test_model_decode_matches_prefill_on_the_card(cuda):
 # --------------------------------------------------------------------------- #
 # Both scans return fp32 and both sides see the same input values, so the
 # bf16-input cases keep the fp32 tolerance: atol = rtol = 1e-5 for the RG-LRU
-# (the kernel computes the plain version's operations in its order; only
-# expf, log1pf and sqrtf round differently), 2e-4 for the WKV (its y sums
-# 64 products in another order), the JAX tests' limits for the two kernels.
+# and 2e-4 for the WKV, the JAX tests' limits for the two kernels. The RG-LRU's
+# sequential body does the plain version's operations in its order (only
+# expf, log1pf and sqrtf round differently); its chunked body computes the
+# same a_t and b_t but composes them into chunk maps joined by a carry, which
+# regroups the products and sums of the chain: a few fp32 ulps of |h| <= a
+# few units, far inside 1e-5. The WKV's sequential body sums y's 64 products
+# in another order; its chunked body runs the products on the tensor cores in
+# 3xTF32 (about fp32's precision) and its decays as exp of sums of log w.
+# The plans (kernels/{rglru,rwkv6}.plan) give T above one chunk (32 steps
+# for the RG-LRU, 64 for the WKV) the chunked body; the tests run both bodies
+# at every shape, with ragged last chunks, and for the RG-LRU widths that
+# are not a multiple of 8 (the scalar path).
 RGLRU_SHAPES = [(1, 32, 64), (2, 50, 96), (2, 64, 128), (1, 33, 48),
-                (1, 300, 4096), (8, 1, 4096)]
+                (1, 300, 4096), (8, 1, 4096), (2, 131, 100), (3, 65, 512),
+                (1, 1000, 264)]
 WKV_SHAPES = [(1, 32, 2, 16), (2, 50, 4, 32), (2, 64, 1, 8), (1, 33, 2, 16),
-              (1, 100, 40, 64), (8, 1, 40, 64)]
+              (1, 100, 40, 64), (8, 1, 40, 64), (2, 131, 3, 24),
+              (1, 129, 2, 8), (2, 200, 4, 32), (1, 512, 40, 64)]
 SCAN_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -245,36 +256,44 @@ def _wkv_args(B, T, H, hd, dt, dev):
             _randn((B, H, hd, hd), torch.float32, dev, 26))
 
 
+BODIES = ["sequential", "chunked"]
+
+
+@pytest.mark.parametrize("body", BODIES)
 @pytest.mark.parametrize("dtype", list(SCAN_DTYPES))
 @pytest.mark.parametrize("shape", RGLRU_SHAPES, ids=str)
-def test_rglru_kernel_matches_plain(cuda, shape, dtype):
+def test_rglru_kernel_matches_plain(cuda, shape, dtype, body):
     args = _rglru_args(*shape, SCAN_DTYPES[dtype], cuda)
-    y, h = rglru.rglru_scan(*args)
+    y, h = rglru.rglru_scan(*args, body=body)
     torch.cuda.synchronize()
     y_want, h_want = ref.rglru_scan_plain(*args)
     assert y.dtype == h.dtype == torch.float32 and y.shape == args[0].shape
     torch.testing.assert_close(y, y_want, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(h, h_want, atol=1e-5, rtol=1e-5)
-    # the state can be written over h0 in place, as decode does
+    # the state can be written over h0 in place, as decode does; the
+    # sequential body gives the same bits again, the chunked body's
+    # look-back may group the chunk maps otherwise from run to run
     h0 = args[4].clone()
-    y2, h2 = rglru.rglru_scan(*args[:4], h0, h_out=h0)
+    y2, h2 = rglru.rglru_scan(*args[:4], h0, h_out=h0, body=body)
     assert h2 is h0
-    torch.testing.assert_close(y2, y, atol=0, rtol=0)
-    torch.testing.assert_close(h0, h, atol=0, rtol=0)
+    again = 0 if body == "sequential" else 1e-5
+    torch.testing.assert_close(y2, y, atol=again, rtol=again)
+    torch.testing.assert_close(h0, h, atol=again, rtol=again)
 
 
+@pytest.mark.parametrize("body", BODIES)
 @pytest.mark.parametrize("dtype", list(SCAN_DTYPES))
 @pytest.mark.parametrize("shape", WKV_SHAPES, ids=str)
-def test_wkv_kernel_matches_plain(cuda, shape, dtype):
+def test_wkv_kernel_matches_plain(cuda, shape, dtype, body):
     args = _wkv_args(*shape, SCAN_DTYPES[dtype], cuda)
-    y, s = rwkv6.wkv6_scan(*args)
+    y, s = rwkv6.wkv6_scan(*args, body=body)
     torch.cuda.synchronize()
     y_want, s_want = ref.rwkv6_scan_plain(*args)
     assert y.dtype == s.dtype == torch.float32 and y.shape == args[0].shape
     torch.testing.assert_close(y, y_want, atol=2e-4, rtol=2e-4)
     torch.testing.assert_close(s, s_want, atol=2e-4, rtol=2e-4)
     s0 = args[5].clone()
-    y2, s2 = rwkv6.wkv6_scan(*args[:5], s0, state_out=s0)
+    y2, s2 = rwkv6.wkv6_scan(*args[:5], s0, state_out=s0, body=body)
     assert s2 is s0
     torch.testing.assert_close(y2, y, atol=0, rtol=0)
     torch.testing.assert_close(s0, s, atol=0, rtol=0)
@@ -290,6 +309,79 @@ def test_wkv_state_chaining_on_the_card(cuda):
                              v[:, 20:].contiguous(), w[:, 20:].contiguous(), u, s1)
     torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, atol=2e-4, rtol=2e-4)
     torch.testing.assert_close(s2, s_full, atol=2e-4, rtol=2e-4)
+
+
+def test_rglru_state_chaining_on_the_card(cuda):
+    """Two calls that hand the state on equal one full call, through both
+    bodies: 200 steps (chunked) as 180 (chunked) and 20 (sequential)."""
+    x, a_log, gr, gi, h0 = _rglru_args(2, 200, 264, torch.bfloat16, cuda)
+    y_full, h_full = rglru.rglru_scan(x, a_log, gr, gi, h0)
+    part = lambda a, s: a[:, s].contiguous()
+    first, second = slice(0, 180), slice(180, 200)
+    y1, h1 = rglru.rglru_scan(part(x, first), a_log, part(gr, first),
+                              part(gi, first), h0)
+    y2, h2 = rglru.rglru_scan(part(x, second), a_log, part(gr, second),
+                              part(gi, second), h1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h2, h_full, atol=1e-5, rtol=1e-5)
+
+
+def _edge_rglru(B, T, W, near, dev):
+    """a_t near 0 (a_log large, r = 1: a = e^-8 softplus(20) ~ e^-160, 0 in
+    fp32) or near 1 (a_log very negative: softplus ~ e^-20)."""
+    x, _, _, gi, h0 = _rglru_args(B, T, W, torch.float32, dev)
+    a_log = torch.full((W,), 20.0 if near == 0 else -20.0, device=dev)
+    return x, a_log, torch.ones_like(x), gi, h0
+
+
+@pytest.mark.parametrize("body", BODIES)
+@pytest.mark.parametrize("near", [0, 1])
+@pytest.mark.parametrize("T", [1, 33, 200])
+def test_rglru_edge_decays_on_the_card(cuda, T, near, body):
+    args = _edge_rglru(2, T, 96, near, cuda)
+    y, h = rglru.rglru_scan(*args, body=body)
+    y_want, h_want = ref.rglru_scan_plain(*args)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    torch.testing.assert_close(y, y_want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h, h_want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("body", BODIES)
+@pytest.mark.parametrize("w_value", [0.0, 1.0, 1e-30])
+@pytest.mark.parametrize("T", [1, 40, 150])
+def test_wkv_edge_decays_on_the_card(cuda, T, w_value, body):
+    r, k, v, _, u, s0 = _wkv_args(1, T, 3, 64, torch.float32, cuda)
+    w = torch.full_like(r, w_value)
+    y, s = rwkv6.wkv6_scan(r, k, v, w, u, s0, body=body)
+    y_want, s_want = ref.rwkv6_scan_plain(r, k, v, w, u, s0)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    torch.testing.assert_close(y, y_want, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(s, s_want, atol=2e-4, rtol=2e-4)
+    # decays of every size in one run: w = 0 for a step, then near 1
+    w = torch.exp(-torch.exp(_randn(r.shape, torch.float32, cuda, 27) * 3))
+    y, s = rwkv6.wkv6_scan(r, k, v, w, u, s0, body=body)
+    y_want, s_want = ref.rwkv6_scan_plain(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, y_want, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(s, s_want, atol=2e-4, rtol=2e-4)
+
+
+def test_each_body_counts_its_launches(cuda):
+    """T = 1 runs the sequential body of each scan, T = 200 the chunked one;
+    each wrapper counts the call once, under its body."""
+    for T, body in ((1, "sequential"), (200, "chunked")):
+        x, a_log, gr, gi, h0 = _rglru_args(2, T, 256, torch.bfloat16, cuda)
+        r, k, v, w, u, s0 = _wkv_args(2, T, 4, 64, torch.bfloat16, cuda)
+        before = (rglru.launches, dict(rglru.body_launches),
+                  rwkv6.launches, dict(rwkv6.body_launches))
+        assert rglru.plan(2, T, 256).body == rwkv6.plan(2, T, 4, 64).body == body
+        ops.rglru_scan(x, a_log, gr, gi, h0)
+        ops.rwkv6_scan(r, k, v, w, u, s0)
+        assert rglru.launches == before[0] + 1
+        assert rwkv6.launches == before[2] + 1
+        for counts, old in ((rglru.body_launches, before[1]),
+                            (rwkv6.body_launches, before[3])):
+            assert counts[body] == old[body] + 1
+            assert sum(counts.values()) == sum(old.values()) + 1
 
 
 def test_scan_wrappers_count_launches_and_reject_what_they_cannot_take(cuda):
