@@ -38,7 +38,21 @@ Phases; each one that fails raises, and the process exits non-zero:
    sequential bodies (each body counts its own launches). The first tokens must
    equal a direct prefill's; a torch.profiler trace shows where a prefill's
    and a decode step's time goes. Each model is freed before the next.
-6. Print the kernels line, the card line and the result line.
+6. Train qwen3-4b at full width, depth 8 (see TRAIN): K1 with its LSE
+   against the plain LSE; K1b (flash_bwd: delta, dkdv, dq) against
+   flash_bwd_plain in fp32 and bf16 (causal, GQA 32/8 and 16/1, softcap 50,
+   window 2048 at hd 256, empty kv slots) and timed at the training shape
+   beside the plain version, SDPA forward + backward and the bound; one
+   microbatch of [1, 512] through loss_fn and the backward on the kernel
+   path and on the plain path from the same fp32 parameters (bf16 compute,
+   remat on), the loss and every leaf's gradient compared; then the
+   ``Trainer`` of launch/train.py takes 6 steps of 4 x 2048 tokens, each
+   committed through the transactional store, with exact launch counts
+   (flash_fwd and each kernel of flash_bwd once a layer and step), finite
+   loss and grad_norm, step ms, tokens/s, peak memory and a profiled step's
+   idle share; finally a crash at step 13 of the reduced qwen3-4b and its
+   restart from the step-8 checkpoint match an uninterrupted run.
+7. Print the kernels line, the card line and the result line.
 
 It exits 2 without a CUDA device, and fails where the repo's sources are
 absent.
@@ -85,6 +99,30 @@ P_ROUND = 2.0 ** -8
 SCAN_TOL = {"rglru_scan": 1e-5, "wkv6_scan": 2e-4}
 MODEL_FP32_TOL = 2e-3      # decode vs longer prefill (tests/test_models.py)
 MODEL_BF16_TOL = 0.125     # kernel vs plain path: a few bf16 ulps of a logit
+# K1's LSE against attention_lse_plain: fp32 on both sides from the same
+# inputs, so the fp32 limit (atol = rtol) in both dtypes, on rows with a
+# valid key. K1b against flash_bwd_plain: both take the same out, lse and
+# dout and sum in fp32 (K1b does not round P), so TOL holds for each of dq,
+# dk and dv (two bf16 ulps in bf16).
+LSE_TOL = 5e-5
+# The training model's kernel path against its plain path (bf16 compute):
+# K1's tensor-core body rounds P to bf16, which moves activations by bf16
+# ulps through 8 layers and back. The loss within 2**-6 of itself, each
+# leaf's gradient within 2**-4 of its norm (normwise: a leaf's entries are
+# sums of many terms of both signs).
+TRAIN_LOSS_RTOL = 2.0 ** -6
+TRAIN_GRAD_RTOL = 2.0 ** -4
+TRAIN_RESTART_RTOL = 1e-4  # the embedding's backward uses atomics on the card
+TRAIN = dict(depth=8, batch=4, seq=2048, steps=6, grad_seq=512)
+# K1b cases: (name, B, S, Hq, Hkv, hd, causal, window, cap, empty kv slots)
+BWD_CASES = [
+    ("gqa_32_8", 1, 512, 32, 8, 128, True, None, None, False),
+    ("softcap_50", 1, 200, 32, 8, 128, True, None, 50.0, False),
+    ("window_2048_hd256", 1, 2100, 16, 1, 256, True, 2048, None, False),
+    ("mqa_16_1_empty_slots", 2, 300, 16, 1, 128, True, None, None, True),
+    ("qwen3_train", TRAIN["batch"], TRAIN["seq"], 32, 8, 128, True, None,
+     None, False),
+]
 
 # (B, Sq, Skv, Hq, Hkv, hd, causal, window, cap) of FLASH_CASES
 FLASH_SHAPES = [
@@ -149,10 +187,11 @@ def _valid(qp, kp, causal, window):
     return ok
 
 
-def attention_bound(q, k, qp, kp, causal, window):
+def attention_bound(q, k, qp, kp, causal, window, extra_bytes=0):
     """(ms, 'bytes' | 'operations'): the least time for this call's work.
     Operations: 4*hd per valid (query, key) pair per query head. Bytes: q and
-    out, K and V of the keys some query sees, and the positions."""
+    out, K and V of the keys some query sees, the positions and
+    ``extra_bytes`` (the LSE where it is written)."""
     B, Sq, Hq, hd = q.shape
     Hkv = k.shape[2]
     ok = _valid(qp, kp, causal, window)
@@ -160,7 +199,7 @@ def attention_bound(q, k, qp, kp, causal, window):
     live = int(ok.any(0).sum())
     flops = 4.0 * hd * Hq * B * pairs
     nbytes = (q.element_size() * (2 * q.numel() + 2 * B * live * Hkv * hd)
-              + 4 * (Sq + kp.numel()))
+              + 4 * (Sq + kp.numel()) + extra_bytes)
     t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -532,9 +571,10 @@ def phase_model(arch):
 # Phase 5: serve each model at full depth                                      #
 # --------------------------------------------------------------------------- #
 def _counters():
-    from repro_torch.kernels import flash_attention, flash_decode, rglru, rwkv6
+    from repro_torch.kernels import (flash_attention, flash_bwd, flash_decode,
+                                     rglru, rwkv6)
     return {"flash_fwd": flash_attention, "flash_decode": flash_decode,
-            "rglru_scan": rglru, "wkv6_scan": rwkv6}
+            "rglru_scan": rglru, "wkv6_scan": rwkv6, "flash_bwd": flash_bwd}
 
 
 def phase_serve(arch):
@@ -596,7 +636,8 @@ def phase_serve(arch):
     expect = {"flash_fwd": (n_attn, req, f"{req} requests"),
               "flash_decode": (n_attn, steps, f"{steps} decode steps"),
               "rglru_scan": (kinds.count("rec"), both, f"({req} + {steps})"),
-              "wkv6_scan": (kinds.count("rwkv"), both, f"({req} + {steps})")}
+              "wkv6_scan": (kinds.count("rwkv"), both, f"({req} + {steps})"),
+              "flash_bwd": (0, 0, "no backward in serving")}
     for name, (n, calls, why) in expect.items():
         if launches[name] != n * calls:
             raise AssertionError(f"{arch}: {name} launched {launches[name]} "
@@ -645,12 +686,61 @@ def phase_serve(arch):
     return out
 
 
-def phase_trace(bb, params, prompts, spec):
-    """Where the time goes: torch.profiler over 3 batch-1 prefills and over
-    3 decode steps of all slots. Device busy time is the union of the CUDA
-    activity intervals; the idle share is 1 - busy / host wall time."""
+def profile_calls(label, fn, calls=3):
+    """torch.profiler over ``calls`` calls of ``fn``: host ms and device busy
+    ms per call, the device idle share and the top kernels. Device busy
+    time is the union of the CUDA activity intervals; the idle share is
+    1 - busy / host wall time. Only the profiler's failure to start is
+    caught: the calls and their errors stay outside any handler."""
     from torch.profiler import ProfilerActivity, profile
 
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as e:  # the profiler could not attach to the card
+        return f"not measured ({e})"
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    prof.stop()
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    if not spans:
+        return "not measured (no device activity in the trace)"
+    busy, end = 0.0, -math.inf
+    for s, e in sorted(spans):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    # the top 8, and the port's own kernels wherever they rank
+    shown = ranked[:8] + [kv for kv in ranked[8:] if any(
+        k in kv[0] for k in TRACE_NAMES)]
+    r = {
+        "host_ms_per_call": wall_us / calls / 1e3,
+        "device_busy_ms_per_call": busy / calls / 1e3,
+        "device_idle_share": 1.0 - busy / wall_us,
+        "top_kernels_ms_per_call": {
+            k[:80]: [t / calls / 1e3, n // calls] for k, (t, n) in shown},
+    }
+    log(f"[trace] {label}: host {r['host_ms_per_call']:.3f} "
+        f"ms/call, device busy {r['device_busy_ms_per_call']:.3f} ms, idle "
+        f"share {r['device_idle_share']:.3f}")
+    for k, (t, n) in r["top_kernels_ms_per_call"].items():
+        log(f"[trace]   {t:9.4f} ms  x{n:<5d} {k}")
+    return r
+
+
+def phase_trace(bb, params, prompts, spec):
+    """Where the time goes: 3 batch-1 prefills and 3 decode steps of all
+    slots under the profiler."""
     slots, ctx = spec["slots"], spec["ctx"]
     _, cache = bb.prefill(params, {"tokens": torch.from_numpy(
         prompts[:slots]).to(DEVICE)}, ctx)
@@ -658,55 +748,359 @@ def phase_trace(bb, params, prompts, spec):
     one = torch.from_numpy(prompts[:1]).to(DEVICE)
     bb.decode_step(params, cache, tok)
     torch.cuda.synchronize()
-    result = {}
-    for name, fn in (("prefill", lambda: bb.prefill(params, {"tokens": one}, ctx)),
-                     ("decode", lambda: bb.decode_step(params, cache, tok))):
-        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    return {name: profile_calls(f"{bb.cfg.name} {name}", fn) for name, fn in (
+        ("prefill", lambda: bb.prefill(params, {"tokens": one}, ctx)),
+        ("decode", lambda: bb.decode_step(params, cache, tok)))}
+
+
+# --------------------------------------------------------------------------- #
+# Phase 6: training qwen3-4b                                                   #
+# --------------------------------------------------------------------------- #
+def _counts():
+    from repro_torch.kernels import flash_attention, flash_bwd, flash_decode
+    return {"flash_fwd": flash_attention.launches,
+            "flash_decode": flash_decode.launches,
+            "flash_bwd": flash_bwd.launches,
+            **{f"flash_bwd.{k}": n for k, n in flash_bwd.kernel_launches.items()}}
+
+
+def _reset_counts():
+    from repro_torch.kernels import flash_attention, flash_bwd, flash_decode
+    flash_attention.launches = flash_decode.launches = flash_bwd.launches = 0
+    for k in flash_bwd.kernel_launches:
+        flash_bwd.kernel_launches[k] = 0
+
+
+def _check_counts(what, got, layers, fwd_per_layer):
+    want = {"flash_fwd": layers * fwd_per_layer, "flash_decode": 0,
+            "flash_bwd": layers, "flash_bwd.delta": layers,
+            "flash_bwd.dkdv": layers, "flash_bwd.dq": layers}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+
+
+def lse_case(name, B, S, Hq, Hkv, hd, window, cap, dtype):
+    """K1's LSE (flash_fwd with return_lse) against attention_lse_plain;
+    the out it returns must equal the serving call's. Timed beside the
+    plain version, SDPA's forward (KV repeated, causal cases without window
+    or cap) and the bound of attention_bound plus the LSE's bytes."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    g = _gen(300)
+    q = torch.randn((B, S, Hq, hd), generator=g, device=DEVICE).to(dtype)
+    k, v = (torch.randn((B, S, Hkv, hd), generator=g, device=DEVICE).to(dtype)
+            for _ in range(2))
+    pos = torch.arange(S, dtype=torch.int32, device=DEVICE)
+    kw = dict(causal=True, window=window, logit_cap=cap, q_positions=pos,
+              kv_positions=pos)
+    out, lse = fa.flash_fwd(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(out, fa.flash_fwd(q, k, v, **kw)):
+        raise AssertionError(f"{name}: writing the LSE changed out")
+    _, want = ref.attention_lse_plain(q, k, v, **kw)
+    err = (lse - want).abs()
+    max_err = float(err.max())
+    if not bool((err <= LSE_TOL + LSE_TOL * want.abs()).all()):
+        raise AssertionError(f"{name} {dtype}: K1's LSE disagrees with the "
+                             f"plain LSE, max abs err {max_err}")
+    del out, lse, want, err
+    ms = time_ms(lambda: fa.flash_fwd(q, k, v, return_lse=True, **kw))
+    plain_ms = time_ms(lambda: ref.attention_lse_plain(q, k, v, **kw),
+                       iters=2, warmup=1)
+    library_ms = None
+    if window is None and cap is None:
+        G = Hq // Hkv
+        ql, kl, vl = (t.transpose(1, 2) for t in (
+            q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            ql, kl, vl, is_causal=True))
+        del ql, kl, vl
+    bound_ms, bound_by = attention_bound(q, k, pos, pos, True, window,
+                                         extra_bytes=4 * B * Hq * S)
+    log(f"[kernel] flash_fwd lse {name:>18} {str(dtype)[6:]:>8} err "
+        f"{max_err:.3e} (atol = rtol = {LSE_TOL}) kernel {ms:.4f} ms plain "
+        f"{plain_ms:.4f} ms library "
+        f"{library_ms if library_ms is None else round(library_ms, 4)} ms "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    return {"kernel": "flash_fwd", "case": f"{name}_lse",
+            "dtype": str(dtype)[6:], "shape": [B, S, S, Hq, Hkv, hd],
+            "max_abs_err": max_err, "atol": LSE_TOL, "rtol": LSE_TOL,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def bwd_case(name, B, S, Hq, Hkv, hd, causal, window, cap, empty, dtype):
+    """K1b against flash_bwd_plain on the same out, lse and dout; timed
+    beside the plain version, SDPA forward + backward with KV repeated
+    (aligned causal cases; never called by the port) and the bound: 10 hd
+    operations per valid (query, key) pair and query head over the dtype's
+    peak; bytes of q, k, v, out, dout and lse read and dq, dk, dv written."""
+    from repro_torch.kernels import flash_bwd as fb
+    from repro_torch.kernels import ref
+
+    g = _gen(400)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=DEVICE).to(dtype)
+    q, dout = rnd(B, S, Hq, hd), rnd(B, S, Hq, hd)
+    k, v = rnd(B, S, Hkv, hd), rnd(B, S, Hkv, hd)
+    qp = torch.arange(S, dtype=torch.int32, device=DEVICE)
+    kp = qp.clone()
+    if empty:  # every 7th slot empty, key 0 too: query 0 sees no key
+        kp[::7] = -1
+    kw = dict(causal=causal, window=window, logit_cap=cap, q_positions=qp,
+              kv_positions=kp)
+    out, lse = ref.attention_lse_plain(q, k, v, **kw)
+    got = fb.flash_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    want = ref.flash_bwd_plain(q, k, v, out, lse, dout, **kw)
+    atol, rtol = TOL[dtype]
+    max_err = 0.0
+    for part, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = (a.float() - b.float()).abs()
+        max_err = max(max_err, float(err.max()))
+        if a.dtype != b.dtype or not bool(
+                (err <= atol + rtol * b.float().abs()).all()):
+            raise AssertionError(f"flash_bwd {name} {dtype} {part}: kernel "
+                                 f"disagrees with the plain version, max abs "
+                                 f"err {float(err.max())} (atol {atol}, rtol "
+                                 f"{rtol})")
+    again = fb.flash_bwd(q, k, v, out, lse, dout, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash_bwd {name}: two runs differ")
+    del want, again
+    # every input set of the timed shapes exceeds the L2 (q alone 64 MB at
+    # the training shape), so no rotation
+    ms = time_ms(lambda: fb.flash_bwd(q, k, v, out, lse, dout, **kw), iters=10)
+    plain_ms = time_ms(lambda: ref.flash_bwd_plain(q, k, v, out, lse, dout,
+                                                   **kw), iters=2, warmup=1)
+    library_ms = None
+    if causal and window is None and cap is None and not empty:
+        G = Hq // Hkv
+        ql = q.transpose(1, 2).detach().requires_grad_()
+        kl, vl = (t.repeat_interleave(G, 2).transpose(1, 2).detach()
+                  .requires_grad_() for t in (k, v))
+        dl = dout.transpose(1, 2)
+
+        def sdpa():
+            ql.grad = kl.grad = vl.grad = None
+            F.scaled_dot_product_attention(ql, kl, vl, is_causal=True
+                                           ).backward(dl)
+        library_ms = time_ms(sdpa, iters=10)
+        del ql, kl, vl
+    ok = _valid(qp, kp, causal, window)
+    pairs = int(ok.sum())
+    flops = 10.0 * hd * Hq * B * pairs
+    es = q.element_size()
+    nbytes = es * (4 * B * S * Hq * hd + 4 * B * S * Hkv * hd) + 4 * B * Hq * S
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    row = dict(kernel="flash_bwd", case=name, dtype=str(dtype)[6:],
+               shape=[B, S, S, Hq, Hkv, hd], causal=causal, window=window,
+               logit_cap=cap, empty_slots=empty, max_abs_err=max_err,
+               atol=atol, rtol=rtol, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               gflop=flops / 1e9)
+    log(f"[kernel] flash_bwd {name:>22} {row['dtype']:>8} err {max_err:.3e} "
+        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
+        f"{library_ms if library_ms is None else round(library_ms, 4)} ms "
+        f"bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP)")
+    return row
+
+
+def phase_train_kernels():
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        rows.append(lse_case("qwen3_prefill", 1, SERVE["prompt_len"], 32, 8,
+                             128, None, None, dtype))
+        rows.append(lse_case("window_softcap", 2, 300, 8, 2, 64, 64, 30.0,
+                             dtype))
+        rows.append(lse_case("qwen3_train", TRAIN["batch"], TRAIN["seq"], 32,
+                             8, 128, None, None, dtype))
+        for case in BWD_CASES:
+            rows.append(bwd_case(*case, dtype))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _train_config():
+    from repro_torch.models import LayerGroup, get_config
+    return dataclasses.replace(get_config("qwen3-4b"), groups=(
+        LayerGroup(("attn",), TRAIN["depth"]),))
+
+
+def train_grads_check():
+    """One microbatch [1, 512] through loss_fn and the backward, kernel path
+    against plain path, from the same fp32 parameters; remat on, so K1
+    runs twice a layer."""
+    from repro_torch.models import Backbone
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.steps import value_and_grad
+
+    cfg, depth = _train_config(), TRAIN["depth"]
+    kern = Backbone(cfg, compute_dtype=torch.bfloat16,
+                    param_dtype=torch.float32, remat=True, device=DEVICE)
+    plain = Backbone(cfg, compute_dtype=torch.bfloat16,
+                     param_dtype=torch.float32, remat=True, device=DEVICE,
+                     kernel_impl="plain")
+    params = kern.init(SEED + 3)
+    toks = np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab, (1, TRAIN["grad_seq"] + 1), dtype=np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    _reset_counts()
+    lk, gk = value_and_grad(kern, params, batch)
+    torch.cuda.synchronize()
+    _check_counts("qwen3-4b loss_fn + backward (remat)", _counts(), depth, 2)
+    lp, gp = value_and_grad(plain, params, batch)
+    loss_err = abs(float(lk) - float(lp))
+    grad_err = max(float((a - b).norm() / b.norm())
+                   for a, b in zip(tree_leaves(gk), tree_leaves(gp)))
+    finite = all(bool(torch.isfinite(a).all()) for a in tree_leaves(gk))
+    log(f"[train] qwen3-4b full width, {depth} layers, [1, {TRAIN['grad_seq']}]"
+        f" bf16 compute: kernel path vs plain path, loss {float(lk):.5f} vs "
+        f"{float(lp):.5f} (err {loss_err:.3e}, tol {TRAIN_LOSS_RTOL} x loss), "
+        f"worst leaf gradient err {grad_err:.3e} of its norm (tol "
+        f"{TRAIN_GRAD_RTOL}), {len(tree_leaves(gk))} leaves")
+    if not finite or not math.isfinite(float(lk)):
+        raise AssertionError("train: a gradient or the loss is not finite")
+    if loss_err > TRAIN_LOSS_RTOL * abs(float(lp)) or grad_err > TRAIN_GRAD_RTOL:
+        raise AssertionError("train: the kernel path's loss or gradients "
+                             "disagree with the plain path's")
+    del kern, plain, params, gk, gp
+    torch.cuda.empty_cache()
+    return {"loss_kernel": float(lk), "loss_plain": float(lp),
+            "loss_err": loss_err, "worst_grad_rel_err": grad_err}
+
+
+def train_run():
+    """The Trainer of launch/train.py at full width, depth 8: 6 steps of
+    4 x 2048 tokens, bf16 compute, fp32 params and state, no remat."""
+    import tempfile
+
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import Backbone
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import StepSettings, make_train_step
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+
+    cfg, depth, steps = _train_config(), TRAIN["depth"], TRAIN["steps"]
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    bb = Backbone(cfg, compute_dtype=torch.bfloat16, param_dtype=torch.float32,
+                  remat=False, device=DEVICE)
+    opt_cfg = adamw.AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=steps)
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                          global_batch=TRAIN["batch"], seed=SEED)
+    settings = StepSettings(remat=False)
+    with tempfile.TemporaryDirectory() as d:
+        # ckpt_every above the run: the 19 GB state is not written to disk
+        tr = Trainer(bb, opt_cfg, data_cfg,
+                     TrainerConfig(total_steps=steps, ckpt_every=steps + 1,
+                                   log_every=1, ckpt_dir=d), settings)
         try:
-            prof.start()
-        except RuntimeError as e:  # the profiler could not attach to the card
-            result[name] = f"not measured ({e})"
-            continue
-        # the calls and their errors stay outside any handler
-        t0 = time.perf_counter()
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-        prof.stop()
-        spans, by_name = [], {}
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            spans.append((e.time_range.start, e.time_range.end))
-            t, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-        if not spans:
-            result[name] = "not measured (no device activity in the trace)"
-            continue
-        busy, end = 0.0, -math.inf
-        for s, e in sorted(spans):
-            if e > end:
-                busy += e - max(s, end)
-                end = e
-        ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-        # the top 8, and the port's own kernels wherever they rank
-        shown = ranked[:8] + [kv for kv in ranked[8:] if any(
-            k in kv[0] for k in TRACE_NAMES)]
-        result[name] = {
-            "host_ms_per_call": wall_us / 3e3,
-            "device_busy_ms_per_call": busy / 3e3,
-            "device_idle_share": 1.0 - busy / wall_us,
-            "top_kernels_ms_per_call": {
-                k[:80]: [t / 3e3, n // 3] for k, (t, n) in shown},
-        }
-        r = result[name]
-        log(f"[trace] {bb.cfg.name} {name}: host {r['host_ms_per_call']:.3f} "
-            f"ms/call, device busy {r['device_busy_ms_per_call']:.3f} ms, idle "
-            f"share {r['device_idle_share']:.3f}")
-        for k, (t, n) in r["top_kernels_ms_per_call"].items():
-            log(f"[trace]   {t:9.4f} ms  x{n:<5d} {k}")
-    return result
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            # no reference to the initial state: each step replaces it
+            state = tr.run(tr.init_or_restore(SEED))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _counts()
+            peak = torch.cuda.max_memory_allocated()
+            cursor = tr.store.snapshot(("data_cursor",))["data_cursor"]
+            log_ = list(tr.metrics_log)
+        finally:
+            tr.shutdown()
+    _check_counts(f"qwen3-4b Trainer, {steps} steps", counts, depth * steps, 1)
+    if cursor != steps or len(log_) != steps:
+        raise AssertionError(f"train: {len(log_)} steps logged, cursor "
+                             f"{cursor}, want {steps}")
+    for m in log_:
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"train: step {m['step']} not finite: {m}")
+        log(f"[train] step {m['step']}: loss {m['loss']:.5f} grad_norm "
+            f"{m['grad_norm']:.5f} {m['dt'] * 1e3:.1f} ms "
+            f"{tokens / m['dt']:.0f} tokens/s")
+    steady = [m["dt"] for m in log_[1:]]
+    out = {"steps": steps, "tokens_per_step": tokens, "log": log_,
+           "launches": counts, "wall_s": wall,
+           "step_ms_after_first": [t * 1e3 for t in steady],
+           "tokens_per_s_after_first": tokens * len(steady) / sum(steady),
+           "max_memory_allocated_gb": peak / 1e9,
+           "params": sum(int(t.numel()) for t in
+                         adamw.tree_leaves(state["params"]))}
+    log(f"[train] qwen3-4b {depth} layers: {steps} Trainer steps of {tokens} "
+        f"tokens in {wall:.3f} s; after the first, "
+        f"{out['tokens_per_s_after_first']:.0f} tokens/s; launches {counts}; "
+        f"peak memory {out['max_memory_allocated_gb']:.2f} GB")
+    # one more step of the same function under the profiler
+    step_fn = make_train_step(bb, opt_cfg, settings)
+    batch = make_batch(data_cfg, steps)
+    out["trace"] = profile_calls(
+        f"qwen3-4b train step ({depth} layers, {tokens} tokens)",
+        lambda: float(step_fn(state, batch)[1]["loss"]), calls=1)
+    del state, bb, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_restart_check():
+    """Crash at step 13 of 24 at the reduced qwen3-4b (fp32), restart from
+    the step-8 checkpoint: the losses of steps 8..23 match an uninterrupted
+    run's within TRAIN_RESTART_RTOL."""
+    import tempfile
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import Backbone, get_config, reduced
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import StepSettings
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+
+    cfg = reduced(get_config("qwen3-4b"))
+
+    def trainer(d):
+        bb = Backbone(cfg, compute_dtype=torch.float32, remat=False,
+                      device=DEVICE)
+        return Trainer(bb, adamw.AdamWConfig(lr=2e-3, warmup_steps=4,
+                                             total_steps=24),
+                       DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4),
+                       TrainerConfig(total_steps=24, ckpt_every=8,
+                                     ckpt_dir=d, log_every=1000),
+                       StepSettings(remat=False))
+
+    def run(d, crash_at=None):
+        tr = trainer(d)
+        try:
+            state = tr.init_or_restore()
+            start = tr.start_step
+            tr.run(state, crash_at=crash_at)
+            return start, {m["step"]: m["loss"] for m in tr.metrics_log}
+        finally:
+            tr.shutdown()
+
+    with tempfile.TemporaryDirectory() as d:
+        _, ref_losses = run(os.path.join(d, "a"))
+        try:
+            run(os.path.join(d, "b"), crash_at=13)
+            raise AssertionError("train: the injected crash did not happen")
+        except RuntimeError as e:
+            if "injected crash" not in str(e):
+                raise
+        start, res_losses = run(os.path.join(d, "b"))
+    err = max(abs(res_losses[s] - ref_losses[s]) / abs(ref_losses[s])
+              for s in range(8, 24))
+    log(f"[train] crash-restart, reduced qwen3-4b: resumed at step {start}, "
+        f"losses of steps 8..23 vs the uninterrupted run, max rel err "
+        f"{err:.3e} (tol {TRAIN_RESTART_RTOL})")
+    if start != 8 or sorted(res_losses) != list(range(8, 24)) \
+            or err > TRAIN_RESTART_RTOL:
+        raise AssertionError("train: the restarted run differs from the "
+                             "uninterrupted one")
+    return {"resumed_at": start, "max_rel_loss_err": err}
+
+
+def phase_train():
+    return {"grads": train_grads_check(), "trainer": train_run(),
+            "restart": train_restart_check()}
 
 
 # The row of each kernel that stands for it in the kernels line, and the TPU
@@ -716,10 +1110,12 @@ HEADLINE = {
     "flash_decode": ("qwen3_decode", "src/repro/kernels/flash_attention.py:28"),
     "rglru_scan": ("rgemma_prefill", "src/repro/kernels/rglru_kernel.py:22"),
     "wkv6_scan": ("rwkv6_prefill", "src/repro/kernels/rwkv6_kernel.py:26"),
+    "flash_bwd": ("qwen3_train", "src/repro/models/attention.py:163"),
 }
 # the source of each kernel's headline body, and every source of the kernel
 SOURCE = {"flash_fwd": "flash_fwd.cu", "flash_decode": "flash_decode.cu",
-          "rglru_scan": "rglru_scan.cu", "wkv6_scan": "wkv6_chunk.cu"}
+          "rglru_scan": "rglru_scan.cu", "wkv6_scan": "wkv6_chunk.cu",
+          "flash_bwd": "flash_bwd.cu"}
 SOURCES = {"wkv6_scan": ("wkv6_chunk.cu", "wkv6_scan.cu")}
 # the port's kernel names in a profiler trace start with one of these
 TRACE_NAMES = ("flash_", "rglru_", "wkv")
@@ -749,13 +1145,18 @@ def main() -> int:
     rows = phase_flash() + phase_rglru() + phase_wkv()
     model = {arch: phase_model(arch) for arch in SERVES}
     serve = {arch: phase_serve(arch) for arch in SERVES}
+    rows += phase_train_kernels()
+    train = phase_train()
+    train_launches = train["trainer"]["launches"]
 
     kernels = []
     for name, (case, replaces) in HEADLINE.items():
         head = next(r for r in rows if r["kernel"] == name and r["case"] == case
                     and r["dtype"] == "bfloat16" and r.get("planned", True))
         by_path = {arch: s["launches"][name] for arch, s in serve.items()
-                   if s["launches"][name]}
+                   if s["launches"].get(name)}
+        if train_launches.get(name):
+            by_path["qwen3-4b train"] = train_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{SOURCE[name]}",
@@ -773,7 +1174,12 @@ def main() -> int:
                   + (f" ({head['body']} body)" if "body" in head else ""),
             "cases": [r for r in rows if r["kernel"] == name],
         })
+        if name == "flash_bwd":
+            kernels[-1]["launches_by_kernel"] = {
+                k.split(".")[1]: n for k, n in train_launches.items()
+                if k.startswith("flash_bwd.")}
     log("[summary] " + json.dumps({"model": model, "serve": serve,
+                                   "train": train,
                                    "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -1,4 +1,4 @@
-"""Move parameter and cache trees between numpy and the port.
+"""Move parameter, cache and train-state trees between numpy and the port.
 
 The JAX package's trees (nested dicts; ``jax.tree_util.tree_map(np.asarray,
 tree)`` turns them into numpy) and the port's have identical keys, shapes
@@ -15,12 +15,11 @@ import torch
 
 
 def _to_tensor(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
-    a = np.asarray(a)
+    a = np.array(a, order="C")  # a copy, 0-d arrays kept 0-d
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: same bits as torch's
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        t = t.view(torch.bfloat16)
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+        t = torch.from_numpy(a)
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
@@ -65,3 +64,19 @@ def cache_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     out = params_to_numpy({k: v for k, v in tree.items() if k != "pos"})
     out["pos"] = np.asarray(tree["pos"], np.int32)
     return out
+
+
+def train_state_from_numpy(tree: Dict[str, Any], *, device) -> Dict[str, Any]:
+    """A train state ``{params, opt: {step, m, v}, error?}`` (as the JAX
+    package's ``init_train_state`` builds it, through ``np.asarray``) -> the
+    port's, every leaf in its own dtype (``step`` int32) on ``device``."""
+    want = {"params", "opt", "error"}
+    if not {"params", "opt"} <= set(tree) <= want or set(tree["opt"]) != {
+            "step", "m", "v"}:
+        raise ValueError(f"not a train state: keys {sorted(tree)}")
+    return params_from_numpy(tree, device=device)
+
+
+def train_state_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's train state -> numpy (``step`` an int32 scalar array)."""
+    return params_to_numpy(tree)

@@ -13,6 +13,12 @@
 //                     [&& q_pos - kv_pos <  window if window > 0]
 //   out = sum_k softmax_k(s | ok) v_k      running m, l, acc in fp32;
 //                                          written in q's dtype
+//   lse = m + log(max(l, 1e-30))           fp32 [B,Hkv,G,Sq], only when the
+//                                          caller passes an lse pointer
+//                                          (training: the backward, K1b in
+//                                          flash_bwd.cu, reads it); the
+//                                          reference's _flash_fwd_impl
+//                                          returns it the same way
 //
 // A row with no valid key gets 0, as the Pallas kernel gives it
 // (flash_attention.py:63,72-73); flash_attention_jnp and attention_reference
@@ -151,8 +157,9 @@ __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ q_pos,
                  const int* __restrict__ kv_pos, T* __restrict__ o,
-                 int Sq, int Skv, int Hq, int Hkv, int hd,
-                 int causal, int window, float logit_cap, float scale) {
+                 float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
+                 int hd, int causal, int window, float logit_cap,
+                 float scale) {
   constexpr int LD = HDM + 4;   // padded row stride of the Q and K/V tiles
   constexpr int LDP = BN + 4;   // padded row stride of the P tile
   constexpr int DCH = HDM / 32; // float4 column chunks of acc per thread
@@ -325,6 +332,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int d = (cg + 8 * c) * 4 + e;
         if (d < hd) store_f(orow + d, any ? acc[i][4 * c + e] / l[i] : 0.f);
       }
+    // m and l are uniform over the row group's 8 lanes; -inf with no valid key
+    if (lse != nullptr && cg == 0)
+      lse[((size_t)(b * Hkv + kvh) * G + g) * Sq + qi] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
@@ -359,8 +370,9 @@ __global__ void __launch_bounds__(MMA_NT)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int* __restrict__ q_pos,
                      const int* __restrict__ kv_pos, bf16* __restrict__ o,
-                     int Sq, int Skv, int Hq, int Hkv, int hd, int causal,
-                     int window, float logit_cap, float scale) {
+                     float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
+                     int hd, int causal, int window, float logit_cap,
+                     float scale) {
   using namespace flash;
   constexpr int BN = MMA_BN, BM = MMA_BM, NTH = MMA_NT;
   constexpr int LDS = HDM + 8;  // padded row: ldmatrix rows on distinct banks
@@ -522,12 +534,18 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int d = j * 8 + 2 * t;
       if (d < hd) store2(orow + d, acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
     }
+    // m is in log2 units and uniform over the quad, as l is after
+    // finish_rowsum; -inf with no valid key
+    if (lse != nullptr && t == 0)
+      lse[((size_t)(b * Hkv + kvh) * G + gr % G) * Sq + gr / G] =
+          m[r] * (1.f / LOG2E) + logf(fmaxf(l[r], 1e-30f));
   }
 }
 
 template <int HDM>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       const int* q_pos, const int* kv_pos, void* o, int B,
+                       const int* q_pos, const int* kv_pos, void* o,
+                       float* lse, int B,
                        int Sq, int Skv, int Hq, int Hkv, int hd, int causal,
                        int window, float logit_cap, float scale,
                        cudaStream_t stream) {
@@ -541,18 +559,19 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   dim3 grid((Sq * G + MMA_BM - 1) / MMA_BM, Hkv, B);
   flash_fwd_mma_kernel<HDM><<<grid, MMA_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), q_pos, kv_pos, static_cast<bf16*>(o), Sq,
-      Skv, Hq, Hkv, hd, causal, window, logit_cap, scale);
+      static_cast<const bf16*>(v), q_pos, kv_pos, static_cast<bf16*>(o), lse,
+      Sq, Skv, Hq, Hkv, hd, causal, window, logit_cap, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int HDM>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* q_pos, const int* kv_pos, void* o, int B, int Sq,
+                   const int* q_pos, const int* kv_pos, void* o, float* lse,
+                   int B, int Sq,
                    int Skv, int Hq, int Hkv, int hd, int causal, int window,
                    float logit_cap, float scale, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    return launch_mma<HDM>(q, k, v, q_pos, kv_pos, o, B, Sq, Skv, Hq, Hkv, hd,
+    return launch_mma<HDM>(q, k, v, q_pos, kv_pos, o, lse, B, Sq, Skv, Hq, Hkv, hd,
                            causal, window, logit_cap, scale, stream);
   } else {
     constexpr size_t smem = smem_bytes<HDM>();
@@ -564,28 +583,29 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     dim3 grid((Sq * G + BM - 1) / BM, Hkv, B);
     flash_fwd_kernel<T, HDM><<<grid, NT, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(o), Sq, Skv,
-        Hq, Hkv, hd, causal, window, logit_cap, scale);
+        static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(o), lse, Sq,
+        Skv, Hq, Hkv, hd, causal, window, logit_cap, scale);
     return cudaGetLastError();
   }
 }
 
 template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v,
-                        const int* q_pos, const int* kv_pos, void* o, int B,
+                        const int* q_pos, const int* kv_pos, void* o,
+                        float* lse, int B,
                         int Sq, int Skv, int Hq, int Hkv, int hd, int causal,
                         int window, float logit_cap, float scale,
                         cudaStream_t stream) {
   if (hd <= 32)
-    return launch<T, 32>(q, k, v, q_pos, kv_pos, o, B, Sq, Skv, Hq, Hkv, hd,
+    return launch<T, 32>(q, k, v, q_pos, kv_pos, o, lse, B, Sq, Skv, Hq, Hkv, hd,
                          causal, window, logit_cap, scale, stream);
   if (hd <= 64)
-    return launch<T, 64>(q, k, v, q_pos, kv_pos, o, B, Sq, Skv, Hq, Hkv, hd,
+    return launch<T, 64>(q, k, v, q_pos, kv_pos, o, lse, B, Sq, Skv, Hq, Hkv, hd,
                          causal, window, logit_cap, scale, stream);
   if (hd <= 128)
-    return launch<T, 128>(q, k, v, q_pos, kv_pos, o, B, Sq, Skv, Hq, Hkv, hd,
+    return launch<T, 128>(q, k, v, q_pos, kv_pos, o, lse, B, Sq, Skv, Hq, Hkv, hd,
                           causal, window, logit_cap, scale, stream);
-  return launch<T, 256>(q, k, v, q_pos, kv_pos, o, B, Sq, Skv, Hq, Hkv, hd,
+  return launch<T, 256>(q, k, v, q_pos, kv_pos, o, lse, B, Sq, Skv, Hq, Hkv, hd,
                         causal, window, logit_cap, scale, stream);
 }
 
@@ -594,19 +614,20 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = fp32 (SIMT body), 1 = bf16 (tensor cores). window <= 0: none. logit_cap <= 0: none.
+// lse: nullptr (serving: nothing written) or fp32 [B,Hkv,G,Sq].
 // Returns the cudaError_t of the launch (0 on success). The caller has
 // checked shapes, contiguity, hd % 8 == 0, hd <= 256 and Hq % Hkv == 0.
 int flash_fwd(const void* q, const void* k, const void* v, const int* q_pos,
-              const int* kv_pos, void* o, int B, int Sq, int Skv, int Hq,
-              int Hkv, int hd, int dtype, int causal, int window,
+              const int* kv_pos, void* o, float* lse, int B, int Sq, int Skv,
+              int Hq, int Hkv, int hd, int dtype, int causal, int window,
               float logit_cap, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_hd<float>(q, k, v, q_pos, kv_pos, o, B, Sq, Skv, Hq,
+    return (int)dispatch_hd<float>(q, k, v, q_pos, kv_pos, o, lse, B, Sq, Skv, Hq,
                                    Hkv, hd, causal, window, logit_cap, scale,
                                    st);
   if (dtype == 1)
-    return (int)dispatch_hd<__nv_bfloat16>(q, k, v, q_pos, kv_pos, o, B, Sq,
+    return (int)dispatch_hd<__nv_bfloat16>(q, k, v, q_pos, kv_pos, o, lse, B, Sq,
                                            Skv, Hq, Hkv, hd, causal, window,
                                            logit_cap, scale, st);
   return (int)cudaErrorInvalidValue;

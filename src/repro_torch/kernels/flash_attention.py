@@ -5,12 +5,16 @@ generalised from a contiguous ``q_offset`` to explicit int32 query and key
 positions, so that it runs against the ring cache too. Its plain version is
 :func:`repro_torch.kernels.ref.attention_plain`; :mod:`repro_torch.kernels.ops`
 picks between the two by the tensors' device, and sends a CUDA call with one
-query position to :mod:`repro_torch.kernels.flash_decode` instead.
+query position to :mod:`repro_torch.kernels.flash_decode` instead. With
+``return_lse=True`` (training: ``ops.attention_fwd``) it also writes the
+log-sum-exp of each query row, which the backward
+(:mod:`repro_torch.kernels.flash_bwd`) reads; its plain version is then
+:func:`repro_torch.kernels.ref.attention_lse_plain`.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -30,9 +34,9 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load()
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # q, k, v, q_pos, kv_pos, out; B, Sq, Skv, Hq, Hkv, hd, dtype,
-        # causal, window; logit_cap, scale; stream
-        lib.flash_fwd.argtypes = ([ptr] * 6 + [i32] * 9
+        # q, k, v, q_pos, kv_pos, out, lse (or NULL); B, Sq, Skv, Hq, Hkv,
+        # hd, dtype, causal, window; logit_cap, scale; stream
+        lib.flash_fwd.argtypes = ([ptr] * 7 + [i32] * 9
                                   + [ctypes.c_float, ctypes.c_float, ptr])
         lib.flash_fwd.restype = i32
         _lib = lib
@@ -77,9 +81,12 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               logit_cap: Optional[float] = None,
-              q_positions: torch.Tensor, kv_positions: torch.Tensor
-              ) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors: [B,Sq,Hq,hd] out in q's dtype."""
+              q_positions: torch.Tensor, kv_positions: torch.Tensor,
+              return_lse: bool = False
+              ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Launch the kernel on CUDA tensors: [B,Sq,Hq,hd] out in q's dtype, and
+    with ``return_lse`` (out, lse [B,Hkv,G,Sq] fp32; -inf for a row with no
+    valid key). Without it no LSE is written."""
     global launches
     check_inputs(q, k, v, q_positions, kv_positions, window, logit_cap)
     if q.device.type != "cuda":
@@ -87,16 +94,20 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Sq, Hq, hd = q.shape
     _, Skv, Hkv, _ = k.shape
     o = torch.empty_like(q)
+    lse = (torch.empty((B, Hkv, Hq // Hkv, Sq), dtype=torch.float32,
+                       device=q.device) if return_lse else None)
     if o.numel() == 0:
-        return o
+        return (o, lse) if return_lse else o
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            q_positions.data_ptr(), kv_positions.data_ptr(),
-                           o.data_ptr(), B, Sq, Skv, Hq, Hkv, hd,
+                           o.data_ptr(),
+                           None if lse is None else lse.data_ptr(),
+                           B, Sq, Skv, Hq, Hkv, hd,
                            _DTYPES[q.dtype], int(causal), window or 0,
                            float(logit_cap or 0.0), float(hd ** -0.5), stream)
     build.check_launch("flash_fwd", rc)
     launches += 1
-    return o
+    return (o, lse) if return_lse else o

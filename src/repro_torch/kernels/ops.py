@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import flash_attention as fa
+from . import flash_bwd as fb
 from . import flash_decode as fd
 from . import ref, rglru, rwkv6
 
@@ -36,6 +37,41 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel = fd.flash_decode if q.shape[1] == 1 else fa.flash_fwd
     return kernel(q, k, v, causal=causal, window=window, logit_cap=logit_cap,
                   q_positions=q_positions, kv_positions=kv_positions)
+
+
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  logit_cap: Optional[float] = None,
+                  q_positions: torch.Tensor, kv_positions: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward: (out, lse [B,Hkv,G,Sq] fp32), which
+    :func:`attention_bwd` takes. On the card it is always ``flash_fwd``,
+    whatever Sq."""
+    if q.device.type == "cpu":
+        _same_device(q, k, v, q_positions, kv_positions)
+        return ref.attention_lse_plain(q, k, v, causal=causal, window=window,
+                                       logit_cap=logit_cap,
+                                       q_positions=q_positions,
+                                       kv_positions=kv_positions)
+    return fa.flash_fwd(q, k, v, causal=causal, window=window,
+                        logit_cap=logit_cap, q_positions=q_positions,
+                        kv_positions=kv_positions, return_lse=True)
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  logit_cap: Optional[float] = None,
+                  q_positions: torch.Tensor, kv_positions: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :func:`attention_fwd`: (dq, dk, dv) in the dtypes of
+    (q, k, v); K1b (``flash_bwd``) on the card."""
+    kw = dict(causal=causal, window=window, logit_cap=logit_cap,
+              q_positions=q_positions, kv_positions=kv_positions)
+    if q.device.type == "cpu":
+        _same_device(q, k, v, out, lse, dout, q_positions, kv_positions)
+        return ref.flash_bwd_plain(q, k, v, out, lse, dout, **kw)
+    return fb.flash_bwd(q, k, v, out, lse, dout, **kw)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

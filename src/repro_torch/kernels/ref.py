@@ -21,19 +21,11 @@ RGLRU_C = 8.0
 LOG_W_FLOOR = -88.0
 
 
-def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    logit_cap: Optional[float] = None,
-                    q_positions: Optional[torch.Tensor] = None,
-                    kv_positions: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
-    """Unchunked attention with explicit positions (materialises the scores).
-
-    q: [B, Sq, Hq, hd]; k, v: [B, Skv, Hkv, hd]; positions int [Sq] / [Skv],
-    kv position -1 marks an empty slot. The scale comes before the softcap,
-    which comes before the mask. A row with no valid key gets the mean of V,
-    as ``attention_reference`` of the JAX package gives it.
-    """
+def _masked_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                   window: Optional[int], logit_cap: Optional[float],
+                   q_positions: Optional[torch.Tensor],
+                   kv_positions: Optional[torch.Tensor]) -> torch.Tensor:
+    """Scores [B, Hkv, G, Sq, Skv] in fp32, MASK_VALUE where masked."""
     B, Sq, Hq, hd = q.shape
     _, Skv, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -52,10 +44,123 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         valid = valid & (dpos >= 0)
     if window is not None:
         valid = valid & (dpos < window)
-    s = torch.where(valid, s, torch.full_like(s, MASK_VALUE))
-    p = torch.softmax(s, dim=-1)
+    return torch.where(valid, s, torch.full_like(s, MASK_VALUE))
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    logit_cap: Optional[float] = None,
+                    q_positions: Optional[torch.Tensor] = None,
+                    kv_positions: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Unchunked attention with explicit positions (materialises the scores).
+
+    q: [B, Sq, Hq, hd]; k, v: [B, Skv, Hkv, hd]; positions int [Sq] / [Skv],
+    kv position -1 marks an empty slot. The scale comes before the softcap,
+    which comes before the mask. A row with no valid key gets the mean of V,
+    as ``attention_reference`` of the JAX package gives it.
+    """
+    p = torch.softmax(_masked_scores(q, k, causal, window, logit_cap,
+                                     q_positions, kv_positions), dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return out.reshape(B, Sq, Hq, hd).to(q.dtype)
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        logit_cap: Optional[float] = None,
+                        q_positions: Optional[torch.Tensor] = None,
+                        kv_positions: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): :func:`attention_plain`'s out, and the log-sum-exp of each
+    query row, lse [B, Hkv, G, Sq] fp32, as ``_flash_fwd_impl`` of the JAX
+    package returns it: m + log(max(l, 1e-30)) with m the row's largest
+    score and l = sum exp(s - m) (MASK_VALUE where masked, so a row with no
+    valid key gets MASK_VALUE + log(Skv); the backward masks such a row)."""
+    s = _masked_scores(q, k, causal, window, logit_cap, q_positions,
+                       kv_positions)
+    m = s.amax(-1, keepdim=True)
+    l = torch.exp(s - m).sum(-1)
+    lse = m[..., 0] + torch.log(torch.clamp_min(l, 1e-30))
+    out = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, dim=-1),
+                       v.float())
+    return out.reshape(q.shape).to(q.dtype).contiguous(), lse.contiguous()
+
+
+def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    logit_cap: Optional[float] = None,
+                    q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                    q_chunk: int = 512, kv_chunk: int = 1024
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash backward, chunked as ``_flash_bwd_impl`` of the JAX package
+    (``src/repro/models/attention.py:163-260``): (dq, dk, dv) in the dtypes
+    of (q, k, v) from the forward's inputs, its out, its lse [B,Hkv,G,Sq]
+    and dout.
+
+    delta = rowsum(dout * out) from the stored out; per (kv chunk, q chunk)
+    block, p = exp(s - lse) where valid, else 0 (so a row with no valid key
+    gets no gradient); dv += pᵀ dout; ds = p (dp - delta) times the softcap
+    derivative 1 - t² and the scale; dq += ds k; dk += dsᵀ q. All sums in
+    fp32; GQA grads summed over the group. Padded query positions are
+    -10⁹, padded key positions -1, as the reference pads them.
+    """
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    dev = q.device
+    scale = 1.0 / (hd ** 0.5)
+    q_chunk, kv_chunk = min(q_chunk, Sq), min(kv_chunk, Skv)
+    nq, nk = -(-Sq // q_chunk), -(-Skv // kv_chunk)
+    pad_q, pad_k = nq * q_chunk - Sq, nk * kv_chunk - Skv
+
+    def pad(a, n, fill=0.0):  # along dim 1
+        if not n:
+            return a
+        return torch.cat([a, a.new_full((a.shape[0], n) + a.shape[2:], fill)], 1)
+
+    qp = torch.cat([q_positions.long(), torch.full((pad_q,), -(10 ** 9),
+                                                   dtype=torch.long, device=dev)])
+    kp = torch.cat([kv_positions.long(), torch.full((pad_k,), -1,
+                                                    dtype=torch.long, device=dev)])
+    qf, outf, doutf = (pad(a.float(), pad_q) for a in (q, out, dout))
+    kf, vf = pad(k.float(), pad_k), pad(v.float(), pad_k)
+    lsef = torch.cat([lse.float(), lse.new_zeros(B, Hkv, G, pad_q)], 3)
+    Sqp = Sq + pad_q
+    delta = torch.einsum("bshd,bshd->bhs", doutf, outf).reshape(B, Hkv, G, Sqp)
+    qg = qf.reshape(B, Sqp, Hkv, G, hd)
+    dog = doutf.reshape(B, Sqp, Hkv, G, hd)
+    dq = torch.zeros_like(qg)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for j in range(nk):
+        ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
+        kc, vc, kpos = kf[:, ks], vf[:, ks], kp[ks]
+        for i in range(nq):
+            qs = slice(i * q_chunk, (i + 1) * q_chunk)
+            qc, doc, qpos = qg[:, qs], dog[:, qs], qp[qs]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qc, kc) * scale
+            if logit_cap is not None:
+                t = torch.tanh(s / logit_cap)
+                u_grad = 1.0 - t * t
+                s = logit_cap * t
+            dpos = qpos[:, None] - kpos[None, :]
+            valid = (kpos[None, :] >= 0).expand(dpos.shape)
+            if causal:
+                valid = valid & (dpos >= 0)
+            if window is not None:
+                valid = valid & (dpos < window)
+            p = torch.where(valid, torch.exp(s - lsef[..., qs, None]), 0.0)
+            dv[:, ks] += torch.einsum("bhgqk,bqhgd->bkhd", p, doc)
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", doc, vc)
+            ds = p * (dp - delta[..., qs, None])
+            if logit_cap is not None:
+                ds = ds * u_grad
+            ds = ds * scale
+            dq[:, qs] += torch.einsum("bhgqk,bkhd->bqhgd", ds, kc)
+            dk[:, ks] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qc)
+    return (dq.reshape(B, Sqp, Hq, hd)[:, :Sq].to(q.dtype),
+            dk[:, :Skv].to(k.dtype), dv[:, :Skv].to(v.dtype))
 
 
 def attention_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

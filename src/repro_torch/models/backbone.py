@@ -1,24 +1,30 @@
 """The decoder backbone for the layer kinds ``attn``, ``local``, ``rec`` and
 ``rwkv``.
 
-The port of ``repro.models.backbone.Backbone`` for serving: the same
-parameter tree (``g{i}/s{j}/<leaf>``, each group's leaves stacked ``[R, ...]``
-over its repeat axis, ``x @ W`` weights ``[in, out]``), the same cache (per
-attention layer ``[R,B,C,KV,hd]`` rings plus ``kpos [R,C]``; per ``rec``
-layer ``conv [R,B,K-1,W]`` and ``h [R,B,W]`` fp32; per ``rwkv`` layer
+The port of ``repro.models.backbone.Backbone`` for serving and training:
+the same parameter tree (``g{i}/s{j}/<leaf>``, each group's leaves stacked
+``[R, ...]`` over its repeat axis, ``x @ W`` weights ``[in, out]``), the same
+cache (per attention layer ``[R,B,C,KV,hd]`` rings plus ``kpos [R,C]``; per
+``rec`` layer ``conv [R,B,K-1,W]`` and ``h [R,B,W]`` fp32; per ``rwkv`` layer
 ``shift1``/``shift2 [R,B,D]`` and ``wkv [R,B,H,hd,hd]`` fp32) and the same
 entry points:
 
+* ``loss_fn(params, batch)``             — training loss (causal LM), for
+  the ``attn`` and ``local`` kinds
 * ``prefill(params, batch, ctx)``        — run the context; last-token logits
   and a filled decode cache
 * ``decode_step(params, cache, tokens)`` — one token against the cache
 
-The repeat axis is a Python loop. Attention and the two scans go through
-:mod:`repro_torch.kernels.ops` (the Hopper kernels on the card, the plain
-versions on the CPU), or straight to the plain versions with
-``kernel_impl="plain"``, which exists to hold the kernel path against them.
+The repeat axis is a Python loop; with ``remat`` each layer of ``loss_fn``
+runs under ``torch.utils.checkpoint`` (non-reentrant), where the reference
+wraps its scan body in ``jax.checkpoint``. Attention and the two scans go
+through :mod:`repro_torch.kernels.ops` (the Hopper kernels on the card, the
+plain versions on the CPU), or straight to the plain versions with
+``kernel_impl="plain"``, which exists to hold the kernel path against them;
+attention's gradient comes from
+:class:`repro_torch.models.attention.FlashAttention`.
 The encoder-decoder kinds and MoE raise ``NotImplementedError`` naming their
-slice in ROADMAP.md; training comes in its own slice.
+slice in ROADMAP.md, and so does ``loss_fn`` for the recurrent kinds.
 """
 from __future__ import annotations
 
@@ -26,13 +32,14 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops, ref
 
 from . import rwkv6
 from .attention import flash_attention
 from .common import (apply_rope_table, dense_init, embed_init, resolve_device,
-                     rms_norm, rope_table)
+                     rms_norm, rope_table, stable_cross_entropy)
 from .config import ModelConfig
 from .ffn import gated_mlp
 from .partition import IDENTITY_PLAN, PartitionPlan
@@ -47,12 +54,14 @@ _KIND_SLICE = {
 }
 _RWKV_LORA = 64       # rank of the decay LoRA
 _DDLERP_RANK = 32     # rank of the token-shift LoRA
+AUX_COEF = 0.01       # weight of the auxiliary (MoE) loss in loss_fn
 
 
 class Backbone:
     def __init__(self, cfg: ModelConfig, plan: PartitionPlan = IDENTITY_PLAN,
                  *, compute_dtype=torch.bfloat16, param_dtype=torch.float32,
-                 device="cuda", kernel_impl: str = "kernel"):
+                 remat: bool = True, device="cuda",
+                 kernel_impl: str = "kernel"):
         plan.check(cfg)
         for kind in cfg.layer_kinds():
             if kind not in _KINDS:
@@ -71,8 +80,9 @@ class Backbone:
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.param_dtype = param_dtype
+        self.remat = remat
         plain = kernel_impl == "plain"
-        self._attend_fn = ref.attention_plain if plain else flash_attention
+        self._plain_attention = plain
         self._rglru_scan = ref.rglru_scan_plain if plain else ops.rglru_scan
         self._wkv_scan = ref.rwkv6_scan_plain if plain else ops.rwkv6_scan
         self.H = plan.eff_heads(cfg)
@@ -154,6 +164,8 @@ class Backbone:
         pd, dev = self.param_dtype, self.device
         if init == "zero":
             return torch.zeros(shape, dtype=pd, device=dev)
+        if init == "embed":
+            return embed_init(gen, shape, pd, dev)
         if init == "lru":
             # Λ such that softplus(Λ) is uniform in (0.05, 0.6): the inverse
             # softplus of the reference's draw
@@ -161,26 +173,33 @@ class Backbone:
             return torch.log(torch.expm1(u)).to(pd)
         return dense_init(gen, shape, dtype=pd, device=dev)
 
-    def init(self, seed: int = 0) -> Params:
+    def init(self, seed: int = 0, *, device=None) -> Params:
         """Random parameters from a seeded ``torch.Generator`` on the
-        backbone's device, in the reference's key order."""
+        backbone's device, in the reference's key order. ``device="meta"``
+        gives the tree's shapes and dtypes without memory (the counterpart
+        of ``jax.eval_shape(bb.init, key)``)."""
         cfg = self.cfg
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        pd, dev = self.param_dtype, self.device
-        params: Params = {"embed": {"tok": embed_init(
-            gen, (self.Vp, cfg.d_model), pd, dev)}}
+        if device is not None and torch.device(device).type == "meta":
+            def leaf(shape, init):
+                return torch.empty(shape, dtype=self.param_dtype,
+                                   device="meta")
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+
+            def leaf(shape, init):
+                return self._init_leaf(gen, shape, init)
+        params: Params = {"embed": {"tok": leaf((self.Vp, cfg.d_model),
+                                                "embed")}}
         if not cfg.tie_embeddings:
-            params["lm_head"] = dense_init(gen, (cfg.d_model, self.Vp),
-                                           dtype=pd, device=dev)
-        params["final_norm"] = torch.zeros(cfg.d_model, dtype=pd, device=dev)
+            params["lm_head"] = leaf((cfg.d_model, self.Vp), "dense")
+        params["final_norm"] = leaf((cfg.d_model,), "zero")
         for gi, group in enumerate(cfg.groups):
-            gp: Dict[str, Any] = {}
-            for si, kind in enumerate(group.pattern):
-                gp[f"s{si}"] = {
-                    name: self._init_leaf(gen, (group.repeat,) + shape, init)
-                    for name, (shape, init) in self._leaf_specs(kind).items()}
-            params[f"g{gi}"] = gp
+            params[f"g{gi}"] = {
+                f"s{si}": {name: leaf((group.repeat,) + shape, init)
+                           for name, (shape, init)
+                           in self._leaf_specs(kind).items()}
+                for si, kind in enumerate(group.pattern)}
         return params
 
     def _layer_params(self, gp: Params, r: int) -> Params:
@@ -216,11 +235,12 @@ class Backbone:
 
     def _attend(self, q, k, v, kind: str, q_positions, kv_positions):
         cfg = self.cfg
-        return self._attend_fn(q, k, v, causal=True,
+        return flash_attention(q, k, v, causal=True,
                                window=cfg.attn_window if kind == "local" else None,
                                logit_cap=cfg.attn_logit_softcap,
                                q_positions=q_positions,
-                               kv_positions=kv_positions)
+                               kv_positions=kv_positions,
+                               plain=self._plain_attention)
 
     def _ffn_sublayer(self, p, x):
         h = rms_norm(x, p["ln2"], self.cfg.norm_eps)
@@ -314,6 +334,49 @@ class Backbone:
             logits = torch.where(mask, logits,
                                  torch.full_like(logits, -1e30))
         return logits
+
+    # ------------------------------------------------------------------ #
+    # Training: loss                                                      #
+    # ------------------------------------------------------------------ #
+    def _train_layer(self, gp, r: int, pattern, x, positions, rope):
+        """Layer ``r`` of a group in training: its parameters sliced and
+        cast inside, so that remat recomputes the cast as the reference's
+        scan body does."""
+        lp = self._layer_params(gp, r)
+        for si, kind in enumerate(pattern):
+            x, _, _ = self._layer_fwd(lp[f"s{si}"], x, kind, positions, rope)
+        return x
+
+    def loss_fn(self, params: Params, batch: Dict[str, Any]) -> torch.Tensor:
+        """Mean next-token cross-entropy (fp32) of ``batch["tokens"]``
+        against ``batch["labels"]`` (both [B, S]), plus ``AUX_COEF`` times
+        the auxiliary loss, which is 0 without MoE."""
+        cfg = self.cfg
+        for kind in cfg.layer_kinds():
+            if kind in ("rec", "rwkv"):
+                raise NotImplementedError(
+                    f"training the {kind!r} kind needs the backward of its "
+                    "scan: ROADMAP.md queue 2, the K2 and K3 backwards, with "
+                    "the slice that trains recurrentgemma and rwkv6")
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        x = self._embed_tokens(params, tokens)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=self.device)
+        rope = self._rope(positions)
+        for gi, group in enumerate(cfg.groups):
+            gp = params[f"g{gi}"]
+            for r in range(group.repeat):
+                if self.remat:
+                    x = checkpoint(self._train_layer, gp, r, group.pattern, x,
+                                   positions, rope, use_reentrant=False)
+                else:
+                    x = self._train_layer(gp, r, group.pattern, x, positions,
+                                          rope)
+        logits = self._logits(params, x)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        loss = stable_cross_entropy(logits, labels, cfg.final_logit_softcap)
+        return loss + AUX_COEF * aux
 
     # ------------------------------------------------------------------ #
     # Serving: prefill + decode                                           #

@@ -33,6 +33,16 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
+def stable_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         final_cap: Optional[float] = None) -> torch.Tensor:
+    """Mean token cross-entropy: fp32 logits, optional final softcap, mean
+    of logsumexp - gold logit (``repro.models.common.stable_cross_entropy``)."""
+    logits = softcap(logits.float(), final_cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)
+
+
 # --------------------------------------------------------------------------- #
 # RoPE                                                                        #
 # --------------------------------------------------------------------------- #

@@ -1,1 +1,1 @@
-"""Serving runtime of the port (training comes in slice 2)."""
+"""Serving and training runtime of the port."""

@@ -1,5 +1,5 @@
-"""The Hopper kernels (K1 attention, K2 RG-LRU scan, K3 WKV scan) against
-their plain versions, on the card.
+"""The Hopper kernels (K1 attention, K1b its backward, K2 RG-LRU scan, K3
+WKV scan) against their plain versions, on the card.
 
 Every test here needs a CUDA device and skips without one (decided in the
 ``cuda`` fixture, never at import). It imports torch and the port only, so
@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_bwd as fb
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops, ref, rglru, rwkv6
 from repro_torch.models import Backbone, LayerGroup, get_config, reduced
@@ -424,3 +425,158 @@ def test_recurrent_decode_matches_prefill_on_the_card(cuda, arch, groups):
     torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
     scans = (rglru.launches - launched[1], rwkv6.launches - launched[2])
     assert scans == ((3 * 3, 0) if arch == "recurrentgemma-9b" else (0, 3 * 3))
+
+
+# --------------------------------------------------------------------------- #
+# K1 with its LSE, K1b (flash backward), and the model's gradients            #
+# --------------------------------------------------------------------------- #
+# The LSE is fp32 on both sides from the same input values (the kernels sum
+# the scores in another order, and the tensor-core body takes exp2 of
+# log2-scaled scores): the fp32 limit, atol = rtol = 5e-5, in both dtypes,
+# on rows with a valid key (a row with none gets -inf from the kernel and
+# MASK_VALUE + log(Skv) from the plain version; the backward masks it).
+# K1b and flash_bwd_plain take the same out, lse and dout and both sum in
+# fp32 (K1b does not round P to bf16), so the forward's limits hold: fp32
+# atol = rtol = 5e-5; bf16 atol 1e-4, rtol 2**-6 (two bf16 ulps of each
+# gradient, which both sides round to bf16 once).
+LSE_TOL = (5e-5, 5e-5)
+
+# (B, Sq, Skv, Hq, Hkv, hd, causal, window, cap, empty kv slots)
+BWD_CASES = [
+    (1, 64, 64, 4, 4, 32, True, None, None, False),
+    (2, 96, 96, 4, 2, 32, True, None, None, False),
+    (1, 80, 80, 4, 2, 32, True, 16, None, False),
+    (1, 64, 64, 4, 2, 32, True, None, 30.0, False),
+    (1, 64, 64, 4, 2, 32, False, None, None, False),
+    (1, 72, 72, 4, 2, 24, True, 32, 50.0, True),
+    (2, 130, 130, 8, 2, 64, True, None, None, True),
+    (1, 200, 200, 32, 8, 128, True, None, 50.0, False),
+    (2, 300, 300, 16, 1, 128, True, None, None, True),
+    (1, 2100, 2100, 16, 1, 256, True, 2048, None, False),
+    (2, 512, 512, 32, 8, 128, True, None, None, False),
+]
+
+
+def _bwd_inputs(case, dt, dev, seed=50):
+    B, Sq, Skv, Hq, Hkv, hd, causal, window, cap, empty = case
+    q = _randn((B, Sq, Hq, hd), dt, dev, seed)
+    k = _randn((B, Skv, Hkv, hd), dt, dev, seed + 1)
+    v = _randn((B, Skv, Hkv, hd), dt, dev, seed + 2)
+    dout = _randn((B, Sq, Hq, hd), dt, dev, seed + 3)
+    kp = np.arange(Skv, dtype=np.int32)
+    if empty:  # every 7th slot empty, key 0 too: query 0 sees no key
+        kp[::7] = -1
+    kw = dict(causal=causal, window=window, logit_cap=cap,
+              q_positions=torch.arange(Sq, dtype=torch.int32, device=dev),
+              kv_positions=torch.from_numpy(kp).to(dev))
+    return q, k, v, dout, kw
+
+
+def _assert_close_elementwise(got, want, atol, rtol, what):
+    err = (got.float() - want.float()).abs()
+    limit = atol + rtol * want.float().abs()
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    assert bool((err <= limit).all()), (
+        f"{what}: max abs err {float(err.max())}, worst excess "
+        f"{float((err - limit).max())}")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", BWD_CASES[:9], ids=str)
+def test_flash_fwd_lse_matches_plain(cuda, case, dtype):
+    dt = DTYPES[dtype][0]
+    q, k, v, _, kw = _bwd_inputs(case, dt, cuda)
+    out, lse = fa.flash_fwd(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    # writing the LSE leaves out as it was (test_kernel_matches_plain
+    # holds that against the plain version)
+    assert torch.equal(out, fa.flash_fwd(q, k, v, **kw))
+    _, want = ref.attention_lse_plain(q, k, v, **kw)
+    seen = want > ref.MASK_VALUE / 2       # rows with a valid key
+    assert lse.shape == want.shape and lse.dtype == torch.float32
+    _assert_close_elementwise(lse[seen], want[seen], *LSE_TOL, "lse")
+    assert bool(torch.isneginf(lse[~seen]).all())
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_flash_bwd_matches_plain(cuda, case, dtype):
+    dt, (atol, rtol) = DTYPES[dtype]
+    q, k, v, dout, kw = _bwd_inputs(case, dt, cuda)
+    out, lse = ref.attention_lse_plain(q, k, v, **kw)
+    want = ref.flash_bwd_plain(q, k, v, out, lse, dout, **kw)
+    before = dict(fb.kernel_launches)
+    got = fb.flash_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _assert_close_elementwise(g, w, atol, rtol, name)
+    assert {n: fb.kernel_launches[n] - before[n] for n in before} == {
+        "delta": 1, "dkdv": 1, "dq": 1}
+    # no atomics: a second run gives the same bits
+    again = fb.flash_bwd(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_bwd_takes_the_kernels_lse_and_masks_empty_rows(cuda):
+    """K1's LSE (-inf on a row with no valid key) through K1b: the same
+    gradients as the plain pair, and none for the empty row."""
+    case = (1, 72, 72, 4, 2, 24, True, 32, 50.0, True)
+    q, k, v, dout, kw = _bwd_inputs(case, torch.float32, cuda, seed=60)
+    out, lse = fa.flash_fwd(q, k, v, return_lse=True, **kw)
+    got = fb.flash_bwd(q, k, v, out, lse, dout, **kw)
+    p_out, p_lse = ref.attention_lse_plain(q, k, v, **kw)
+    p_out[:, 0] = 0.0      # the kernel's choice for the row with no key
+    want = ref.flash_bwd_plain(q, k, v, p_out, p_lse, dout, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _assert_close_elementwise(g, w, 5e-5, 5e-5, name)
+    assert got[0][:, 0].abs().max().item() == 0.0
+
+
+def test_flash_bwd_rejects_what_it_cannot_take(cuda):
+    q, k, v, dout, kw = _bwd_inputs(BWD_CASES[1], torch.bfloat16, cuda)
+    out, lse = ref.attention_lse_plain(q, k, v, **kw)
+    before = fb.launches
+    for bad in (dict(lse=lse[..., 1:].contiguous()), dict(out=out.float()),
+                dict(dout=dout[:, 1:].contiguous()), dict(lse=lse.cpu())):
+        args = dict(q=q, k=k, v=v, out=out, lse=lse, dout=dout)
+        args.update(bad)
+        with pytest.raises(ValueError):
+            fb.flash_bwd(**args, **kw)
+    assert fb.launches == before
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_model_grads_kernel_path_match_plain_path(cuda, dtype, remat):
+    """loss_fn and every leaf's gradient of a 3-layer reduced qwen3-4b with
+    fp32 params: the kernel path (K1 with LSE, K1b) against
+    kernel_impl="plain". fp32 compute: the kernels and the plain versions
+    sum in another order, 1e-4 of each leaf's largest gradient. bf16
+    compute: the forward's tensor-core body rounds P to bf16, which moves
+    activations by bf16 ulps through 3 layers and back: 2**-4 of each
+    leaf's gradient norm, 2**-6 of the loss."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.steps import value_and_grad
+    dt = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    cfg = reduced(get_config("qwen3-4b"), groups=(LayerGroup(("attn",), 3),))
+    kern = Backbone(cfg, compute_dtype=dt, remat=remat, device=cuda)
+    plain = Backbone(cfg, compute_dtype=dt, remat=remat, device=cuda,
+                     kernel_impl="plain")
+    params = kern.init(3)
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, cfg.vocab, (2, 65), dtype=np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    before = (fa.launches, fd.launches, fb.launches)
+    lk, gk = value_and_grad(kern, params, batch)
+    torch.cuda.synchronize()
+    assert (fa.launches - before[0], fd.launches - before[1],
+            fb.launches - before[2]) == (3 * (2 if remat else 1), 0, 3)
+    lp, gp = value_and_grad(plain, params, batch)
+    if dt == torch.float32:
+        torch.testing.assert_close(lk, lp, atol=1e-5, rtol=1e-5)
+        for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    else:
+        assert abs(float(lk) - float(lp)) <= 2.0 ** -6 * abs(float(lp))
+        for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+            assert float((a - b).norm()) <= 2.0 ** -4 * float(b.norm())

@@ -59,3 +59,14 @@ def test_serve_launcher_defaults_to_the_card(monkeypatch):
                                      "--reduced", "--requests", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main()
+
+
+def test_train_launcher_defaults_to_the_card(monkeypatch, tmp_path):
+    from repro_torch.launch import train
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    monkeypatch.setattr("sys.argv", ["train", "--arch", "qwen3-4b",
+                                     "--reduced", "--steps", "1",
+                                     "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main()
