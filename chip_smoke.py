@@ -8,7 +8,9 @@ Phases; each one that fails raises, and the process exits non-zero:
 1. The card: nvidia-smi's name and power limit, torch's device name. TF32
    is switched off, so fp32 matrix products are full fp32.
 2. Build the kernels with nvcc from the checkout's sources, one nvcc per
-   source, all started together; print the seconds and ``-Xptxas -v``.
+   source, all started together; print the seconds and ``-Xptxas -v``;
+   count the HMMA (tensor-core) instructions of K1b's dk/dv and dq kernels
+   in the library (cuobjdump -sass), none of which may lack them.
 3. Hold each kernel against its plain PyTorch version on the card, in fp32
    and bf16 inputs, and time each (CUDA events, after warm-up, inputs
    rotated through copies larger than the L2 cache) beside the plain
@@ -39,10 +41,11 @@ Phases; each one that fails raises, and the process exits non-zero:
    equal a direct prefill's; a torch.profiler trace shows where a prefill's
    and a decode step's time goes. Each model is freed before the next.
 6. Train qwen3-4b at full width, depth 8 (see TRAIN): K1 with its LSE
-   against the plain LSE; K1b (flash_bwd: delta, dkdv, dq) against
-   flash_bwd_plain in fp32 and bf16 (causal, GQA 32/8 and 16/1, softcap 50,
-   window 2048 at hd 256, empty kv slots) and timed at the training shape
-   beside the plain version, SDPA forward + backward and the bound; one
+   against the plain LSE; K1b (flash_bwd: delta, dkdv, dq, and reduce where
+   its plan splits the dk/dv grid) against flash_bwd_plain in fp32 and bf16
+   (causal, GQA 32/8, 28/4 and 24/8, MQA 16/1, softcap 50, window 2048 at
+   hd 256, empty kv slots), two runs bit for bit, timed beside the plain
+   version, SDPA forward + backward and the bound; one
    microbatch of [1, 512] through loss_fn and the backward on the kernel
    path and on the plain path from the same fp32 parameters (bf16 compute,
    remat on), the loss and every leaf's gradient compared; then the
@@ -102,8 +105,11 @@ MODEL_BF16_TOL = 0.125     # kernel vs plain path: a few bf16 ulps of a logit
 # K1's LSE against attention_lse_plain: fp32 on both sides from the same
 # inputs, so the fp32 limit (atol = rtol) in both dtypes, on rows with a
 # valid key. K1b against flash_bwd_plain: both take the same out, lse and
-# dout and sum in fp32 (K1b does not round P), so TOL holds for each of dq,
-# dk and dv (two bf16 ulps in bf16).
+# dout and sum in fp32, so TOL holds for each of dq, dk and dv; K1b's bf16
+# body also rounds p and ds to bf16 before the products that take them (as
+# K1 rounds P), each by at most 2**-8 of itself, so its bf16 limit adds
+# ref.flash_bwd_rounding_plain: 2**-8 of |p|ᵀ|dout| (dv), |ds|ᵀ|q| (dk) and
+# |ds||k| (dq).
 LSE_TOL = 5e-5
 # The training model's kernel path against its plain path (bf16 compute):
 # K1's tensor-core body rounds P to bf16, which moves activations by bf16
@@ -120,6 +126,9 @@ BWD_CASES = [
     ("softcap_50", 1, 200, 32, 8, 128, True, None, 50.0, False),
     ("window_2048_hd256", 1, 2100, 16, 1, 256, True, 2048, None, False),
     ("mqa_16_1_empty_slots", 2, 300, 16, 1, 128, True, None, None, True),
+    # odd groups: a 16-row fragment straddles query positions
+    ("gqa_28_4_qwen2", 1, 320, 28, 4, 128, True, None, None, False),
+    ("gqa_24_8_phi4", 2, 256, 24, 8, 128, True, None, None, True),
     ("qwen3_train", TRAIN["batch"], TRAIN["seq"], 32, 8, 128, True, None,
      None, False),
 ]
@@ -771,10 +780,16 @@ def _reset_counts():
         flash_bwd.kernel_launches[k] = 0
 
 
-def _check_counts(what, got, layers, fwd_per_layer):
+def _check_counts(what, got, layers, fwd_per_layer, batch, seq):
+    """Exact launches of a run of `layers` backward passes of qwen3-4b's
+    attention at [batch, seq]: the reduce pass only where the plan splits."""
+    from repro_torch.kernels import flash_bwd
+    split = flash_bwd.plan(batch, seq, seq, 32, 8, 128, torch.bfloat16,
+                           sms=flash_bwd.device_sms(DEVICE)).splits
     want = {"flash_fwd": layers * fwd_per_layer, "flash_decode": 0,
             "flash_bwd": layers, "flash_bwd.delta": layers,
-            "flash_bwd.dkdv": layers, "flash_bwd.dq": layers}
+            "flash_bwd.dkdv": layers, "flash_bwd.dq": layers,
+            "flash_bwd.reduce": layers if split > 1 else 0}
     if got != want:
         raise AssertionError(f"{what}: launches {got}, want {want}")
 
@@ -830,12 +845,19 @@ def lse_case(name, B, S, Hq, Hkv, hd, window, cap, dtype):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+# K1b cases whose passes are also traced (device ms of each kernel a launch)
+BWD_TRACED = ("qwen3_train", "window_2048_hd256")
+
+
 def bwd_case(name, B, S, Hq, Hkv, hd, causal, window, cap, empty, dtype):
-    """K1b against flash_bwd_plain on the same out, lse and dout; timed
-    beside the plain version, SDPA forward + backward with KV repeated
-    (aligned causal cases; never called by the port) and the bound: 10 hd
-    operations per valid (query, key) pair and query head over the dtype's
-    peak; bytes of q, k, v, out, dout and lse read and dq, dk, dv written."""
+    """K1b against flash_bwd_plain on the same out, lse and dout (the bf16
+    limit with the rounding term of ref.flash_bwd_rounding_plain), a rerun
+    bit for bit; timed beside the plain version, SDPA forward + backward
+    with KV repeated (never called by the port: is_causal for aligned causal
+    cases, an explicit boolean mask for a window; none for a softcap or
+    empty slots) and the bound: 10 hd operations per valid (query, key) pair
+    and query head over the dtype's peak; bytes of q, k, v, out, dout and
+    lse read and dq, dk, dv written."""
     from repro_torch.kernels import flash_bwd as fb
     from repro_torch.kernels import ref
 
@@ -850,43 +872,58 @@ def bwd_case(name, B, S, Hq, Hkv, hd, causal, window, cap, empty, dtype):
     kw = dict(causal=causal, window=window, logit_cap=cap, q_positions=qp,
               kv_positions=kp)
     out, lse = ref.attention_lse_plain(q, k, v, **kw)
+    plan = fb.plan(B, S, S, Hq, Hkv, hd, dtype, sms=fb.device_sms(DEVICE))
+    before = fb.kernel_launches["reduce"]
     got = fb.flash_bwd(q, k, v, out, lse, dout, **kw)
     torch.cuda.synchronize()
+    if fb.kernel_launches["reduce"] - before != int(plan.splits > 1):
+        raise AssertionError(f"flash_bwd {name}: the reduce pass ran "
+                             f"{fb.kernel_launches['reduce'] - before} times "
+                             f"with {plan.splits} splits")
     want = ref.flash_bwd_plain(q, k, v, out, lse, dout, **kw)
+    extra = (ref.flash_bwd_rounding_plain(q, k, v, out, lse, dout, **kw)
+             if dtype == torch.bfloat16 else (0.0,) * 3)
     atol, rtol = TOL[dtype]
     max_err = 0.0
-    for part, a, b in zip(("dq", "dk", "dv"), got, want):
+    for part, a, b, e in zip(("dq", "dk", "dv"), got, want, extra):
         err = (a.float() - b.float()).abs()
         max_err = max(max_err, float(err.max()))
         if a.dtype != b.dtype or not bool(
-                (err <= atol + rtol * b.float().abs()).all()):
+                (err <= atol + rtol * b.float().abs() + e).all()):
             raise AssertionError(f"flash_bwd {name} {dtype} {part}: kernel "
                                  f"disagrees with the plain version, max abs "
                                  f"err {float(err.max())} (atol {atol}, rtol "
-                                 f"{rtol})")
+                                 f"{rtol}" + (", + the bf16 rounding term)"
+                                              if dtype == torch.bfloat16
+                                              else ")"))
     again = fb.flash_bwd(q, k, v, out, lse, dout, **kw)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"flash_bwd {name}: two runs differ")
-    del want, again
+    del want, again, extra
     # every input set of the timed shapes exceeds the L2 (q alone 64 MB at
     # the training shape), so no rotation
-    ms = time_ms(lambda: fb.flash_bwd(q, k, v, out, lse, dout, **kw), iters=10)
+    call = lambda: fb.flash_bwd(q, k, v, out, lse, dout, **kw)
+    ms = time_ms(call, iters=10)
     plain_ms = time_ms(lambda: ref.flash_bwd_plain(q, k, v, out, lse, dout,
                                                    **kw), iters=2, warmup=1)
     library_ms = None
-    if causal and window is None and cap is None and not empty:
+    if cap is None and not empty:
         G = Hq // Hkv
         ql = q.transpose(1, 2).detach().requires_grad_()
         kl, vl = (t.repeat_interleave(G, 2).transpose(1, 2).detach()
                   .requires_grad_() for t in (k, v))
         dl = dout.transpose(1, 2)
+        mask = (None if causal and window is None
+                else _valid(qp, kp, causal, window))
 
         def sdpa():
             ql.grad = kl.grad = vl.grad = None
-            F.scaled_dot_product_attention(ql, kl, vl, is_causal=True
+            F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                           is_causal=mask is None
                                            ).backward(dl)
         library_ms = time_ms(sdpa, iters=10)
         del ql, kl, vl
+    passes = kernel_ms(call) if name in BWD_TRACED else None
     ok = _valid(qp, kp, causal, window)
     pairs = int(ok.sum())
     flops = 10.0 * hd * Hq * B * pairs
@@ -897,15 +934,80 @@ def bwd_case(name, B, S, Hq, Hkv, hd, causal, window, cap, empty, dtype):
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     row = dict(kernel="flash_bwd", case=name, dtype=str(dtype)[6:],
                shape=[B, S, S, Hq, Hkv, hd], causal=causal, window=window,
-               logit_cap=cap, empty_slots=empty, max_abs_err=max_err,
+               logit_cap=cap, empty_slots=empty, splits=plan.splits,
+               dkdv_ctas=plan.dkdv_ctas * plan.splits, max_abs_err=max_err,
                atol=atol, rtol=rtol, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-               gflop=flops / 1e9)
+               gflop=flops / 1e9, tflops=flops / ms / 1e9, passes=passes)
     log(f"[kernel] flash_bwd {name:>22} {row['dtype']:>8} err {max_err:.3e} "
-        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
+        f"kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s of the function's "
+        f"work) plain {plain_ms:.4f} ms library "
         f"{library_ms if library_ms is None else round(library_ms, 4)} ms "
-        f"bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP)")
+        f"bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP); "
+        f"splits {plan.splits}, {row['dkdv_ctas']} dk/dv CTAs"
+        + (f"; device ms a launch {passes}" if passes else ""))
     return row
+
+
+def kernel_ms(fn, calls=6):
+    """Device ms per launch of each of the port's kernels that ``fn``
+    launches, from torch.profiler's CUDA events over ``calls`` calls after a
+    warm-up: each kernel's total time over the launches the trace holds
+    (the profiler may miss the first launches after it starts)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and any(k in e.name for k in TRACE_NAMES)):
+            name = e.name.split("namespace)::")[-1].split("(")[0]
+            t, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (t + e.time_range.elapsed_us(), n + 1)
+    return {k: round(t / n / 1e3, 5) for k, (t, n) in by_name.items()}
+
+
+def sass_hmma(lib_path):
+    """HMMA instructions in each K1b kernel of the built library, by
+    cuobjdump -sass: the dk/dv and dq kernels must run on the tensor cores
+    (bf16 m16n8k16 and, in the fp32 body, TF32 m16n8k8). cuobjdump is the
+    one beside the nvcc that built the library; without it the check fails."""
+    from repro_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(os.path.realpath(build.nvcc())),
+                        "cuobjdump")
+    if not os.path.exists(tool):
+        raise RuntimeError(f"{tool} not found: the HMMA check of K1b cannot "
+                           "run")
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            if "flash_bwd_dkdv" not in name and "flash_bwd_dq" not in name:
+                name = None
+            else:
+                counts[name] = {"hmma": 0, "bf16": 0, "tf32": 0}
+        elif name is not None and "HMMA" in line:
+            c = counts[name]
+            c["hmma"] += 1
+            c["bf16"] += ".BF16" in line
+            c["tf32"] += ".TF32" in line
+    for fn, c in sorted(counts.items()):
+        log(f"[sass] {fn}: {c['hmma']} HMMA ({c['bf16']} bf16, {c['tf32']} "
+            "tf32)")
+    # 2 kernels x 2 dtypes x 4 head-dim tilings
+    if len(counts) != 16 or any(c["hmma"] == 0 for c in counts.values()):
+        raise AssertionError(f"K1b kernels without HMMA, or not 16 of them: "
+                             f"{counts}")
+    return counts
 
 
 def phase_train_kernels():
@@ -950,7 +1052,8 @@ def train_grads_check():
     _reset_counts()
     lk, gk = value_and_grad(kern, params, batch)
     torch.cuda.synchronize()
-    _check_counts("qwen3-4b loss_fn + backward (remat)", _counts(), depth, 2)
+    _check_counts("qwen3-4b loss_fn + backward (remat)", _counts(), depth, 2,
+                  1, TRAIN["grad_seq"])
     lp, gp = value_and_grad(plain, params, batch)
     loss_err = abs(float(lk) - float(lp))
     grad_err = max(float((a - b).norm() / b.norm())
@@ -1010,7 +1113,8 @@ def train_run():
             log_ = list(tr.metrics_log)
         finally:
             tr.shutdown()
-    _check_counts(f"qwen3-4b Trainer, {steps} steps", counts, depth * steps, 1)
+    _check_counts(f"qwen3-4b Trainer, {steps} steps", counts, depth * steps, 1,
+                  TRAIN["batch"], TRAIN["seq"])
     if cursor != steps or len(log_) != steps:
         raise AssertionError(f"train: {len(log_)} steps logged, cursor "
                              f"{cursor}, want {steps}")
@@ -1141,6 +1245,7 @@ def main() -> int:
     b = build.build()
     log(f"[build] {', '.join(src.name for src in build.SOURCES)}: "
         f"{b['seconds']:.2f} s -> {b['path']}\n{b['log']}")
+    sass = sass_hmma(b["path"])
 
     rows = phase_flash() + phase_rglru() + phase_wkv()
     model = {arch: phase_model(arch) for arch in SERVES}
@@ -1179,7 +1284,7 @@ def main() -> int:
                 k.split(".")[1]: n for k, n in train_launches.items()
                 if k.startswith("flash_bwd.")}
     log("[summary] " + json.dumps({"model": model, "serve": serve,
-                                   "train": train,
+                                   "train": train, "k1b_sass": sass,
                                    "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())

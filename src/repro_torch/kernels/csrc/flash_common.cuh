@@ -1,8 +1,9 @@
-// Pieces shared by the two attention kernels, flash_fwd.cu (prefill) and
-// flash_decode.cu (one query position against the cache): the bf16 tensor-
-// core product m16n8k16, ldmatrix, 16-byte cp.async copies, the mask
-// predicate, the set of key tiles a CTA can see, and the online-softmax
-// update on m16n8 accumulator fragments.
+// Pieces shared by the attention kernels, flash_fwd.cu (prefill),
+// flash_decode.cu (one query position against the cache) and flash_bwd.cu
+// (the backward): the bf16 tensor-core product m16n8k16, ldmatrix, 16-byte
+// cp.async copies, the mask predicate, the set of tiles (of keys, or of
+// query rows) a CTA can see, and the online-softmax update on m16n8
+// accumulator fragments.
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4 g + t, g = lane / 4,
 // t = lane % 4): A (16 x 16, row-major) a0 = A[g][2t..2t+1],
@@ -107,41 +108,55 @@ __device__ __forceinline__ float logit2(float s, bool ok, float scale,
   return ok ? x * LOG2E : -INFINITY;
 }
 
-// Mark, in two bitmasks in shared memory, the tiles of `tile` keys among
-// keys [k0, k1) that some query position in [qmin, qmax] can see (`live`: a
-// superset of what the rows need, so the mask is applied again per
-// element) and those whose every key every one of them sees (`full`: no
-// per-element mask needed). `tile` is a multiple of 32, so that the 32 keys
-// a warp reads at once lie in one tile: one ballot and at most two shared
-// atomics per warp and step. Ends with __syncthreads.
-__device__ __forceinline__ void mark_live_tiles(
-    unsigned* live, unsigned* full, const int* __restrict__ kv_pos, int k0,
-    int k1, int tile, int qmin, int qmax, int causal, int window, int tid,
-    int nthreads) {
-  const int nt = (k1 - k0 + tile - 1) / tile;
+// Mark, in two bitmasks in shared memory, the tiles of `tile` elements among
+// n: `live` where pred(i, see, all) sets `see` for some element of the tile,
+// `full` where it sets `all` for every one. `tile` is a multiple of 32, so
+// that the 32 elements a warp reads at once lie in one tile: one ballot and
+// at most two shared atomics per warp and step. A ragged last tile is never
+// full. Ends with __syncthreads.
+template <typename Pred>
+__device__ __forceinline__ void mark_tiles(unsigned* live, unsigned* full,
+                                           int n, int tile, int tid,
+                                           int nthreads, Pred pred) {
+  const int nt = (n + tile - 1) / tile;
   for (int w = tid; w < (nt + 31) / 32; w += nthreads) {
     live[w] = 0u;
     full[w] = ~0u;
   }
   __syncthreads();
-  if (tid == 0 && (k1 - k0) % tile)  // a ragged last tile is never full
+  if (tid == 0 && n % tile)
     atomicAnd(&full[(nt - 1) >> 5], ~(1u << ((nt - 1) & 31)));
   const int lane = tid & 31;
-  for (int base = k0 + tid - lane; base < k1; base += nthreads) {
+  for (int base = tid - lane; base < n; base += nthreads) {
     const int i = base + lane;
-    const int kp = i < k1 ? kv_pos[i] : -1;  // past k1: seen by none
-    const bool see = kp >= 0 && (!causal || kp <= qmax) &&
-                     (window <= 0 || qmin - kp < window);
-    const bool all = kp >= 0 && (!causal || kp <= qmin) &&
-                     (window <= 0 || qmax - kp < window);
+    bool see = false, all = false;  // past n: seen by none
+    if (i < n) pred(i, see, all);
     const unsigned any_see = __ballot_sync(0xffffffffu, see);
     const unsigned all_see = __ballot_sync(0xffffffffu, all);
-    const int t = (base - k0) / tile;
+    const int t = base / tile;
     if (lane == 0 && any_see) atomicOr(&live[t >> 5], 1u << (t & 31));
     if (lane == 0 && all_see != 0xffffffffu)
       atomicAnd(&full[t >> 5], ~(1u << (t & 31)));
   }
   __syncthreads();
+}
+
+// The tiles of `tile` keys among keys [k0, k1) that some query position in
+// [qmin, qmax] can see (`live`: a superset of what the rows need, so the
+// mask is applied again per element) and those whose every key every one
+// of them sees (`full`: no per-element mask needed).
+__device__ __forceinline__ void mark_live_tiles(
+    unsigned* live, unsigned* full, const int* __restrict__ kv_pos, int k0,
+    int k1, int tile, int qmin, int qmax, int causal, int window, int tid,
+    int nthreads) {
+  mark_tiles(live, full, k1 - k0, tile, tid, nthreads,
+             [&](int i, bool& see, bool& all) {
+               const int kp = kv_pos[k0 + i];
+               see = kp >= 0 && (!causal || kp <= qmax) &&
+                     (window <= 0 || qmin - kp < window);
+               all = kp >= 0 && (!causal || kp <= qmin) &&
+                     (window <= 0 || qmax - kp < window);
+             });
 }
 
 // The first live tile at or after t (nt when there is none).

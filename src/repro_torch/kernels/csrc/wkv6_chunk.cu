@@ -69,6 +69,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr int HD = 64;         // head dim the tiles are padded to
@@ -89,44 +91,10 @@ __device__ __forceinline__ float log_w(float w) {
   return fmaxf(logf(w), LOG_W_FLOOR);
 }
 
-// ---- 3xTF32 on mma.sync m16n8k8 -------------------------------------------
-// Fragments (lane = 4 g + t): A (16 x 8, row) a0 = A[g][t], a1 = A[g+8][t],
-// a2 = A[g][t+4], a3 = A[g+8][t+4]; B (8 x 8, col) b0 = B[t][g],
-// b1 = B[t+4][g]; C (16 x 8) c0, c1 = C[g][2t..2t+1], c2, c3 =
-// C[g+8][2t..2t+1]. With row strides LDA = 4 (mod 32) for A read as [m][k]
-// and LDB = 8 (mod 32) for B read as [k][n], the 32 lanes hit 32 banks.
-struct Split {
-  uint32_t hi, lo;
-};
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ Split split(float x) {
-  const uint32_t hi = tf32(x);
-  return {hi, tf32(x - __uint_as_float(hi))};
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// d += a b in 3xTF32, the small terms first
-__device__ __forceinline__ void mma3(float (&d)[4], const Split (&a)[4],
-                                     const Split (&b)[2]) {
-  mma_tf32(d, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hi, b[1].hi);
-  mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].lo, b[1].lo);
-  mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
-}
+// ---- 3xTF32 on mma.sync m16n8k8 (tf32x3.cuh) ---------------------------
+using tf32x3::mma3;
+using tf32x3::Split;
+using tf32x3::split;
 
 // ---- staging ----------------------------------------------------------------
 // A tile is rows t0 .. t0+L-1 of one (b, h) of a [B,T,H,hd] tensor, held in

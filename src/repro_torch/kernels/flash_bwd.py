@@ -5,14 +5,15 @@ custom VJP of the reference's ``flash_attention_jnp`` (no Pallas kernel
 exists for it). From the forward's q, k, v and positions, its output and
 the LSE that :func:`repro_torch.kernels.flash_attention.flash_fwd` writes
 with ``return_lse=True``, and dout, it returns (dq, dk, dv) in the inputs'
-dtype. It launches three kernels: ``delta`` (rowsum(dout * out)), ``dkdv``
-and ``dq``. Its plain version is :func:`repro_torch.kernels.ref.flash_bwd_plain`;
+dtype. It launches ``delta`` (rowsum(dout * out)), ``dkdv`` and ``dq``, and
+``reduce`` after ``dkdv`` when :func:`plan` splits the dk/dv grid. Its plain
+version is :func:`repro_torch.kernels.ref.flash_bwd_plain`;
 :mod:`repro_torch.kernels.ops` picks between the two by the tensors' device.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -22,7 +23,47 @@ from .flash_attention import _DTYPES, check_inputs as check_forward_inputs
 # Calls of flash_bwd since the last reset, and launches of each of its
 # kernels (set them to 0 to reset).
 launches = 0
-kernel_launches = {"delta": 0, "dkdv": 0, "dq": 0}
+kernel_launches = {"delta": 0, "dkdv": 0, "dq": 0, "reduce": 0}
+
+# The dk/dv pass is split when its grid has fewer CTAs than MIN_WAVES x the
+# card's SMs.
+MIN_WAVES = 2
+
+
+class Plan(NamedTuple):
+    keys_per_cta: int   # keys of one dk/dv CTA (Tiles<T, HDM>::KN)
+    rows_per_block: int  # rows (query position x group head) of one stage
+    dkdv_ctas: int      # the dk/dv grid before the split
+    splits: int         # CTAs per key tile; above 1, the reduce pass runs
+
+
+def dkdv_tiles(hd: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(keys a CTA, rows a stage) of the dk/dv pass, as ``Tiles<T, HDM>`` in
+    ``csrc/flash_bwd.cu`` has them; the library is held to these when it is
+    loaded (``flash_bwd_dkdv_tiles``)."""
+    hdm = next(w for w in (32, 64, 128, 256) if hd <= w)
+    return (32 if dtype == torch.float32 and hdm > 128 else 64), 32
+
+
+def device_sms(device: torch.device) -> int:
+    """The SMs of a CUDA device, the ``sms`` of :func:`plan`."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def plan(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, hd: int,
+         dtype: torch.dtype, *, sms: int) -> Plan:
+    """The dk/dv pass's split, from the shapes and the card's ``sms`` alone:
+    ``splits`` CTAs per key tile, each taking an equal share of the tile's
+    live row blocks, once the unsplit grid is below MIN_WAVES x ``sms``
+    CTAs (MQA at batch 1: one kv head), at most one a row block."""
+    keys, rows = dkdv_tiles(hd, dtype)
+    ctas = -(-Skv // keys) * Hkv * B
+    blocks = -(-Sq * (Hq // Hkv) // rows)
+    want = MIN_WAVES * sms
+    splits = 1 if ctas >= want else max(1, min(-(-want // max(ctas, 1)),
+                                                blocks))
+    return Plan(keys, rows, ctas, splits)
+
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -34,15 +75,41 @@ def _library() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # out, dout, delta; B, Sq, Hq, hd, dtype; stream
         lib.flash_bwd_delta.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
-        # q, k, v, dout, lse, delta, q_pos, kv_pos, dk, dv; B, Sq, Skv, Hq,
-        # Hkv, hd, dtype, causal, window; logit_cap, scale; stream
-        lib.flash_bwd_dkdv.argtypes = [ptr] * 10 + [i32] * 9 + [f32] * 2 + [ptr]
-        # the same with dq in place of dk, dv
+        # q, k, v, dout, lse, delta, q_pos, kv_pos, dk, dv, part; B, Sq,
+        # Skv, Hq, Hkv, hd, dtype, causal, window, splits; logit_cap, scale;
+        # stream
+        lib.flash_bwd_dkdv.argtypes = ([ptr] * 11 + [i32] * 10 + [f32] * 2
+                                       + [ptr])
+        # part, dk, dv; n; splits, dtype; stream
+        lib.flash_bwd_reduce.argtypes = [ptr] * 3 + [ctypes.c_longlong] + \
+            [i32] * 2 + [ptr]
+        # q, k, v, dout, lse, delta, q_pos, kv_pos, dq; B, Sq, Skv, Hq, Hkv,
+        # hd, dtype, causal, window; logit_cap, scale; stream
         lib.flash_bwd_dq.argtypes = [ptr] * 9 + [i32] * 9 + [f32] * 2 + [ptr]
-        for fn in (lib.flash_bwd_delta, lib.flash_bwd_dkdv, lib.flash_bwd_dq):
+        # hd, dtype, keys out, rows out
+        lib.flash_bwd_dkdv_tiles.argtypes = [i32] * 2 + [ptr] * 2
+        for fn in (lib.flash_bwd_delta, lib.flash_bwd_dkdv,
+                   lib.flash_bwd_reduce, lib.flash_bwd_dq,
+                   lib.flash_bwd_dkdv_tiles):
             fn.restype = i32
+        _check_tiles(lib)
         _lib = lib
     return _lib
+
+
+def _check_tiles(lib: ctypes.CDLL) -> None:
+    """Raise unless the library tiles the dk/dv pass as :func:`dkdv_tiles`
+    says at every head dim the wrapper takes."""
+    keys, rows = ctypes.c_int(), ctypes.c_int()
+    for dtype, code in _DTYPES.items():
+        for hd in range(8, 257, 8):
+            rc = lib.flash_bwd_dkdv_tiles(hd, code, ctypes.byref(keys),
+                                          ctypes.byref(rows))
+            got = (keys.value, rows.value)
+            if rc or got != dkdv_tiles(hd, dtype):
+                raise RuntimeError(
+                    f"flash_bwd: the library tiles dk/dv at hd {hd} {dtype} "
+                    f"as {got} (rc {rc}), plan as {dkdv_tiles(hd, dtype)}")
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -75,8 +142,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               logit_cap: Optional[float] = None, q_positions: torch.Tensor,
               kv_positions: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the three kernels on CUDA tensors: (dq, dk, dv) shaped and
-    typed as (q, k, v)."""
+    """Launch the kernels on CUDA tensors: (dq, dk, dv) shaped and typed as
+    (q, k, v); the dk/dv pass split as :func:`plan` says."""
     global launches
     check_inputs(q, k, v, out, lse, dout, q_positions, kv_positions, window,
                  logit_cap)
@@ -87,7 +154,12 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    splits = plan(B, Sq, Skv, Hq, Hkv, hd, q.dtype,
+                  sms=device_sms(q.device)).splits
     delta = torch.empty_like(lse)
+    # fp32 partial dk, dv of each split: [2, splits, B*Skv*Hkv*hd]
+    part = (torch.empty((2, splits, k.numel()), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     lib = _library()
     dtype = _DTYPES[q.dtype]
     window_, cap, scale = window or 0, float(logit_cap or 0.0), float(hd ** -0.5)
@@ -101,10 +173,18 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 dout.data_ptr(), lse.data_ptr(),
                                 delta.data_ptr(), q_positions.data_ptr(),
                                 kv_positions.data_ptr(), dk.data_ptr(),
-                                dv.data_ptr(), B, Sq, Skv, Hq, Hkv, hd, dtype,
-                                int(causal), window_, cap, scale, stream)
+                                dv.data_ptr(),
+                                None if part is None else part.data_ptr(),
+                                B, Sq, Skv, Hq, Hkv, hd, dtype, int(causal),
+                                window_, splits, cap, scale, stream)
         build.check_launch("flash_bwd dkdv", rc)
         kernel_launches["dkdv"] += 1
+        if part is not None:
+            rc = lib.flash_bwd_reduce(part.data_ptr(), dk.data_ptr(),
+                                      dv.data_ptr(), k.numel(), splits, dtype,
+                                      stream)
+            build.check_launch("flash_bwd reduce", rc)
+            kernel_launches["reduce"] += 1
         rc = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                               q_positions.data_ptr(), kv_positions.data_ptr(),

@@ -87,25 +87,13 @@ def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(q.shape).to(q.dtype).contiguous(), lse.contiguous()
 
 
-def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    logit_cap: Optional[float] = None,
-                    q_positions: torch.Tensor, kv_positions: torch.Tensor,
-                    q_chunk: int = 512, kv_chunk: int = 1024
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The flash backward, chunked as ``_flash_bwd_impl`` of the JAX package
-    (``src/repro/models/attention.py:163-260``): (dq, dk, dv) in the dtypes
-    of (q, k, v) from the forward's inputs, its out, its lse [B,Hkv,G,Sq]
-    and dout.
-
-    delta = rowsum(dout * out) from the stored out; per (kv chunk, q chunk)
-    block, p = exp(s - lse) where valid, else 0 (so a row with no valid key
-    gets no gradient); dv += pᵀ dout; ds = p (dp - delta) times the softcap
-    derivative 1 - t² and the scale; dq += ds k; dk += dsᵀ q. All sums in
-    fp32; GQA grads summed over the group. Padded query positions are
-    -10⁹, padded key positions -1, as the reference pads them.
-    """
+def _flash_bwd_blocks(q, k, v, out, lse, dout, causal, window, logit_cap,
+                      q_positions, kv_positions, q_chunk, kv_chunk):
+    """The (kv chunk, q chunk) blocks of ``_flash_bwd_impl``, padded as the
+    reference pads: yields (qs, ks, qc, doc, kc, vc, p, ds) per block, the
+    slices into the padded rows and keys, the blocks' fp32 inputs and their
+    p and ds [B, Hkv, G, q_chunk, kv_chunk]. The padded shapes come first,
+    as (B, Sqp, Skvp, Hkv, G)."""
     B, Sq, Hq, hd = q.shape
     _, Skv, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -131,8 +119,7 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = torch.einsum("bshd,bshd->bhs", doutf, outf).reshape(B, Hkv, G, Sqp)
     qg = qf.reshape(B, Sqp, Hkv, G, hd)
     dog = doutf.reshape(B, Sqp, Hkv, G, hd)
-    dq = torch.zeros_like(qg)
-    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    yield B, Sqp, Skv + pad_k, Hkv, G
     for j in range(nk):
         ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
         kc, vc, kpos = kf[:, ks], vf[:, ks], kp[ks]
@@ -151,16 +138,85 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if window is not None:
                 valid = valid & (dpos < window)
             p = torch.where(valid, torch.exp(s - lsef[..., qs, None]), 0.0)
-            dv[:, ks] += torch.einsum("bhgqk,bqhgd->bkhd", p, doc)
             dp = torch.einsum("bqhgd,bkhd->bhgqk", doc, vc)
             ds = p * (dp - delta[..., qs, None])
             if logit_cap is not None:
                 ds = ds * u_grad
             ds = ds * scale
-            dq[:, qs] += torch.einsum("bhgqk,bkhd->bqhgd", ds, kc)
-            dk[:, ks] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qc)
-    return (dq.reshape(B, Sqp, Hq, hd)[:, :Sq].to(q.dtype),
+            yield qs, ks, qc, doc, kc, vc, p, ds
+
+
+def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    logit_cap: Optional[float] = None,
+                    q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                    q_chunk: int = 512, kv_chunk: int = 1024
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash backward, chunked as ``_flash_bwd_impl`` of the JAX package
+    (``src/repro/models/attention.py:163-260``): (dq, dk, dv) in the dtypes
+    of (q, k, v) from the forward's inputs, its out, its lse [B,Hkv,G,Sq]
+    and dout.
+
+    delta = rowsum(dout * out) from the stored out; per (kv chunk, q chunk)
+    block, p = exp(s - lse) where valid, else 0 (so a row with no valid key
+    gets no gradient); dv += pᵀ dout; ds = p (dp - delta) times the softcap
+    derivative 1 - t² and the scale; dq += ds k; dk += dsᵀ q. All sums in
+    fp32; GQA grads summed over the group. Padded query positions are
+    -10⁹, padded key positions -1, as the reference pads them.
+    """
+    blocks = _flash_bwd_blocks(q, k, v, out, lse, dout, causal, window,
+                               logit_cap, q_positions, kv_positions, q_chunk,
+                               kv_chunk)
+    B, Sqp, Skvp, Hkv, G = next(blocks)
+    hd = q.shape[-1]
+    dq = q.new_zeros((B, Sqp, Hkv, G, hd), dtype=torch.float32)
+    dk = k.new_zeros((B, Skvp, Hkv, hd), dtype=torch.float32)
+    dv = torch.zeros_like(dk)
+    for qs, ks, qc, doc, kc, vc, p, ds in blocks:
+        dv[:, ks] += torch.einsum("bhgqk,bqhgd->bkhd", p, doc)
+        dq[:, qs] += torch.einsum("bhgqk,bkhd->bqhgd", ds, kc)
+        dk[:, ks] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qc)
+    Sq, Skv = q.shape[1], k.shape[1]
+    return (dq.reshape(B, Sqp, Hkv * G, hd)[:, :Sq].to(q.dtype),
             dk[:, :Skv].to(k.dtype), dv[:, :Skv].to(v.dtype))
+
+
+# The bf16 body of K1b rounds p and ds to bf16 (8 significant bits: each
+# moves by at most 2^-8 of itself) before dv = pᵀ dout, dk = dsᵀ q and
+# dq = ds k; the plain version keeps them fp32.
+BF16_ROUND = 2.0 ** -8
+
+
+def flash_bwd_rounding_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True, window: Optional[int] = None,
+                             logit_cap: Optional[float] = None,
+                             q_positions: torch.Tensor,
+                             kv_positions: torch.Tensor,
+                             q_chunk: int = 512, kv_chunk: int = 1024
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """How far rounding p and ds to bf16 can move K1b's bf16 gradients from
+    :func:`flash_bwd_plain`'s, fp32 (dq, dk, dv)-shaped: BF16_ROUND times
+    |ds| |k|, |ds|ᵀ |q| and |p|ᵀ |dout|, from the same p and ds. For the
+    checks' bf16 limit; the main path never calls it."""
+    blocks = _flash_bwd_blocks(q, k, v, out, lse, dout, causal, window,
+                               logit_cap, q_positions, kv_positions, q_chunk,
+                               kv_chunk)
+    B, Sqp, Skvp, Hkv, G = next(blocks)
+    hd = q.shape[-1]
+    eq = q.new_zeros((B, Sqp, Hkv, G, hd), dtype=torch.float32)
+    ek = k.new_zeros((B, Skvp, Hkv, hd), dtype=torch.float32)
+    ev = torch.zeros_like(ek)
+    for qs, ks, qc, doc, kc, vc, p, ds in blocks:
+        ds = ds.abs()
+        ev[:, ks] += torch.einsum("bhgqk,bqhgd->bkhd", p, doc.abs())
+        eq[:, qs] += torch.einsum("bhgqk,bkhd->bqhgd", ds, kc.abs())
+        ek[:, ks] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qc.abs())
+    Sq, Skv = q.shape[1], k.shape[1]
+    return (BF16_ROUND * eq.reshape(B, Sqp, Hkv * G, hd)[:, :Sq],
+            BF16_ROUND * ek[:, :Skv], BF16_ROUND * ev[:, :Skv])
 
 
 def attention_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

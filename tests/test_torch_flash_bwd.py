@@ -12,6 +12,12 @@ compute in fp32 and round each gradient to bf16 once, so one bf16 ulp
 (2**-7 of |want|) more. The Function's gradients against ``jax.grad`` of
 the unchunked oracle: 5e-5, as ``tests/test_models.py`` holds the
 reference's own custom VJP.
+
+K1b's bf16 body rounds p and ds to bf16 before the products that take them
+(dv = pᵀ dout, dk = dsᵀ q, dq = ds k); the card's checks add
+``ref.flash_bwd_rounding_plain`` (2^-8 of |p|ᵀ|dout|, |ds|ᵀ|q|, |ds||k|)
+to their bf16 limit (atol 1e-4, rtol 2^-6). An emulation of that arithmetic
+in torch is held here against ``_flash_bwd_impl`` within the same limit.
 """
 import jax
 import jax.numpy as jnp
@@ -21,8 +27,12 @@ import torch
 
 from repro.models.attention import (_flash_bwd_impl, _flash_fwd_impl,
                                     attention_reference, flash_attention_jnp)
+from repro_torch.kernels import flash_bwd as fb
 from repro_torch.kernels import ops, ref
 from repro_torch.models.attention import FlashAttention, flash_attention
+
+# the SMs of an H100, the card the plan's splits are set for
+H100_SMS = 132
 
 # (B, Sq, Hq, Hkv, hd, causal, window, cap, empty, q_chunk, kv_chunk)
 CASES = [
@@ -191,3 +201,130 @@ def test_ops_training_halves_dispatch_to_the_plain_versions_on_the_cpu():
                              kw["kv_positions"], True, 24, 30.0, False)
     o.sum().backward()
     assert tq.grad is not None and kw["q_positions"].grad is None
+
+
+def _kernel_bf16_arithmetic(q, k, v, out, lse, dout, *, causal, window,
+                            logit_cap, q_positions, kv_positions):
+    """K1b's bf16 body in torch: s, dp, p and ds in fp32 from the bf16
+    inputs, p and ds rounded to bf16 before dv = pᵀ dout, dk = dsᵀ q and
+    dq = ds k, those summed in fp32 and each rounded to bf16 once."""
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    qg = q.float().reshape(B, Sq, Hkv, G, hd)
+    dog = dout.float().reshape(B, Sq, Hkv, G, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * hd ** -0.5
+    ug = torch.ones_like(s)
+    if logit_cap is not None:
+        t = torch.tanh(s / logit_cap)
+        ug, s = 1.0 - t * t, logit_cap * t
+    dpos = q_positions[:, None].long() - kv_positions[None, :].long()
+    valid = (kv_positions[None, :] >= 0).expand(dpos.shape)
+    if causal:
+        valid = valid & (dpos >= 0)
+    if window is not None:
+        valid = valid & (dpos < window)
+    p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+    delta = (dout.float() * out.float()).sum(-1).reshape(
+        B, Sq, Hkv, G).permute(0, 2, 3, 1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    ds = p * (dp - delta[..., None]) * ug * hd ** -0.5
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", pb, dog)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", dsb, qg)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", dsb, k.float()).reshape(q.shape)
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_kernel_bf16_arithmetic_within_the_bf16_limit_of_flash_bwd_impl(case):
+    """The bf16 limit of the card's checks, atol 1e-4 + rtol 2^-6 |want| +
+    ref.flash_bwd_rounding_plain, covers rounding p and ds to bf16, and
+    the limit without the term does not."""
+    _, _, _, _, _, causal, window, cap, _, qc, kc = case
+    q, k, v, dout, qp, kp = _inputs(case, seed=6)
+    jq, jk, jv, jd = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, dout))
+    out_j, lse_j = _flash_fwd_impl(jq, jk, jv, jnp.asarray(qp),
+                                   jnp.asarray(kp), causal, window, cap, qc,
+                                   kc)
+    want = _flash_bwd_impl(jq, jk, jv, jnp.asarray(qp), jnp.asarray(kp),
+                           out_j, lse_j, jd, causal, window, cap, qc, kc)
+    tq, tk, tv, td, tout = (torch.from_numpy(np.array(a.astype(jnp.float32)))
+                            .bfloat16() for a in (jq, jk, jv, jd, out_j))
+    tlse = torch.from_numpy(np.array(lse_j))
+    kw = _kw(case, qp, kp)
+    got = _kernel_bf16_arithmetic(tq, tk, tv, tout, tlse, td, **kw)
+    terms = ref.flash_bwd_rounding_plain(tq, tk, tv, tout, tlse, td, **kw)
+    beyond_old_limit = False
+    for name, g, w, term in zip(("dq", "dk", "dv"), got, want, terms):
+        w = torch.from_numpy(np.array(w.astype(jnp.float32)))
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert term.shape == w.shape and bool((term >= 0).all())
+        err = (g.float() - w).abs()
+        limit = 1e-4 + 2.0 ** -6 * w.abs() + term
+        assert bool((err <= limit).all()), (
+            f"{name}: worst excess {float((err - limit).max())}")
+        beyond_old_limit |= bool((err > limit - term).any())
+    assert beyond_old_limit
+
+
+def test_rounding_term_is_the_bf16_unit_times_the_absolute_products():
+    case = CASES[4]
+    q, k, v, dout, qp, kp = _inputs(case, seed=7)
+    kw = _kw(case, qp, kp)
+    t = [torch.from_numpy(a) for a in (q, k, v, dout)]
+    out, lse = ref.attention_lse_plain(*t[:3], **kw)
+    terms = ref.flash_bwd_rounding_plain(*t[:3], out, lse, t[3], **kw)
+    # with |q|, |k|, |dout| and an out that makes delta 0, every term of the
+    # sums is non-negative: the plain backward of those inputs gives the same
+    # sums for dv (p >= 0); ds = p dp (1 - t²) scale >= 0 needs dp >= 0
+    a = [x.abs() for x in t]
+    out0 = torch.zeros_like(out)
+    _, lse_a = ref.attention_lse_plain(*a[:3], **kw)
+    gq, gk, gv = ref.flash_bwd_plain(*a[:3], out0, lse_a, a[3], **kw)
+    eq, ek, ev = ref.flash_bwd_rounding_plain(*a[:3], out0, lse_a, a[3], **kw)
+    for g, e in ((gq, eq), (gk, ek), (gv, ev)):
+        torch.testing.assert_close(e, ref.BF16_ROUND * g, rtol=1e-6, atol=0)
+    assert all(x.dtype == torch.float32 for x in terms)
+
+
+@pytest.mark.parametrize("shape,dtype,splits", [
+    ((4, 2048, 2048, 32, 8, 128), torch.bfloat16, 1),   # qwen3-4b training
+    ((4, 2048, 2048, 32, 8, 128), torch.float32, 1),
+    ((4, 1024, 1024, 32, 8, 128), torch.bfloat16, 1),   # 512 CTAs
+    ((2, 1024, 1024, 32, 8, 128), torch.bfloat16, 2),   # 256: just short
+    ((1, 2100, 2100, 16, 1, 256), torch.bfloat16, 8),   # MQA, hd 256
+    ((1, 2100, 2100, 16, 1, 256), torch.float32, 4),
+    ((1, 320, 320, 28, 4, 128), torch.bfloat16, 14),    # qwen2-7b, G 7
+    ((2, 256, 256, 24, 8, 128), torch.bfloat16, 5),     # phi4-mini, G 3
+    ((2, 256, 256, 24, 8, 128), torch.float32, 5),
+    ((1, 64, 64, 4, 4, 32), torch.bfloat16, 2),         # one split a block
+], ids=str)
+def test_plan_splits_the_dkdv_grid_below_two_waves(shape, dtype, splits):
+    B, Sq, Skv, Hq, Hkv, hd = shape
+    got = fb.plan(B, Sq, Skv, Hq, Hkv, hd, dtype, sms=H100_SMS)
+    keys = 32 if dtype == torch.float32 and hd > 128 else 64
+    assert got.keys_per_cta == keys and got.rows_per_block == 32
+    assert got.dkdv_ctas == -(-Skv // keys) * Hkv * B
+    assert got.splits == splits
+    blocks = -(-Sq * (Hq // Hkv) // 32)
+    want_ctas = fb.MIN_WAVES * H100_SMS
+    if got.dkdv_ctas >= want_ctas:
+        assert got.splits == 1
+    else:   # the fewest splits that reach two waves, or one per row block
+        assert got.splits == blocks or (
+            got.dkdv_ctas * got.splits >= want_ctas
+            > got.dkdv_ctas * (got.splits - 1))
+
+
+def test_wrapper_counts_a_reduce_pass_and_refuses_the_cpu():
+    assert set(fb.kernel_launches) == {"delta", "dkdv", "dq", "reduce"}
+    case = CASES[0]
+    q, k, v, dout, qp, kp = _inputs(case)
+    t = [torch.from_numpy(a) for a in (q, k, v, dout)]
+    kw = _kw(case, qp, kp)
+    out, lse = ref.attention_lse_plain(*t[:3], **kw)
+    before = (fb.launches, dict(fb.kernel_launches))
+    with pytest.raises(ValueError, match="CUDA"):
+        fb.flash_bwd(*t[:3], out, lse, t[3], **kw)
+    assert (fb.launches, fb.kernel_launches) == before

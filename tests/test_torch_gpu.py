@@ -435,10 +435,14 @@ def test_recurrent_decode_matches_prefill_on_the_card(cuda, arch, groups):
 # log2-scaled scores): the fp32 limit, atol = rtol = 5e-5, in both dtypes,
 # on rows with a valid key (a row with none gets -inf from the kernel and
 # MASK_VALUE + log(Skv) from the plain version; the backward masks it).
-# K1b and flash_bwd_plain take the same out, lse and dout and both sum in
-# fp32 (K1b does not round P to bf16), so the forward's limits hold: fp32
-# atol = rtol = 5e-5; bf16 atol 1e-4, rtol 2**-6 (two bf16 ulps of each
-# gradient, which both sides round to bf16 once).
+# K1b and flash_bwd_plain take the same out, lse and dout and sum in fp32:
+# fp32 atol = rtol = 5e-5 (3xTF32 products, another order). In bf16 both
+# round each gradient to bf16 once (atol 1e-4, rtol 2**-6: two bf16 ulps),
+# and K1b's tensor-core body also rounds p and ds to bf16 before the
+# products that take them, as the forward rounds P: each moves by at most
+# 2**-8 of itself, so a gradient moves by at most 2**-8 of |p|ᵀ|dout| (dv),
+# |ds|ᵀ|q| (dk) or |ds||k| (dq), which ref.flash_bwd_rounding_plain
+# computes and the bf16 limit adds.
 LSE_TOL = (5e-5, 5e-5)
 
 # (B, Sq, Skv, Hq, Hkv, hd, causal, window, cap, empty kv slots)
@@ -454,6 +458,11 @@ BWD_CASES = [
     (2, 300, 300, 16, 1, 128, True, None, None, True),
     (1, 2100, 2100, 16, 1, 256, True, 2048, None, False),
     (2, 512, 512, 32, 8, 128, True, None, None, False),
+    # odd groups: a 16-row fragment straddles query positions
+    (1, 320, 320, 28, 4, 128, True, None, None, False),   # qwen2-7b, G 7
+    (2, 256, 256, 24, 8, 128, True, None, None, True),    # phi4-mini, G 3
+    # 512 dk/dv CTAs, two waves: the plan does not split (no reduce pass)
+    (4, 1024, 1024, 32, 8, 128, True, None, None, False),
 ]
 
 
@@ -472,9 +481,11 @@ def _bwd_inputs(case, dt, dev, seed=50):
     return q, k, v, dout, kw
 
 
-def _assert_close_elementwise(got, want, atol, rtol, what):
+def _assert_close_elementwise(got, want, atol, rtol, what, extra=None):
     err = (got.float() - want.float()).abs()
     limit = atol + rtol * want.float().abs()
+    if extra is not None:
+        limit = limit + extra
     assert got.dtype == want.dtype and got.shape == want.shape, what
     assert bool((err <= limit).all()), (
         f"{what}: max abs err {float(err.max())}, worst excess "
@@ -498,20 +509,31 @@ def test_flash_fwd_lse_matches_plain(cuda, case, dtype):
     assert bool(torch.isneginf(lse[~seen]).all())
 
 
+def _assert_bwd_close(got, q, k, v, out, lse, dout, kw, dtype):
+    """K1b's (dq, dk, dv) against flash_bwd_plain within the limits above."""
+    dt, (atol, rtol) = DTYPES[dtype]
+    want = ref.flash_bwd_plain(q, k, v, out, lse, dout, **kw)
+    extra = (ref.flash_bwd_rounding_plain(q, k, v, out, lse, dout, **kw)
+             if dt == torch.bfloat16 else (None,) * 3)
+    for name, g, w, e in zip(("dq", "dk", "dv"), got, want, extra):
+        _assert_close_elementwise(g, w, atol, rtol, name, e)
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("case", BWD_CASES, ids=str)
 def test_flash_bwd_matches_plain(cuda, case, dtype):
-    dt, (atol, rtol) = DTYPES[dtype]
+    dt = DTYPES[dtype][0]
     q, k, v, dout, kw = _bwd_inputs(case, dt, cuda)
     out, lse = ref.attention_lse_plain(q, k, v, **kw)
-    want = ref.flash_bwd_plain(q, k, v, out, lse, dout, **kw)
     before = dict(fb.kernel_launches)
     got = fb.flash_bwd(q, k, v, out, lse, dout, **kw)
     torch.cuda.synchronize()
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        _assert_close_elementwise(g, w, atol, rtol, name)
+    _assert_bwd_close(got, q, k, v, out, lse, dout, kw, dtype)
+    B, Sq, Skv, Hq, Hkv, hd = case[:6]
+    split = fb.plan(B, Sq, Skv, Hq, Hkv, hd, dt,
+                    sms=fb.device_sms(q.device)).splits > 1
     assert {n: fb.kernel_launches[n] - before[n] for n in before} == {
-        "delta": 1, "dkdv": 1, "dq": 1}
+        "delta": 1, "dkdv": 1, "dq": 1, "reduce": int(split)}
     # no atomics: a second run gives the same bits
     again = fb.flash_bwd(q, k, v, out, lse, dout, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -543,6 +565,16 @@ def test_flash_bwd_rejects_what_it_cannot_take(cuda):
         with pytest.raises(ValueError):
             fb.flash_bwd(**args, **kw)
     assert fb.launches == before
+
+
+def test_flash_bwd_plan_tiles_as_the_library(cuda, monkeypatch):
+    """flash_bwd.plan splits by the library's own dk/dv tiles, and a library
+    that tiles otherwise is refused at load."""
+    lib = fb._library()
+    fb._check_tiles(lib)
+    monkeypatch.setattr(fb, "dkdv_tiles", lambda hd, dtype: (128, 32))
+    with pytest.raises(RuntimeError, match="tiles dk/dv"):
+        fb._check_tiles(lib)
 
 
 @pytest.mark.parametrize("remat", [False, True])

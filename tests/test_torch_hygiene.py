@@ -1,6 +1,7 @@
 """The port stands alone: no module of src/repro_torch/ and no line of
-chip_smoke.py imports JAX or anything of the JAX package, and the entry
-points run on the card unless the CPU is asked for."""
+its scripts (chip_smoke.py, scan_phases.py) imports JAX or anything of
+the JAX package, and the entry points run on the card unless the CPU is
+asked for."""
 import ast
 import pathlib
 
@@ -9,6 +10,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+SCRIPTS = [ROOT / name for name in ("chip_smoke.py", "scan_phases.py")]
 
 
 def _forbidden(name: str) -> bool:
@@ -29,7 +31,7 @@ def _imports(path: pathlib.Path):
             yield node.lineno, str(node.args[0].value)
 
 
-@pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", PORT_FILES + SCRIPTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [(line, name) for line, name in _imports(path) if _forbidden(name)]
