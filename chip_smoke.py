@@ -6,7 +6,8 @@
 Phases; each one that fails raises, and the process exits non-zero:
 
 1. The card: nvidia-smi's name and power limit, torch's device name. TF32
-   is switched off, so fp32 matrix products are full fp32.
+   is switched off, so fp32 matrix products are full fp32. The caching
+   allocator takes expandable segments (training fragments it otherwise).
 2. Build the kernels with nvcc from the checkout's sources, one nvcc per
    source, all started together; print the seconds and ``-Xptxas -v``;
    count the HMMA (tensor-core) instructions of K1b's dk/dv and dq kernels
@@ -17,45 +18,63 @@ Phases; each one that fails raises, and the process exits non-zero:
    version, a library call where one computes the same function (never
    called by the port) and the bound computed from the inputs:
    K1 as flash_fwd (more than one query position) at tests/test_kernels.py's
-   FLASH_CASES shapes and the prefills of qwen3-4b and recurrentgemma-9b
-   (hd 256, MQA 16/1, window 2048), and as flash_decode (one query position,
-   split over the keys) at their ring decodes, a half-empty ring and a ring
-   where every split but one is empty; K2 (rglru_scan) at RGLRU_CASES shapes,
-   a ragged chunked shape and recurrentgemma's prefill and decode; K3
-   (wkv6_scan) at RWKV_CASES shapes, a ragged chunked shape, rwkv6-3b's
-   prefill and decode; each scan case through both bodies (sequential and
-   chunked, the plan's choice and the other), against the sequential plain
-   version; and state chaining for both scans.
-4. Each model at full width and reduced depth (qwen3-4b and rwkv6-3b 2
-   layers, recurrentgemma-9b one (rec, rec, local) group with a prompt past
-   its window): in fp32, decode matches a longer prefill; in bf16, the
-   kernel path matches the all-plain path with the same weights.
-5. Serve each model at full depth (bf16 weights and compute, weights from a
-   seeded torch.Generator) through ``Server``, two synchronised waves of
-   16 requests (see SERVES). Every launch counter is set to 0 just before
-   the run and read just after: each kernel must have launched exactly
-   (its layers) x (its calls) times: flash_fwd once a request (prefill),
-   flash_decode once a decode step, the scans once each, the prefills
-   through the scans' chunked bodies and the decode steps through their
-   sequential bodies (each body counts its own launches). The first tokens must
-   equal a direct prefill's; a torch.profiler trace shows where a prefill's
-   and a decode step's time goes. Each model is freed before the next.
-6. Train qwen3-4b at full width, depth 8 (see TRAIN): K1 with its LSE
-   against the plain LSE; K1b (flash_bwd: delta, dkdv, dq, and reduce where
-   its plan splits the dk/dv grid) against flash_bwd_plain in fp32 and bf16
-   (causal, GQA 32/8, 28/4 and 24/8, MQA 16/1, softcap 50, window 2048 at
-   hd 256, empty kv slots), two runs bit for bit, timed beside the plain
-   version, SDPA forward + backward and the bound; one
-   microbatch of [1, 512] through loss_fn and the backward on the kernel
-   path and on the plain path from the same fp32 parameters (bf16 compute,
-   remat on), the loss and every leaf's gradient compared; then the
+   FLASH_CASES shapes and the prefill of every served arch and attention
+   kind, and as flash_decode (one query position, split over the keys) at
+   their ring decodes (see serve_attention_cases), a wrapped ring with empty
+   slots, a half-empty ring and a ring where every split but one is empty;
+   K2 (rglru_scan) at RGLRU_CASES shapes, a ragged
+   chunked shape and recurrentgemma's prefill and decode; K3 (wkv6_scan) at
+   RWKV_CASES shapes, a ragged chunked shape, rwkv6-3b's prefill and decode;
+   each scan case through both bodies (sequential and chunked, the plan's
+   choice and the other), against the sequential plain version; state
+   chaining for both scans; the scans' backwards K2b (rglru_bwd) and K3b
+   (wkv6_bwd) at a ragged shape and at the training shapes of phase 6,
+   against their plain versions, two runs bit for bit.
+4. Each served arch at full width and reduced depth (see MODEL_CHECKS: 2
+   layers, recurrentgemma-9b one (rec, rec, local) group and gemma2-2b one
+   (local, attn) group, each with prompts past its window): in fp32, decode
+   matches a longer prefill; in bf16, the kernel path matches the all-plain
+   path with the same weights.
+5. Serve each model (see SERVES: the seven archs, chameleon-34b at 32 of
+   its 48 layers, the others at full depth; bf16 weights and compute,
+   weights from a seeded torch.Generator) through ``Server``, two
+   synchronised waves of 16 requests. Every launch counter is set to 0 just
+   before the run and read just after: each kernel must have launched
+   exactly (its layers) x (its calls) times: flash_fwd once a request
+   (prefill), flash_decode once a decode step, the scans once each, the
+   prefills through the scans' chunked bodies and the decode steps through
+   their sequential bodies (each body counts its own launches), no
+   backward. The first tokens must equal a direct prefill's; a
+   torch.profiler trace shows where a prefill's and a decode step's time
+   goes. Each model is freed before the next.
+6. Training. K1 with its LSE against the plain LSE; K1b (flash_bwd: delta,
+   dkdv, dq, and reduce where its plan splits the dk/dv grid) against
+   flash_bwd_plain in fp32 and bf16 (causal, GQA 32/8, 28/4 and 24/8, MQA
+   16/1, softcap 50, window 2048 at hd 256, gemma2-2b's 8/4 at hd 256 with
+   window 4096 and softcap 50, empty kv slots), two runs bit for bit, timed
+   beside the plain version, SDPA forward + backward and the bound. Then
+   qwen3-4b at full width, depth 8 (see TRAIN): one microbatch of [1, 512]
+   through loss_fn and the backward on the kernel path and on the plain path
+   from the same fp32 parameters (bf16 compute, remat on), the loss and
+   every leaf's gradient compared, with exact launch counts; then the
    ``Trainer`` of launch/train.py takes 6 steps of 4 x 2048 tokens, each
    committed through the transactional store, with exact launch counts
    (flash_fwd and each kernel of flash_bwd once a layer and step), finite
-   loss and grad_norm, step ms, tokens/s, peak memory and a profiled step's
-   idle share; finally a crash at step 13 of the reduced qwen3-4b and its
-   restart from the step-8 checkpoint match an uninterrupted run.
-7. Print the kernels line, the card line and the result line.
+   and falling loss, step ms, tokens/s, peak memory and a profiled step's
+   idle share. The same gradient check for gemma2-2b at depth 2 (one
+   (local, attn) group) past its window, and for recurrentgemma-9b (one
+   (rec, rec, local) group) and rwkv6-3b (8 layers in fp32 compute and 2 in
+   bf16; at 8 layers its two bf16 paths against the fp32 plain path, see
+   bf16_witness), which then take 6
+   ``Trainer`` steps each with remat on (see OTHER_TRAIN): exact launches
+   of rglru_scan (twice a rec layer and step) and rglru_bwd, wkv6_scan and
+   wkv6_bwd, K1 and K1b in recurrentgemma's local layer, a falling loss,
+   step ms, tokens/s, peak memory, a profiled step. Finally a crash at step
+   13 of the reduced qwen3-4b and its restart from the step-8 checkpoint
+   match an uninterrupted run.
+7. Print the kernels line (seven kernels: flash_fwd, flash_decode,
+   rglru_scan, wkv6_scan, flash_bwd, rglru_bwd, wkv6_bwd), the card line
+   and the result line.
 
 It exits 2 without a CUDA device, and fails where the repo's sources are
 absent.
@@ -63,6 +82,7 @@ absent.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -70,8 +90,15 @@ import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+# Expandable segments, set before torch first allocates on the card:
+# training's large tensors of many sizes (vocab logits of 2.6-5.2 GB, a
+# 4.2 GB fp32 embedding with its AdamW state) otherwise fragment the caching
+# allocator until recurrentgemma-9b's training runs out of memory with a
+# quarter of the card reserved but unallocated.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 import torch.nn.functional as F
 
 SEED = 0
@@ -118,8 +145,42 @@ LSE_TOL = 5e-5
 # sums of many terms of both signs).
 TRAIN_LOSS_RTOL = 2.0 ** -6
 TRAIN_GRAD_RTOL = 2.0 ** -4
+# rwkv6-3b's check at its 8 training layers runs in fp32 compute: the loss
+# within 1e-5 of itself, each leaf within 2**-10 of its norm (the two paths
+# sum in other orders). In bf16 compute the two paths' gradients are far
+# apart at 8 layers at random init, so its bf16 check runs at 2 layers
+# (TRAIN_GRAD_RTOL), and bf16_witness holds both bf16 paths at 8 layers
+# against the fp32 plain path: the kernel path's worst leaf may stand no
+# further from it than WITNESS_RATIO times the plain path's, and each
+# path's loss within TRAIN_LOSS_RTOL of the reference's.
+TRAIN_FP32_LOSS_RTOL = 1e-5
+TRAIN_FP32_GRAD_RTOL = 2.0 ** -10
+WITNESS_RATIO = 1.5
 TRAIN_RESTART_RTOL = 1e-4  # the embedding's backward uses atomics on the card
 TRAIN = dict(depth=8, batch=4, seq=2048, steps=6, grad_seq=512)
+# The other models' training at full width (phase 6), bf16 compute, fp32
+# parameters and AdamW state: gemma2-2b's gradient check at depth 2, past its
+# 4096-token window; recurrentgemma-9b one (rec, rec, local) group, 2 x 2560
+# tokens (its 2048 window masks); rwkv6-3b 8 layers, 4 x 2048 tokens. Remat
+# on for the recurrent models, so each scan's forward runs twice a layer
+# and step.
+OTHER_TRAIN = {
+    "gemma2-2b": dict(groups=((("local", "attn"), 1),), grad_seq=4200),
+    "recurrentgemma-9b": dict(groups=((("rec", "rec", "local"), 1),), batch=2,
+                              seq=2560, steps=6, grad_seq=512, remat=True),
+    "rwkv6-3b": dict(groups=((("rwkv",), 8),), batch=4, seq=2048, steps=6,
+                     grad_seq=256, remat=True, grad_dtype=torch.float32,
+                     bf16_groups=((("rwkv",), 2),)),
+}
+# K2b and K3b against their plain versions: both compute in fp32 from the
+# same inputs, so each gradient is held within SCAN_BWD_TOL of itself plus
+# SCAN_BWD_TOL of its tensor's largest entry (an entry is a sum of terms up
+# to that size): 1e-5 for K2b (the plain version's operations in its order;
+# only expf, log1pf, sqrtf and the sigmoid round otherwise), 2e-4 for K3b
+# (its sums of 64 products in another order). A bf16 gradient is rounded to
+# bf16 once by both, which adds two bf16 ulps of itself.
+SCAN_BWD_TOL = {"rglru_bwd": 1e-5, "wkv6_bwd": 2e-4}
+BF16_GRAD_RTOL = 2.0 ** -6
 # K1b cases: (name, B, S, Hq, Hkv, hd, causal, window, cap, empty kv slots)
 BWD_CASES = [
     ("gqa_32_8", 1, 512, 32, 8, 128, True, None, None, False),
@@ -129,6 +190,8 @@ BWD_CASES = [
     # odd groups: a 16-row fragment straddles query positions
     ("gqa_28_4_qwen2", 1, 320, 28, 4, 128, True, None, None, False),
     ("gqa_24_8_phi4", 2, 256, 24, 8, 128, True, None, None, True),
+    # gemma2-2b: 8/4 at hd 256, window 4096 and softcap 50, past the window
+    ("gemma2_window_softcap", 1, 4200, 8, 4, 256, True, 4096, 50.0, False),
     ("qwen3_train", TRAIN["batch"], TRAIN["seq"], 32, 8, 128, True, None,
      None, False),
 ]
@@ -145,13 +208,24 @@ FLASH_SHAPES = [
     (2, 64, 64, 4, 2, 32, True, None, None),
 ]
 # Serving runs: two synchronised waves of `requests / slots` requests each.
-# recurrentgemma's prompt is longer than its 2048-token window, so its local
-# ring wraps in prefill and in decode.
+# recurrentgemma's and gemma2's prompts are longer than their 2048- and
+# 4096-token windows, so their local rings wrap in prefill and in decode.
+# chameleon-34b serves 32 of its 48 layers: 0.69 B parameters a layer, so 48
+# layers and the embeddings are 68.6 GB in bf16, which leaves no room on an
+# 80 GB card for the init's fp32 draw of a stacked leaf, the cache and the
+# activations; 32 layers are 46.4 GB (PERF.md, section 4).
 SERVES = {
     "qwen3-4b": dict(slots=8, ctx=1024, requests=16, prompt_len=512, max_new=32),
     "recurrentgemma-9b": dict(slots=8, ctx=4096, requests=16, prompt_len=2560,
                               max_new=32),
     "rwkv6-3b": dict(slots=8, ctx=1024, requests=16, prompt_len=512, max_new=32),
+    "gemma2-2b": dict(slots=8, ctx=4608, requests=16, prompt_len=4200,
+                      max_new=32),
+    "qwen2-7b": dict(slots=8, ctx=1024, requests=16, prompt_len=512, max_new=32),
+    "phi4-mini-3.8b": dict(slots=8, ctx=1024, requests=16, prompt_len=512,
+                           max_new=32),
+    "chameleon-34b": dict(slots=8, ctx=1024, requests=16, prompt_len=512,
+                          max_new=32, depth=32),
 }
 SERVE = SERVES["qwen3-4b"]
 RG = SERVES["recurrentgemma-9b"]
@@ -167,6 +241,14 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def free_memory() -> None:
+    """Give a finished phase's tensors back to the card: reference cycles
+    (the trainer's, autograd's) hold tensors until Python's cyclic collector
+    runs, and a later phase's peak memory would count them."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -309,38 +391,72 @@ def _ring(C, first, last):
     return ring
 
 
+# short names of the served archs in the kernel rows
+TAGS = {"qwen3-4b": "qwen3", "recurrentgemma-9b": "rgemma", "rwkv6-3b": "rwkv6",
+        "gemma2-2b": "gemma2", "qwen2-7b": "qwen2", "phi4-mini-3.8b": "phi4",
+        "chameleon-34b": "chameleon"}
+
+
+def serve_attention_cases():
+    """K1's calls as phase 5 makes them, for each served arch and each of its
+    attention kinds (gemma2-2b's local and global layers): the prefill of one
+    request, flash_fwd at [1, prompt_len]; the last decode step of a wave,
+    flash_decode over all slots against the layer's ring (ctx slots, or the
+    window's for a local layer, as Backbone.cache_len sizes it) holding the
+    positions that step sees. Each case is the arguments of kernel_case after
+    the dtype, with its q and kv positions."""
+    from repro_torch.models import get_config
+
+    cases = []
+    for arch, spec in SERVES.items():
+        cfg = get_config(arch)
+        kinds = [k for k in ("local", "attn") if k in cfg.layer_kinds()]
+        P, ctx = spec["prompt_len"], spec["ctx"]
+        last = P + spec["max_new"] - 2
+        for kind in kinds:
+            tag = TAGS[arch] + ("" if len(kinds) == 1 else
+                                "_global" if kind == "attn" else "_local")
+            window = cfg.attn_window if kind == "local" else None
+            C = min(window or ctx, ctx)
+            heads = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+            cap = cfg.attn_logit_softcap
+            cases.append((f"{tag}_prefill", "flash_fwd", 1, P, P, *heads, True,
+                          window, cap, None, None))
+            cases.append((f"{tag}_decode", "flash_decode", spec["slots"], 1, C,
+                          *heads, True, window, cap, [last],
+                          _ring(C, max(0, last - C + 1), last)))
+    return cases
+
+
 def phase_flash():
+    """K1 at FLASH_CASES shapes, at every served arch's prefill and ring
+    decode (serve_attention_cases), and at three rings the serving run does
+    not reach: qwen3-4b's wrapped with empty slots, one where every split but
+    the first is empty, and recurrentgemma-9b's half full."""
     qw = dict(Hq=32, Hkv=8, hd=128)
     C, first, last = SERVE["ctx"], 600, 1500   # wrapped at 1024, 123 empty
     ring = _ring(C, first, last)
-    # recurrentgemma's local layers: window 2048, MQA 16/1, hd 256; decode
-    # at the last step of a wave, the 2048-slot ring full and wrapped
-    rg_last = RG["prompt_len"] + RG["max_new"] - 2
-    rg_ring = _ring(2048, rg_last - 2047, rg_last)
+    served = serve_attention_cases()
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for i, (B, Sq, Skv, Hq, Hkv, hd, causal, window, cap) in enumerate(
                 FLASH_SHAPES):
             rows.append(kernel_case(f"flash_case_{i}", "flash_fwd", B, Sq, Skv,
                                     Hq, Hkv, hd, causal, window, cap, dtype))
-        rows.append(kernel_case("qwen3_prefill", "flash_fwd", 1,
-                                SERVE["prompt_len"], SERVE["prompt_len"],
-                                qw["Hq"], qw["Hkv"], qw["hd"], True, None,
-                                None, dtype))
-        rows.append(kernel_case("qwen3_decode", "flash_decode", SERVE["slots"],
-                                1, C, qw["Hq"], qw["Hkv"], qw["hd"], True,
-                                None, None, dtype, qpos=[last], kpos=ring))
+        for (name, kernel, B, Sq, Skv, Hq, Hkv, hd, causal, window, cap, qpos,
+             kpos) in served:
+            rows.append(kernel_case(name, kernel, B, Sq, Skv, Hq, Hkv, hd,
+                                    causal, window, cap, dtype, qpos=qpos,
+                                    kpos=kpos))
+        rows.append(kernel_case("qwen3_decode_wrapped", "flash_decode",
+                                SERVE["slots"], 1, C, qw["Hq"], qw["Hkv"],
+                                qw["hd"], True, None, None, dtype, qpos=[last],
+                                kpos=ring))
         # positions 0..200 only: every split but the first is empty
         rows.append(kernel_case("qwen3_decode_one_split", "flash_decode",
                                 SERVE["slots"], 1, C, qw["Hq"], qw["Hkv"],
                                 qw["hd"], True, None, None, dtype, qpos=[200],
                                 kpos=_ring(C, 0, 200)))
-        rows.append(kernel_case("rgemma_prefill", "flash_fwd", 1,
-                                RG["prompt_len"], RG["prompt_len"], 16, 1, 256,
-                                True, 2048, None, dtype))
-        rows.append(kernel_case("rgemma_decode", "flash_decode", RG["slots"],
-                                1, 2048, 16, 1, 256, True, 2048, None, dtype,
-                                qpos=[rg_last], kpos=rg_ring))
         rows.append(kernel_case("rgemma_decode_half_ring", "flash_decode",
                                 RG["slots"], 1, 2048, 16, 1, 256, True, 2048,
                                 None, dtype, qpos=[1023],
@@ -504,6 +620,102 @@ def phase_wkv():
     return rows
 
 
+def scan_bwd_case(kernel, name, dtype, make, run, plain, nbytes, flops):
+    """Hold a scan's backward kernel against its plain version on
+    ``make(0)``'s inputs within SCAN_BWD_TOL, a rerun bit for bit, and time
+    both (the timed shapes' inputs exceed the L2 cache: no rotation); the
+    bound is the larger of ``nbytes`` over the memory rate and ``flops`` of
+    fp32 over the fp32 rate."""
+    tol = SCAN_BWD_TOL[kernel]
+    args = make(0)
+    got = run(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    max_err = 0.0
+    for n, (g, w) in enumerate(zip(got, want)):
+        wf = w.float()
+        err = (g.float() - wf).abs()
+        limit = tol * (wf.abs() + wf.abs().max())
+        if g.dtype == torch.bfloat16:
+            limit = limit + BF16_GRAD_RTOL * wf.abs()
+        max_err = max(max_err, float(err.max()))
+        if g.dtype != w.dtype or not bool((err <= limit).all()):
+            raise AssertionError(f"{kernel} {name} {dtype}: output {n} "
+                                 f"disagrees with the plain version, max abs "
+                                 f"err {float(err.max())} (tol {tol} of itself "
+                                 f"and of the largest entry)")
+    again = run(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{kernel} {name}: two runs differ")
+    del got, want, again
+    ms = time_ms(lambda: run(*args), iters=10)
+    plain_ms = time_ms(lambda: plain(*args), iters=1, warmup=1)
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    row = dict(kernel=kernel, case=name, dtype=str(dtype).replace("torch.", ""),
+               shape=list(args[0].shape), max_abs_err=max_err, atol=tol,
+               rtol=tol, ms=ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=bound_ms, bound_by=bound_by)
+    log(f"[kernel] {kernel} {name:>16} {row['dtype']:>8} err {max_err:.3e} "
+        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library none "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    return row
+
+
+def phase_scan_bwd():
+    """K2b (rglru_bwd) and K3b (wkv6_bwd) against their plain versions at a
+    ragged shape and at the training shapes of phase 6, in fp32 and bf16
+    inputs: random inputs and gates, nonzero initial states and final-state
+    cotangents; y of K2b's inputs from K2, as the autograd Function saves
+    it."""
+    from repro_torch.kernels import ref, rglru, rglru_bwd, rwkv6_bwd
+
+    rg, rw = OTHER_TRAIN["recurrentgemma-9b"], OTHER_TRAIN["rwkv6-3b"]
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.finfo(dtype).bits // 8
+        for name, B, T, W in (("rglru_bwd_ragged", 2, 131, 100),
+                              ("rgemma_train", rg["batch"], rg["seq"], 4096)):
+            def make(seed, B=B, T=T, W=W):
+                g = _gen(500 + seed)
+                rnd = lambda *s: torch.randn(s, generator=g, device=DEVICE)
+                x, al = rnd(B, T, W).to(dtype), rnd(W).to(dtype)
+                gr, gi = (torch.sigmoid(rnd(B, T, W)).to(dtype)
+                          for _ in range(2))
+                h0 = rnd(B, W)
+                y, _ = rglru.rglru_scan(x, al, gr, gi, h0)
+                return x, al, gr, gi, h0, y, rnd(B, T, W), rnd(B, W)
+            n = B * T * W
+            # x, r, i read and dx, dr, di written; y, dy read; a_log and
+            # da_log; h0, dh_T, dh0. About 20 operations an element.
+            nbytes = es * (6 * n + 2 * W) + 4 * (2 * n + 3 * B * W)
+            rows.append(scan_bwd_case("rglru_bwd", name, dtype, make,
+                                      rglru_bwd.rglru_scan_bwd,
+                                      ref.rglru_scan_bwd_plain, nbytes, 20 * n))
+        for name, B, T, H, hd in (("wkv_bwd_ragged", 2, 131, 3, 24),
+                                  ("rwkv6_train", rw["batch"], rw["seq"], 40,
+                                   64)):
+            def make(seed, B=B, T=T, H=H, hd=hd):
+                g = _gen(600 + seed)
+                rnd = lambda *s: torch.randn(s, generator=g, device=DEVICE)
+                r, k, v = (rnd(B, T, H, hd).to(dtype) for _ in range(3))
+                w = torch.sigmoid(rnd(B, T, H, hd))
+                return (r, k, v, w, rnd(H, hd).to(dtype), rnd(B, H, hd, hd),
+                        rnd(B, T, H, hd), rnd(B, H, hd, hd))
+            n = B * T * H * hd
+            # r, k, v read and dr, dk, dv written; w, dy read and dw
+            # written; u and du; s0, dS_T, ds0. 14 operations per state
+            # element and step (see wkv6_bwd.cu): 14 hd per element of r.
+            nbytes = es * (6 * n + 2 * H * hd) + 4 * (3 * n + 3 * B * H * hd * hd)
+            rows.append(scan_bwd_case("wkv6_bwd", name, dtype, make,
+                                      rwkv6_bwd.wkv6_scan_bwd,
+                                      ref.rwkv6_scan_bwd_plain, nbytes,
+                                      14 * hd * n))
+    free_memory()
+    return rows
+
+
 # --------------------------------------------------------------------------- #
 # Phase 4: each model at full width, reduced depth                             #
 # --------------------------------------------------------------------------- #
@@ -513,6 +725,17 @@ MODEL_CHECKS = {
     "recurrentgemma-9b": (((("rec", "rec", "local"), 1),), 2100, 2100,
                           RG["ctx"]),
     "rwkv6-3b": (((("rwkv",), 2),), 64, RW["prompt_len"], RW["ctx"]),
+    # one (local, attn) group, both prompts past the 4096-token window
+    "gemma2-2b": (((("local", "attn"), 1),), SERVES["gemma2-2b"]["prompt_len"],
+                  SERVES["gemma2-2b"]["prompt_len"], SERVES["gemma2-2b"]["ctx"]),
+    "qwen2-7b": (((("attn",), 2),), 64, SERVES["qwen2-7b"]["prompt_len"],
+                 SERVES["qwen2-7b"]["ctx"]),
+    "phi4-mini-3.8b": (((("attn",), 2),), 64,
+                       SERVES["phi4-mini-3.8b"]["prompt_len"],
+                       SERVES["phi4-mini-3.8b"]["ctx"]),
+    "chameleon-34b": (((("attn",), 2),), 64,
+                      SERVES["chameleon-34b"]["prompt_len"],
+                      SERVES["chameleon-34b"]["ctx"]),
 }
 
 
@@ -571,7 +794,7 @@ def phase_model(arch):
         raise AssertionError(f"{arch}: bf16 kernel path disagrees with the "
                              "plain path")
     del kern, plain, params, ck, cp
-    torch.cuda.empty_cache()
+    free_memory()
     return {"fp32_decode_vs_prefill_err": fp32_err,
             "bf16_kernel_vs_plain_err": max(errs)}
 
@@ -580,18 +803,47 @@ def phase_model(arch):
 # Phase 5: serve each model at full depth                                      #
 # --------------------------------------------------------------------------- #
 def _counters():
+    """Each kernel's wrapper module, whose ``launches`` (and, for the scans'
+    forwards, ``body_launches``) count its launches."""
     from repro_torch.kernels import (flash_attention, flash_bwd, flash_decode,
-                                     rglru, rwkv6)
+                                     rglru, rglru_bwd, rwkv6, rwkv6_bwd)
     return {"flash_fwd": flash_attention, "flash_decode": flash_decode,
-            "rglru_scan": rglru, "wkv6_scan": rwkv6, "flash_bwd": flash_bwd}
+            "rglru_scan": rglru, "wkv6_scan": rwkv6, "flash_bwd": flash_bwd,
+            "rglru_bwd": rglru_bwd, "wkv6_bwd": rwkv6_bwd}
+
+
+def _counts():
+    """Every count: each kernel's launches, K1b's passes (``flash_bwd.<pass>``)
+    and the scans' forward bodies (``<scan>.<body>``)."""
+    from repro_torch.kernels import flash_bwd
+    out = {}
+    for name, mod in _counters().items():
+        out[name] = mod.launches
+        for body, n in getattr(mod, "body_launches", {}).items():
+            out[f"{name}.{body}"] = n
+    out.update({f"flash_bwd.{k}": n for k, n in flash_bwd.kernel_launches.items()})
+    return out
+
+
+def _reset_counts():
+    from repro_torch.kernels import flash_bwd
+    for mod in _counters().values():
+        mod.launches = 0
+        for body in getattr(mod, "body_launches", {}):
+            mod.body_launches[body] = 0
+    for k in flash_bwd.kernel_launches:
+        flash_bwd.kernel_launches[k] = 0
 
 
 def phase_serve(arch):
-    from repro_torch.models import Backbone, get_config
+    from repro_torch.models import Backbone, LayerGroup, get_config
     from repro_torch.runtime.serve_loop import Request, Server
 
     spec = SERVES[arch]
     cfg = get_config(arch)
+    if "depth" in spec:
+        cfg = dataclasses.replace(cfg, groups=(
+            LayerGroup(cfg.groups[0].pattern, spec["depth"]),))
     bb = Backbone(cfg, compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
                   device=DEVICE)
     t0 = time.perf_counter()
@@ -616,10 +868,7 @@ def phase_serve(arch):
     for r in reqs:
         srv.submit(r)
     counters = _counters()
-    for mod in counters.values():
-        mod.launches = 0
-        for body in getattr(mod, "body_launches", {}):
-            mod.body_launches[body] = 0
+    _reset_counts()
     t0 = time.perf_counter()
     srv.run()
     torch.cuda.synchronize()
@@ -646,7 +895,9 @@ def phase_serve(arch):
               "flash_decode": (n_attn, steps, f"{steps} decode steps"),
               "rglru_scan": (kinds.count("rec"), both, f"({req} + {steps})"),
               "wkv6_scan": (kinds.count("rwkv"), both, f"({req} + {steps})"),
-              "flash_bwd": (0, 0, "no backward in serving")}
+              "flash_bwd": (0, 0, "no backward in serving"),
+              "rglru_bwd": (0, 0, "no backward in serving"),
+              "wkv6_bwd": (0, 0, "no backward in serving")}
     for name, (n, calls, why) in expect.items():
         if launches[name] != n * calls:
             raise AssertionError(f"{arch}: {name} launched {launches[name]} "
@@ -691,7 +942,7 @@ def phase_serve(arch):
     log("[serve] " + json.dumps(out))
     out["trace"] = phase_trace(bb, params, prompts, spec)
     del srv, warm, bb, params
-    torch.cuda.empty_cache()
+    free_memory()
     return out
 
 
@@ -765,31 +1016,36 @@ def phase_trace(bb, params, prompts, spec):
 # --------------------------------------------------------------------------- #
 # Phase 6: training qwen3-4b                                                   #
 # --------------------------------------------------------------------------- #
-def _counts():
-    from repro_torch.kernels import flash_attention, flash_bwd, flash_decode
-    return {"flash_fwd": flash_attention.launches,
-            "flash_decode": flash_decode.launches,
-            "flash_bwd": flash_bwd.launches,
-            **{f"flash_bwd.{k}": n for k, n in flash_bwd.kernel_launches.items()}}
+def _train_want(bb, batch, seq, runs, fwd):
+    """Exact launches of ``runs`` passes of ``bb.loss_fn`` and its backward
+    at [batch, seq], with ``fwd`` forwards a layer (2 with remat): K1 (with
+    its LSE) once a forward of an attention layer and K1b's passes once a
+    backward (the reduce pass only where its plan splits); each scan once a
+    forward of its layers, through the body its plan picks, and its
+    backward once a pass."""
+    from repro_torch.kernels import flash_bwd, rglru, rwkv6
+    kinds = bb.cfg.layer_kinds()
+    attn = sum(k in ("attn", "local") for k in kinds) * runs
+    rec, rwk = kinds.count("rec") * runs, kinds.count("rwkv") * runs
+    split = attn and flash_bwd.plan(batch, seq, seq, bb.H, bb.KV, bb.hd,
+                                    bb.compute_dtype,
+                                    sms=flash_bwd.device_sms(DEVICE)).splits > 1
+    want = {"flash_fwd": attn * fwd, "flash_decode": 0, "flash_bwd": attn,
+            "flash_bwd.delta": attn, "flash_bwd.dkdv": attn,
+            "flash_bwd.dq": attn, "flash_bwd.reduce": attn if split else 0,
+            "rglru_scan": rec * fwd, "rglru_bwd": rec,
+            "wkv6_scan": rwk * fwd, "wkv6_bwd": rwk}
+    planned = {"rglru_scan": (rec * fwd, rglru.plan(batch, seq, bb.W,
+                                                    bb.compute_dtype).body),
+               "wkv6_scan": (rwk * fwd, rwkv6.plan(
+                   batch, seq, bb.rwkv_H, bb.cfg.rwkv_head_dim).body)}
+    for name, (n, body) in planned.items():
+        for b in BODIES:
+            want[f"{name}.{b}"] = n if b == body else 0
+    return want
 
 
-def _reset_counts():
-    from repro_torch.kernels import flash_attention, flash_bwd, flash_decode
-    flash_attention.launches = flash_decode.launches = flash_bwd.launches = 0
-    for k in flash_bwd.kernel_launches:
-        flash_bwd.kernel_launches[k] = 0
-
-
-def _check_counts(what, got, layers, fwd_per_layer, batch, seq):
-    """Exact launches of a run of `layers` backward passes of qwen3-4b's
-    attention at [batch, seq]: the reduce pass only where the plan splits."""
-    from repro_torch.kernels import flash_bwd
-    split = flash_bwd.plan(batch, seq, seq, 32, 8, 128, torch.bfloat16,
-                           sms=flash_bwd.device_sms(DEVICE)).splits
-    want = {"flash_fwd": layers * fwd_per_layer, "flash_decode": 0,
-            "flash_bwd": layers, "flash_bwd.delta": layers,
-            "flash_bwd.dkdv": layers, "flash_bwd.dq": layers,
-            "flash_bwd.reduce": layers if split > 1 else 0}
+def _check_counts(what, got, want):
     if got != want:
         raise AssertionError(f"{what}: launches {got}, want {want}")
 
@@ -1021,63 +1277,123 @@ def phase_train_kernels():
                              8, 128, None, None, dtype))
         for case in BWD_CASES:
             rows.append(bwd_case(*case, dtype))
-    torch.cuda.empty_cache()
+    free_memory()
     return rows
 
 
-def _train_config():
+def _config(arch, groups):
+    """``arch`` at full width with the layer groups ``groups``."""
     from repro_torch.models import LayerGroup, get_config
-    return dataclasses.replace(get_config("qwen3-4b"), groups=(
-        LayerGroup(("attn",), TRAIN["depth"]),))
+    return dataclasses.replace(get_config(arch), groups=tuple(
+        LayerGroup(pattern, repeat) for pattern, repeat in groups))
 
 
-def train_grads_check():
-    """One microbatch [1, 512] through loss_fn and the backward, kernel path
-    against plain path, from the same fp32 parameters; remat on, so K1
-    runs twice a layer."""
+def train_grads_check(arch, cfg, seq, compute_dtype=torch.bfloat16):
+    """One microbatch [1, seq] through loss_fn and the backward, kernel path
+    against plain path, from the same fp32 parameters, bf16 compute unless
+    ``compute_dtype`` says otherwise; remat on, so each forward kernel runs
+    twice a layer."""
     from repro_torch.models import Backbone
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.runtime.steps import value_and_grad
 
-    cfg, depth = _train_config(), TRAIN["depth"]
-    kern = Backbone(cfg, compute_dtype=torch.bfloat16,
+    kern = Backbone(cfg, compute_dtype=compute_dtype,
                     param_dtype=torch.float32, remat=True, device=DEVICE)
-    plain = Backbone(cfg, compute_dtype=torch.bfloat16,
+    plain = Backbone(cfg, compute_dtype=compute_dtype,
                      param_dtype=torch.float32, remat=True, device=DEVICE,
                      kernel_impl="plain")
+    loss_rtol, grad_rtol = ((TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL)
+                            if compute_dtype == torch.bfloat16 else
+                            (TRAIN_FP32_LOSS_RTOL, TRAIN_FP32_GRAD_RTOL))
     params = kern.init(SEED + 3)
     toks = np.random.default_rng(SEED + 3).integers(
-        0, cfg.vocab, (1, TRAIN["grad_seq"] + 1), dtype=np.int32)
+        0, cfg.vocab, (1, seq + 1), dtype=np.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     _reset_counts()
     lk, gk = value_and_grad(kern, params, batch)
     torch.cuda.synchronize()
-    _check_counts("qwen3-4b loss_fn + backward (remat)", _counts(), depth, 2,
-                  1, TRAIN["grad_seq"])
+    counts = _counts()
+    _check_counts(f"{arch} loss_fn + backward (remat)", counts,
+                  _train_want(kern, 1, seq, 1, 2))
     lp, gp = value_and_grad(plain, params, batch)
     loss_err = abs(float(lk) - float(lp))
     grad_err = max(float((a - b).norm() / b.norm())
                    for a, b in zip(tree_leaves(gk), tree_leaves(gp)))
     finite = all(bool(torch.isfinite(a).all()) for a in tree_leaves(gk))
-    log(f"[train] qwen3-4b full width, {depth} layers, [1, {TRAIN['grad_seq']}]"
-        f" bf16 compute: kernel path vs plain path, loss {float(lk):.5f} vs "
-        f"{float(lp):.5f} (err {loss_err:.3e}, tol {TRAIN_LOSS_RTOL} x loss), "
-        f"worst leaf gradient err {grad_err:.3e} of its norm (tol "
-        f"{TRAIN_GRAD_RTOL}), {len(tree_leaves(gk))} leaves")
+    launched = {k: n for k, n in counts.items() if n}
+    log(f"[train] {arch} full width, {cfg.n_layers} layers "
+        f"{'+'.join(cfg.layer_kinds())}, [1, {seq}] "
+        f"{str(compute_dtype)[6:]} compute: kernel path vs plain path, loss "
+        f"{float(lk):.6f} vs {float(lp):.6f} (err {loss_err:.3e}, tol "
+        f"{loss_rtol} x loss), worst leaf gradient err {grad_err:.3e} of its "
+        f"norm (tol {grad_rtol}), {len(tree_leaves(gk))} leaves; launches "
+        f"{launched}")
     if not finite or not math.isfinite(float(lk)):
-        raise AssertionError("train: a gradient or the loss is not finite")
-    if loss_err > TRAIN_LOSS_RTOL * abs(float(lp)) or grad_err > TRAIN_GRAD_RTOL:
-        raise AssertionError("train: the kernel path's loss or gradients "
-                             "disagree with the plain path's")
+        raise AssertionError(f"train {arch}: a gradient or the loss is not "
+                             "finite")
+    if loss_err > loss_rtol * abs(float(lp)) or grad_err > grad_rtol:
+        raise AssertionError(f"train {arch}: the kernel path's loss or "
+                             "gradients disagree with the plain path's")
     del kern, plain, params, gk, gp
-    torch.cuda.empty_cache()
-    return {"loss_kernel": float(lk), "loss_plain": float(lp),
-            "loss_err": loss_err, "worst_grad_rel_err": grad_err}
+    free_memory()
+    return {"seq": seq, "compute_dtype": str(compute_dtype)[6:],
+            "loss_kernel": float(lk), "loss_plain": float(lp),
+            "loss_err": loss_err, "worst_grad_rel_err": grad_err,
+            "launches": launched}
 
 
-def train_run():
-    """The Trainer of launch/train.py at full width, depth 8: 6 steps of
-    4 x 2048 tokens, bf16 compute, fp32 params and state, no remat."""
+def bf16_witness(arch, cfg, seq):
+    """The kernel path and the plain path, both in bf16 compute, against the
+    plain path in fp32 compute (the reference), from the same fp32
+    parameters and one microbatch [1, seq], remat on: each path's loss error
+    and worst leaf's gradient error (of the reference leaf's norm). A fault
+    of the kernels' bf16 path inside the model would put the kernel path's
+    gradients further from the reference than the plain path's; the model's
+    own sensitivity to bf16 compute moves both alike."""
+    from repro_torch.models import Backbone
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.steps import value_and_grad
+
+    def path(dtype, impl):
+        return Backbone(cfg, compute_dtype=dtype, param_dtype=torch.float32,
+                        remat=True, device=DEVICE, kernel_impl=impl)
+
+    params = path(torch.float32, "plain").init(SEED + 3)
+    toks = np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab, (1, seq + 1), dtype=np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    l_ref, g_ref = value_and_grad(path(torch.float32, "plain"), params, batch)
+    g_ref = tree_leaves(g_ref)
+    out = {"seq": seq, "loss_fp32_plain": float(l_ref)}
+    for impl in ("kernel", "plain"):
+        loss, grads = value_and_grad(path(torch.bfloat16, impl), params, batch)
+        out[impl] = {
+            "loss": float(loss), "loss_err": abs(float(loss) - float(l_ref)),
+            "worst_grad_rel_err": max(float((a - b).norm() / b.norm()) for a, b
+                                      in zip(tree_leaves(grads), g_ref))}
+        del grads
+    k, p = out["kernel"], out["plain"]
+    log(f"[train] {arch} bf16 witness, {cfg.n_layers} layers, [1, {seq}], vs "
+        f"the fp32 plain path (loss {float(l_ref):.6f}): kernel path loss err "
+        f"{k['loss_err']:.3e}, worst leaf {k['worst_grad_rel_err']:.3e}; plain "
+        f"path loss err {p['loss_err']:.3e}, worst leaf "
+        f"{p['worst_grad_rel_err']:.3e} (kernel's within {WITNESS_RATIO} x "
+        f"plain's; losses within {TRAIN_LOSS_RTOL} x loss)")
+    del g_ref, params
+    free_memory()
+    loss_tol = TRAIN_LOSS_RTOL * abs(float(l_ref))
+    if not (k["worst_grad_rel_err"] <= WITNESS_RATIO * p["worst_grad_rel_err"]
+            and max(k["loss_err"], p["loss_err"]) <= loss_tol):
+        raise AssertionError(f"train {arch}: in bf16 the kernel path stands "
+                             "further from the fp32 reference than the "
+                             "plain path")
+    return out
+
+
+def train_run(arch, cfg, batch_size, seq, steps, remat):
+    """The Trainer of launch/train.py at full width: ``steps`` steps of
+    batch_size x seq tokens, bf16 compute, fp32 params and state, exact
+    launch counts, a falling loss; then one profiled step."""
     import tempfile
 
     from repro_torch.data.pipeline import DataConfig, make_batch
@@ -1086,20 +1402,21 @@ def train_run():
     from repro_torch.runtime.steps import StepSettings, make_train_step
     from repro_torch.runtime.train_loop import Trainer, TrainerConfig
 
-    cfg, depth, steps = _train_config(), TRAIN["depth"], TRAIN["steps"]
-    tokens = TRAIN["batch"] * TRAIN["seq"]
+    depth, tokens = cfg.n_layers, batch_size * seq
     bb = Backbone(cfg, compute_dtype=torch.bfloat16, param_dtype=torch.float32,
-                  remat=False, device=DEVICE)
+                  remat=remat, device=DEVICE)
     opt_cfg = adamw.AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=steps)
-    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
-                          global_batch=TRAIN["batch"], seed=SEED)
-    settings = StepSettings(remat=False)
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=seq,
+                          global_batch=batch_size, seed=SEED)
+    settings = StepSettings(remat=remat)
     with tempfile.TemporaryDirectory() as d:
-        # ckpt_every above the run: the 19 GB state is not written to disk
+        # ckpt_every above the run: the state (tens of GB) is not written
         tr = Trainer(bb, opt_cfg, data_cfg,
                      TrainerConfig(total_steps=steps, ckpt_every=steps + 1,
                                    log_every=1, ckpt_dir=d), settings)
         try:
+            free_memory()
+            held = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             _reset_counts()
             t0 = time.perf_counter()
@@ -1113,37 +1430,46 @@ def train_run():
             log_ = list(tr.metrics_log)
         finally:
             tr.shutdown()
-    _check_counts(f"qwen3-4b Trainer, {steps} steps", counts, depth * steps, 1,
-                  TRAIN["batch"], TRAIN["seq"])
+    _check_counts(f"{arch} Trainer, {steps} steps", counts,
+                  _train_want(bb, batch_size, seq, steps, 2 if remat else 1))
     if cursor != steps or len(log_) != steps:
-        raise AssertionError(f"train: {len(log_)} steps logged, cursor "
+        raise AssertionError(f"train {arch}: {len(log_)} steps logged, cursor "
                              f"{cursor}, want {steps}")
     for m in log_:
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
-            raise AssertionError(f"train: step {m['step']} not finite: {m}")
-        log(f"[train] step {m['step']}: loss {m['loss']:.5f} grad_norm "
+            raise AssertionError(f"train {arch}: step {m['step']} not finite: "
+                                 f"{m}")
+        log(f"[train] {arch} step {m['step']}: loss {m['loss']:.5f} grad_norm "
             f"{m['grad_norm']:.5f} {m['dt'] * 1e3:.1f} ms "
             f"{tokens / m['dt']:.0f} tokens/s")
+    if not log_[-1]["loss"] < log_[0]["loss"]:
+        raise AssertionError(f"train {arch}: the loss did not fall: "
+                             f"{[m['loss'] for m in log_]}")
     steady = [m["dt"] for m in log_[1:]]
-    out = {"steps": steps, "tokens_per_step": tokens, "log": log_,
-           "launches": counts, "wall_s": wall,
-           "step_ms_after_first": [t * 1e3 for t in steady],
+    launched = {k: n for k, n in counts.items() if n}
+    out = {"layers": depth, "kinds": cfg.layer_kinds(), "batch": batch_size,
+           "seq": seq, "remat": remat, "steps": steps,
+           "tokens_per_step": tokens, "log": log_, "launches": counts,
+           "wall_s": wall, "step_ms_after_first": [t * 1e3 for t in steady],
            "tokens_per_s_after_first": tokens * len(steady) / sum(steady),
            "max_memory_allocated_gb": peak / 1e9,
+           "allocated_before_gb": held / 1e9,
            "params": sum(int(t.numel()) for t in
                          adamw.tree_leaves(state["params"]))}
-    log(f"[train] qwen3-4b {depth} layers: {steps} Trainer steps of {tokens} "
-        f"tokens in {wall:.3f} s; after the first, "
-        f"{out['tokens_per_s_after_first']:.0f} tokens/s; launches {counts}; "
-        f"peak memory {out['max_memory_allocated_gb']:.2f} GB")
+    log(f"[train] {arch} {depth} layers, {out['params'] / 1e9:.3f} B params, "
+        f"remat {remat}: {steps} Trainer steps of {batch_size} x {seq} tokens "
+        f"in {wall:.3f} s; after the first, "
+        f"{out['tokens_per_s_after_first']:.0f} tokens/s; launches {launched}; "
+        f"peak memory {out['max_memory_allocated_gb']:.2f} GB "
+        f"({out['allocated_before_gb']:.2f} GB allocated before the run)")
     # one more step of the same function under the profiler
     step_fn = make_train_step(bb, opt_cfg, settings)
     batch = make_batch(data_cfg, steps)
     out["trace"] = profile_calls(
-        f"qwen3-4b train step ({depth} layers, {tokens} tokens)",
+        f"{arch} train step ({depth} layers, {tokens} tokens)",
         lambda: float(step_fn(state, batch)[1]["loss"]), calls=1)
     del state, bb, tr
-    torch.cuda.empty_cache()
+    free_memory()
     return out
 
 
@@ -1203,23 +1529,52 @@ def train_restart_check():
 
 
 def phase_train():
-    return {"grads": train_grads_check(), "trainer": train_run(),
-            "restart": train_restart_check()}
+    """Train qwen3-4b (depth 8), the gemma2-2b gradient check, then
+    recurrentgemma-9b and rwkv6-3b; each model is freed before the next."""
+    out = {}
+    cfg = _config("qwen3-4b", ((("attn",), TRAIN["depth"]),))
+    out["qwen3-4b"] = {
+        "grads": train_grads_check("qwen3-4b", cfg, TRAIN["grad_seq"]),
+        "trainer": train_run("qwen3-4b", cfg, TRAIN["batch"], TRAIN["seq"],
+                             TRAIN["steps"], remat=False)}
+    g = OTHER_TRAIN["gemma2-2b"]
+    out["gemma2-2b"] = {"grads": train_grads_check(
+        "gemma2-2b", _config("gemma2-2b", g["groups"]), g["grad_seq"])}
+    for arch in ("recurrentgemma-9b", "rwkv6-3b"):
+        spec = OTHER_TRAIN[arch]
+        cfg = _config(arch, spec["groups"])
+        out[arch] = {
+            "grads": train_grads_check(arch, cfg, spec["grad_seq"],
+                                       spec.get("grad_dtype", torch.bfloat16))}
+        if "bf16_groups" in spec:
+            out[arch]["grads_bf16"] = train_grads_check(
+                arch, _config(arch, spec["bf16_groups"]), spec["grad_seq"])
+            out[arch]["bf16_witness"] = bf16_witness(arch, cfg,
+                                                     spec["grad_seq"])
+        out[arch]["trainer"] = train_run(arch, cfg, spec["batch"], spec["seq"],
+                                         spec["steps"], spec["remat"])
+    out["restart"] = train_restart_check()
+    return out
 
 
 # The row of each kernel that stands for it in the kernels line, and the TPU
-# kernel it replaces
+# kernel it replaces (for the backwards, which the reference writes in jnp
+# or leaves to jax.grad, the function whose gradient they compute)
 HEADLINE = {
     "flash_fwd": ("qwen3_prefill", "src/repro/kernels/flash_attention.py:28"),
-    "flash_decode": ("qwen3_decode", "src/repro/kernels/flash_attention.py:28"),
+    "flash_decode": ("qwen3_decode_wrapped",
+                     "src/repro/kernels/flash_attention.py:28"),
     "rglru_scan": ("rgemma_prefill", "src/repro/kernels/rglru_kernel.py:22"),
     "wkv6_scan": ("rwkv6_prefill", "src/repro/kernels/rwkv6_kernel.py:26"),
     "flash_bwd": ("qwen3_train", "src/repro/models/attention.py:163"),
+    "rglru_bwd": ("rgemma_train", "src/repro/kernels/ref.py:81"),
+    "wkv6_bwd": ("rwkv6_train", "src/repro/kernels/ref.py:52"),
 }
 # the source of each kernel's headline body, and every source of the kernel
 SOURCE = {"flash_fwd": "flash_fwd.cu", "flash_decode": "flash_decode.cu",
           "rglru_scan": "rglru_scan.cu", "wkv6_scan": "wkv6_chunk.cu",
-          "flash_bwd": "flash_bwd.cu"}
+          "flash_bwd": "flash_bwd.cu", "rglru_bwd": "rglru_bwd.cu",
+          "wkv6_bwd": "wkv6_bwd.cu"}
 SOURCES = {"wkv6_scan": ("wkv6_chunk.cu", "wkv6_scan.cu")}
 # the port's kernel names in a profiler trace start with one of these
 TRACE_NAMES = ("flash_", "rglru_", "wkv")
@@ -1247,21 +1602,28 @@ def main() -> int:
         f"{b['seconds']:.2f} s -> {b['path']}\n{b['log']}")
     sass = sass_hmma(b["path"])
 
-    rows = phase_flash() + phase_rglru() + phase_wkv()
-    model = {arch: phase_model(arch) for arch in SERVES}
+    rows = phase_flash() + phase_rglru() + phase_wkv() + phase_scan_bwd()
+    model = {arch: phase_model(arch) for arch in MODEL_CHECKS}
     serve = {arch: phase_serve(arch) for arch in SERVES}
     rows += phase_train_kernels()
     train = phase_train()
-    train_launches = train["trainer"]["launches"]
+    # the main path's runs, each read with the counts set to 0 just before
+    paths = {arch: s["launches"] for arch, s in serve.items()}
+    bodies = {arch: s["body_launches"] for arch, s in serve.items()}
+    for arch, t in train.items():
+        if "trainer" in t:
+            counts = t["trainer"]["launches"]
+            paths[f"{arch} train"] = counts
+            bodies[f"{arch} train"] = {
+                scan: {b: counts[f"{scan}.{b}"] for b in BODIES}
+                for scan in ("rglru_scan", "wkv6_scan")}
 
     kernels = []
     for name, (case, replaces) in HEADLINE.items():
         head = next(r for r in rows if r["kernel"] == name and r["case"] == case
                     and r["dtype"] == "bfloat16" and r.get("planned", True))
-        by_path = {arch: s["launches"][name] for arch, s in serve.items()
-                   if s["launches"].get(name)}
-        if train_launches.get(name):
-            by_path["qwen3-4b train"] = train_launches[name]
+        by_path = {path: counts[name] for path, counts in paths.items()
+                   if counts.get(name)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{SOURCE[name]}",
@@ -1269,9 +1631,8 @@ def main() -> int:
                         for f in SOURCES.get(name, (SOURCE[name],))],
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "launches_by_body": {arch: s["body_launches"][name]
-                                 for arch, s in serve.items()
-                                 if name in s["body_launches"] and by_path.get(arch)},
+            "launches_by_body": {path: bodies[path][name] for path in by_path
+                                 if name in bodies[path]},
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -1281,8 +1642,8 @@ def main() -> int:
         })
         if name == "flash_bwd":
             kernels[-1]["launches_by_kernel"] = {
-                k.split(".")[1]: n for k, n in train_launches.items()
-                if k.startswith("flash_bwd.")}
+                path: {k.split(".")[1]: n for k, n in paths[path].items()
+                       if k.startswith("flash_bwd.")} for path in by_path}
     log("[summary] " + json.dumps({"model": model, "serve": serve,
                                    "train": train, "k1b_sass": sass,
                                    "seconds": time.perf_counter() - t_start}))

@@ -119,3 +119,15 @@ def check_launch(name: str, rc: int) -> None:
     if rc != 0:
         msg = load().cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: cuda error {rc} ({msg})")
+
+
+def check_steps(name: str, query, want) -> None:
+    """Raise unless ``query`` (a C entry point that writes a kernel's step
+    constants through two int pointers) gives the ``want`` pair that the
+    kernel's wrapper sizes its scratch buffers by."""
+    a, b = ctypes.c_int(), ctypes.c_int()
+    rc = query(ctypes.byref(a), ctypes.byref(b))
+    got = (a.value, b.value)
+    if rc or got != tuple(want):
+        raise RuntimeError(f"{name}: the library's steps are {got} (rc {rc}), "
+                           f"the wrapper's {tuple(want)}")

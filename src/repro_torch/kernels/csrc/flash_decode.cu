@@ -70,6 +70,15 @@ struct Layout {
       (size_t)2 * TILE * LDS * sizeof(T) + TILE * sizeof(int);
   static_assert(STAGE_BYTES >= (size_t)4 * ROWS * (HDM + 2) * sizeof(float),
                 "one stage holds the 4 warps' partials for the merge");
+  // Two stages overlap a tile's loads with the previous tile's arithmetic
+  // wherever a split has more than one tile and they fit in the 227 KB a
+  // CTA may use; fp32 at hd 256 needs 267 KB for two, so it takes one and
+  // loads each next tile after the current one is done.
+  static constexpr bool TWO_STAGES_FIT =
+      Q_BYTES + P_BYTES + 2 * STAGE_BYTES + 1024 <= 232448;
+  __host__ __device__ static constexpr int stages(int split_keys) {
+    return split_keys > TILE && TWO_STAGES_FIT ? 2 : 1;
+  }
 };
 
 // S = Q K^T for this warp's 16 keys: s[j] is the C fragment of keys 8j..8j+7.
@@ -186,7 +195,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* Qs = reinterpret_cast<T*>(base);
   float* Ps = reinterpret_cast<float*>(base + L::Q_BYTES);
   char* stages = base + L::Q_BYTES + L::P_BYTES;
-  const int nst = split_keys > TILE ? 2 : 1;  // stages in shared memory
+  const int nst = L::stages(split_keys);  // stages in shared memory
   unsigned* live = reinterpret_cast<unsigned*>(stages + nst * L::STAGE_BYTES);
   unsigned* full = live + (split_keys / TILE + 31) / 32;
 
@@ -245,7 +254,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cp_async_commit();
   while (tile < nt) {
     const int nxt = next_live(live, tile + 1, nt);
-    if (nxt < nt) issue(nxt, st ^ 1);  // nst is 2 whenever there is a next
+    if (nst == 2 && nxt < nt) issue(nxt, st ^ 1);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
@@ -268,7 +277,12 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     accumulate<HDM>(acc, s, vs, Ps + warp * ROWS * LDP, warp, lane, hd);
     __syncthreads();  // every warp is done with this stage before it refills
     tile = nxt;
-    st ^= 1;
+    if (nst == 2) {
+      st ^= 1;
+    } else if (tile < nt) {  // one stage: refill it now
+      issue(tile, 0);
+      cp_async_commit();
+    }
   }
   cp_async_wait<0>();
   finish_rowsum(l);
@@ -387,7 +401,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int window, float logit_cap, float scale, int n_splits,
                    int split_keys, cudaStream_t stream) {
   using L = Layout<T, HDM>;
-  const int nst = split_keys > TILE ? 2 : 1;
+  const int nst = L::stages(split_keys);
   const size_t smem = L::Q_BYTES + L::P_BYTES + nst * L::STAGE_BYTES +
                       (size_t)((split_keys / TILE + 31) / 32) * 8;
   cudaError_t err = cudaFuncSetAttribute(

@@ -565,6 +565,13 @@ cudaError_t launch(const void* r, const void* k, const void* v, const float* w,
 
 extern "C" {
 
+// L and SUB, which the caller needs to size scratch and decay; returns 0.
+int wkv6_scan_chunked_steps(int* chunk, int* sub) {
+  *chunk = L;
+  *sub = SUB;
+  return 0;
+}
+
 // The chunked body: three launches on the stream. dtype (r, k, v), u_dtype:
 // 0 = fp32, 1 = bf16; w is fp32. scratch: fp32 [B, H, ceil(T/64), 64, 64];
 // decay: fp32 [B, H, ceil(T/64), 64]. vec: hd is a multiple of 8 and r, k,

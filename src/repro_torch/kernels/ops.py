@@ -13,7 +13,7 @@ import torch
 from . import flash_attention as fa
 from . import flash_bwd as fb
 from . import flash_decode as fd
-from . import ref, rglru, rwkv6
+from . import ref, rglru, rglru_bwd, rwkv6, rwkv6_bwd
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -106,6 +106,20 @@ def rglru_scan(x: torch.Tensor, a_log: torch.Tensor, gate_r: torch.Tensor,
     return rglru.rglru_scan(x, a_log, gate_r, gate_i, h0, h_out=h_out)
 
 
+def rglru_scan_bwd(x: torch.Tensor, a_log: torch.Tensor,
+                   gate_r: torch.Tensor, gate_i: torch.Tensor,
+                   h0: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
+                   dh_T: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The backward of :func:`rglru_scan`: y is its h sequence, dy and dh_T
+    the cotangents of y and h_T -> (dx, da_log, dgate_r, dgate_i, dh0), each
+    in its input's dtype; K2b (``rglru_bwd``) on the card."""
+    args = (x, a_log, gate_r, gate_i, h0, y, dy, dh_T)
+    if x.device.type == "cpu":
+        _same_device(*args)
+        return ref.rglru_scan_bwd_plain(*args)
+    return rglru_bwd.rglru_scan_bwd(*args)
+
+
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor, state: torch.Tensor, *,
                state_out: Optional[torch.Tensor] = None
@@ -117,3 +131,17 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _same_device(r, k, v, w, u, state, state_out)
         return ref.rwkv6_scan_plain(r, k, v, w, u, state, state_out=state_out)
     return rwkv6.wkv6_scan(r, k, v, w, u, state, state_out=state_out)
+
+
+def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+                   dy: torch.Tensor, ds_T: torch.Tensor
+                   ) -> Tuple[torch.Tensor, ...]:
+    """The backward of :func:`rwkv6_scan`: dy and ds_T are the cotangents of
+    y and S_T -> (dr, dk, dv, dw, du, ds0), each in its input's dtype; K3b
+    (``rwkv6_bwd``) on the card."""
+    args = (r, k, v, w, u, state, dy, ds_T)
+    if r.device.type == "cpu":
+        _same_device(*args)
+        return ref.rwkv6_scan_bwd_plain(*args)
+    return rwkv6_bwd.wkv6_scan_bwd(*args)

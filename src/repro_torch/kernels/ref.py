@@ -367,6 +367,59 @@ def rglru_scan_chunked_plain(x: torch.Tensor, a_log: torch.Tensor,
     return y, h
 
 
+def rglru_scan_bwd_plain(x: torch.Tensor, a_log: torch.Tensor,
+                         gate_r: torch.Tensor, gate_i: torch.Tensor,
+                         h0: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
+                         dh_T: torch.Tensor
+                         ) -> Tuple[torch.Tensor, ...]:
+    """The backward of :func:`rglru_scan_plain`: an explicit reverse loop
+    over time (not autograd), in the order of ``csrc/rglru_bwd.cu``.
+
+    ``y`` is the forward's h sequence [B,T,W] fp32, ``dy`` its cotangent and
+    ``dh_T`` that of h_T. With c = 8, d = softplus(Λ), a_t, b_t =
+    sqrt(max(1 - a_t², 0)) and u_t = i_t x_t::
+
+        g_T = dy_T + dh_T,  g_t = dy_t + a_{t+1} g_{t+1}
+        dx_t = g_t b_t i_t,  di_t = g_t b_t x_t
+        da_t = g_t (h_{t-1} - (a_t / b_t) u_t),  dr_t = -c d a_t da_t
+        dΛ = -c sigmoid(Λ) Σ_b Σ_t r_t a_t da_t,  dh0 = a_1 g_1
+
+    Where the clamp holds (1 - a_t² <= 0, so b_t = 0) the term
+    (a_t / b_t) u_t is taken as 0, the gradient of the clamped branch; JAX's
+    gradient through ``sqrt`` at 0 is not finite there. dΛ sums over t in
+    reverse for each batch row, then over the rows in order.
+
+    Returns (dx, da_log, dgate_r, dgate_i, dh0), each in its input's dtype.
+    """
+    al = a_log.float()
+    coef = -RGLRU_C * (torch.clamp_min(al, 0.0)
+                       + torch.log1p(torch.exp(-al.abs())))
+    xf, r, i = x.float(), gate_r.float(), gate_i.float()
+    a = torch.exp(coef * r)
+    b = torch.sqrt(torch.clamp_min(1.0 - a * a, 0.0))
+    ratio = torch.where(b > 0, a / b, torch.zeros_like(b))
+    term = torch.where(b > 0, ratio * (i * xf), torch.zeros_like(b))
+    dx, dr, di = (torch.empty_like(xf) for _ in range(3))
+    acc = torch.zeros_like(xf[:, 0])
+    g = dh_T.float()                       # a_{t+1} g_{t+1}, then g_t
+    for t in reversed(range(x.shape[1])):
+        g = dy[:, t].float() + g
+        gb = g * b[:, t]
+        dx[:, t] = gb * i[:, t]
+        di[:, t] = gb * xf[:, t]
+        h_prev = y[:, t - 1] if t > 0 else h0.float()
+        da = g * (h_prev - term[:, t])
+        dr[:, t] = (coef * a[:, t]) * da
+        acc = acc + (r[:, t] * a[:, t]) * da
+        g = a[:, t] * g
+    total = acc[0]
+    for row in acc[1:]:
+        total = total + row
+    dal = (-RGLRU_C * torch.sigmoid(al)) * total
+    return (dx.to(x.dtype), dal.to(a_log.dtype), dr.to(gate_r.dtype),
+            di.to(gate_i.dtype), g.to(h0.dtype))
+
+
 def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      w: torch.Tensor, u: torch.Tensor, state: torch.Tensor, *,
                      state_out: Optional[torch.Tensor] = None
@@ -389,6 +442,119 @@ def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if state_out is not None:
         s = state_out.copy_(s)
     return torch.stack(ys, dim=1), s
+
+
+def _wkv_bwd_step(s, g, r, k, v, w, u, dy):
+    """One reverse step of the WKV backward for every (b, h): s = S_{t-1},
+    g = dL/dS_t, the step's r, k, v, w, dy [B,H,hd] and u [H,hd], in fp32.
+    Returns (dr, dk, dv, dw, the step's du term, dL/dS_{t-1})."""
+    vdy = (v * dy).sum(-1, keepdim=True)              # v . dy
+    ruk = (r * u * k).sum(-1, keepdim=True)           # r . (u ⊙ k)
+    dr = torch.einsum("bhij,bhj->bhi", s, dy) + u * k * vdy
+    dk = torch.einsum("bhij,bhj->bhi", g, v) + r * u * vdy
+    dv = torch.einsum("bhij,bhi->bhj", g, k) + ruk * dy
+    dw = (g * s).sum(-1)
+    return (dr, dk, dv, dw, r * k * vdy,
+            w[..., :, None] * g + r[..., :, None] * dy[..., None, :])
+
+
+def _wkv_bwd_finish(r, u, state, grads, du_rows, g):
+    """(dr, dk, dv, dw, du, ds0) in their inputs' dtypes from the stacked
+    step gradients, du's per-batch-row sums taken over the rows in order."""
+    du = du_rows[0]
+    for row in du_rows[1:]:
+        du = du + row
+    dr, dk, dv, dw = (torch.stack(a[::-1], 1) for a in grads)
+    return (dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw,
+            du.to(u.dtype), g.to(state.dtype))
+
+
+def rwkv6_scan_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         w: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+                         dy: torch.Tensor, ds_T: torch.Tensor
+                         ) -> Tuple[torch.Tensor, ...]:
+    """The backward of :func:`rwkv6_scan_plain`: a forward loop keeps every
+    state, then an explicit reverse loop over time (not autograd). With
+    G = dL/dS_t (from ``ds_T``) and S = S_{t-1}, each step::
+
+        dr_i = Σ_j S_ij dy_j + u_i k_i (v·dy)
+        dk_i = r_i u_i (v·dy) + Σ_j G_ij v_j
+        dv_j = (Σ_i r_i u_i k_i) dy_j + Σ_i G_ij k_i
+        du_i += r_i k_i (v·dy),  dw_i = Σ_j G_ij S_ij
+        G <- diag(w) G + r dyᵀ
+
+    and ds0 is the last G. du sums over t in reverse for each batch row,
+    then over the rows in order. Returns (dr, dk, dv, dw, du, ds0): dr, dk,
+    dv in r's dtype, dw fp32, du in u's dtype, ds0 fp32.
+    """
+    rf, kf, vf, wf, dyf = (a.float() for a in (r, k, v, w, dy))
+    uf = u.float()
+    s, states = state.float(), []
+    for t in range(r.shape[1]):
+        states.append(s)
+        s = wf[:, t, :, :, None] * s + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+    g = ds_T.float()
+    grads, du_rows = ([], [], [], []), torch.zeros_like(rf[:, 0])
+    for t in reversed(range(r.shape[1])):
+        *step, du_t, g = _wkv_bwd_step(states[t], g, rf[:, t], kf[:, t],
+                                       vf[:, t], wf[:, t], uf, dyf[:, t])
+        for acc, part in zip(grads, step):
+            acc.append(part)
+        du_rows = du_rows + du_t
+    return _wkv_bwd_finish(r, u, state, grads, du_rows, g)
+
+
+def rwkv6_scan_bwd_chunked_plain(r: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, w: torch.Tensor,
+                                 u: torch.Tensor, state: torch.Tensor,
+                                 dy: torch.Tensor, ds_T: torch.Tensor, *,
+                                 chunk: int = 16, sub: int = 4
+                                 ) -> Tuple[torch.Tensor, ...]:
+    """The checkpoint-and-recompute scheme of ``csrc/wkv6_bwd.cu``, plainly;
+    the function of :func:`rwkv6_scan_bwd_plain`, whose steps it takes in
+    the same order on the same states (so the same bits).
+
+    A forward pass keeps the state at the start of every chunk of ``chunk``
+    steps. The reverse takes the chunks last to first, and each chunk's
+    sub-chunks of ``sub`` steps last to first: it steps a sub-chunk's start
+    state forward from the chunk's checkpoint, then the ``sub`` states of
+    the sub-chunk (which the kernel holds in registers), and runs their
+    reverse steps. No state is recovered by dividing by w, which reaches 0.
+    """
+    if chunk % sub or sub < 1:
+        raise ValueError(f"chunk {chunk}, sub {sub}: want sub | chunk")
+    rf, kf, vf, wf, dyf = (a.float() for a in (r, k, v, w, dy))
+    uf = u.float()
+    T = r.shape[1]
+
+    def step(s, t):
+        return wf[:, t, :, :, None] * s + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+
+    s, checkpoints = state.float(), []
+    for t in range(T):
+        if t % chunk == 0:
+            checkpoints.append(s)
+        s = step(s, t)
+    g = ds_T.float()
+    grads, du_rows = ([], [], [], []), torch.zeros_like(rf[:, 0])
+    for c in reversed(range(len(checkpoints))):
+        t0 = c * chunk
+        for j in reversed(range(-(-min(chunk, T - t0) // sub))):
+            s = checkpoints[c]
+            for t in range(t0, t0 + j * sub):
+                s = step(s, t)
+            held = []
+            for t in range(t0 + j * sub, min(t0 + (j + 1) * sub, T)):
+                held.append(s)
+                s = step(s, t)
+            for t in reversed(range(t0 + j * sub, t0 + j * sub + len(held))):
+                *parts, du_t, g = _wkv_bwd_step(
+                    held[t - t0 - j * sub], g, rf[:, t], kf[:, t], vf[:, t],
+                    wf[:, t], uf, dyf[:, t])
+                for acc, part in zip(grads, parts):
+                    acc.append(part)
+                du_rows = du_rows + du_t
+    return _wkv_bwd_finish(r, u, state, grads, du_rows, g)
 
 
 def _sums_before(a: torch.Tensor, dim: int) -> torch.Tensor:

@@ -23,7 +23,8 @@ from . import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 64
 # chunked body: steps per chunk (longer T take this body) and per sub-chunk,
-# L and SUB of csrc/wkv6_chunk.cu
+# L and SUB of csrc/wkv6_chunk.cu, which the wrapper checks when it loads
+# the library
 CHUNK = 64
 SUB = 16
 
@@ -69,6 +70,10 @@ def _library() -> ctypes.CDLL:
         # dtype, u_dtype, vec; stream
         lib.wkv6_scan_chunked.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
         lib.wkv6_scan_chunked.restype = i32
+        lib.wkv6_scan_chunked_steps.argtypes = [ptr] * 2
+        lib.wkv6_scan_chunked_steps.restype = i32
+        build.check_steps("wkv6_scan", lib.wkv6_scan_chunked_steps,
+                          (CHUNK, SUB))
         _lib = lib
     return _lib
 

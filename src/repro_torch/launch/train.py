@@ -3,7 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
         --reduced --steps 50 --batch 8 --seq 128 [--device cpu]
 
-The flags of ``repro.launch.train``, plus ``--device`` (default ``cuda``;
+``--arch`` takes any of the port's architectures (``ARCH_NAMES``): the
+dense ones and the recurrent recurrentgemma-9b and rwkv6-3b, whose scans
+train through their backward kernels (K2b, K3b). The flags of
+``repro.launch.train``, plus ``--device`` (default ``cuda``;
 with no card it raises unless ``--device cpu`` is given). Compute is fp32,
 as the reference's launcher has it. ``--mesh`` takes only ``host`` (one
 device) until slice 8 (distribution, ROADMAP.md).

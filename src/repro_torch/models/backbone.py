@@ -9,8 +9,7 @@ cache (per attention layer ``[R,B,C,KV,hd]`` rings plus ``kpos [R,C]``; per
 ``shift1``/``shift2 [R,B,D]`` and ``wkv [R,B,H,hd,hd]`` fp32) and the same
 entry points:
 
-* ``loss_fn(params, batch)``             — training loss (causal LM), for
-  the ``attn`` and ``local`` kinds
+* ``loss_fn(params, batch)``             — training loss (causal LM)
 * ``prefill(params, batch, ctx)``        — run the context; last-token logits
   and a filled decode cache
 * ``decode_step(params, cache, tokens)`` — one token against the cache
@@ -20,14 +19,18 @@ runs under ``torch.utils.checkpoint`` (non-reentrant), where the reference
 wraps its scan body in ``jax.checkpoint``. Attention and the two scans go
 through :mod:`repro_torch.kernels.ops` (the Hopper kernels on the card, the
 plain versions on the CPU), or straight to the plain versions with
-``kernel_impl="plain"``, which exists to hold the kernel path against them;
-attention's gradient comes from
-:class:`repro_torch.models.attention.FlashAttention`.
+``kernel_impl="plain"``, which exists to hold the kernel path against them.
+In training the gradients come from autograd Functions whose backwards are
+kernels too: :class:`repro_torch.models.attention.FlashAttention` (K1b),
+:class:`repro_torch.models.rglru.RGLRUScan` (K2b) and
+:class:`repro_torch.models.rwkv6.WKVScan` (K3b); the recurrent layers train
+from zero state and write none, as the reference's stateless ``_layer_fwd``.
 The encoder-decoder kinds and MoE raise ``NotImplementedError`` naming their
-slice in ROADMAP.md, and so does ``loss_fn`` for the recurrent kinds.
+slice in ROADMAP.md.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
@@ -43,7 +46,7 @@ from .common import (apply_rope_table, dense_init, embed_init, resolve_device,
 from .config import ModelConfig
 from .ffn import gated_mlp
 from .partition import IDENTITY_PLAN, PartitionPlan
-from .rglru import causal_conv1d
+from .rglru import RGLRUScan, causal_conv1d
 
 Params = Dict[str, Any]
 
@@ -82,7 +85,7 @@ class Backbone:
         self.param_dtype = param_dtype
         self.remat = remat
         plain = kernel_impl == "plain"
-        self._plain_attention = plain
+        self._plain = plain
         self._rglru_scan = ref.rglru_scan_plain if plain else ops.rglru_scan
         self._wkv_scan = ref.rwkv6_scan_plain if plain else ops.rwkv6_scan
         self.H = plan.eff_heads(cfg)
@@ -240,7 +243,7 @@ class Backbone:
                                logit_cap=cfg.attn_logit_softcap,
                                q_positions=q_positions,
                                kv_positions=kv_positions,
-                               plain=self._plain_attention)
+                               plain=self._plain)
 
     def _ffn_sublayer(self, p, x):
         h = rms_norm(x, p["ln2"], self.cfg.norm_eps)
@@ -263,54 +266,83 @@ class Backbone:
         x = x + o.reshape(B, S, self.H * self.hd) @ p["wo"]
         return x + self._ffn_sublayer(p, x), k, v
 
-    # -- the recurrent kinds: one function for prefill and decode -----------
-    # Prefill starts from the zero state of a fresh cache, as the reference
-    # starts from zeros; each call reads layer r's state from the cache and
-    # writes the new state back in place (the scans write theirs directly).
-    def _rglru_apply(self, p, h, conv_state, h_state):
+    # -- the recurrent kinds: one body per kind for prefill, decode and
+    # training. Serving reads layer r's state from the cache and writes the
+    # new state back in place (the scans write theirs directly); prefill
+    # starts from the zero state of a fresh cache, as the reference starts
+    # from zeros. Training starts from zero state too, writes none and takes
+    # the scans through their autograd Functions.
+    def _rglru_apply(self, p, h, conv_state, scan):
         """Griffin recurrent block with block-diagonal gates. h: [B,T,D];
-        conv_state [B,K-1,W] and h_state [B,W] fp32 are updated in place."""
+        conv_state [B,K-1,W]; ``scan(x, a_log, gate_r, gate_i) -> (y,
+        h_T)``.
+        Returns (out [B,T,D], the new conv state)."""
         NB = self.cfg.n_heads
         wb = self.W // NB
         branch = h @ p["w_in"]
         gate = F.gelu(h @ p["w_gate_branch"], approximate="tanh")
         branch, conv_new = causal_conv1d(p, branch, conv_state)
-        conv_state.copy_(conv_new)
         bb = branch.reshape(*branch.shape[:-1], NB, wb)
         r = torch.sigmoid(torch.einsum("...nw,nwv->...nv", bb, p["gw_a"])
                           .reshape(branch.shape) + p["gb_a"])
         i = torch.sigmoid(torch.einsum("...nw,nwv->...nv", bb, p["gw_x"])
                           .reshape(branch.shape) + p["gb_x"])
-        y, _ = self._rglru_scan(branch, p["a_log"], r, i, h_state,
-                                h_out=h_state)
-        return (y.to(h.dtype) * gate) @ p["w_out"]
+        y, _ = scan(branch, p["a_log"], r, i)
+        return (y.to(h.dtype) * gate) @ p["w_out"], conv_new
 
-    def _rec_layer(self, p, x, sub, r: int):
+    def _rec_body(self, p, x, conv_state, scan):
         h = rms_norm(x, p["ln1"], self.cfg.norm_eps)
-        x = x + self._rglru_apply(p, h, sub["conv"][r], sub["h"][r]).to(x.dtype)
-        return x + self._ffn_sublayer(p, x)
+        y, conv_new = self._rglru_apply(p, h, conv_state, scan)
+        x = x + y.to(x.dtype)
+        return x + self._ffn_sublayer(p, x), conv_new
 
-    def _rwkv_layer(self, p, x, sub, r: int):
+    def _rwkv_body(self, p, x, shift1, wkv, shift2, scan):
+        """Returns (x, the new shift states 1 and 2); ``scan`` is time
+        mixing's, which leaves the wkv state where it chooses."""
         cfg = self.cfg
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        wkv = sub["wkv"][r]
-        y, shift1, _ = rwkv6.time_mix(p, h, sub["shift1"][r], wkv, self.rwkv_H,
-                                      cfg.rwkv_head_dim, wkv_out=wkv,
-                                      scan=self._wkv_scan)
-        sub["shift1"][r].copy_(shift1)
+        y, shift1, _ = rwkv6.time_mix(p, h, shift1, wkv, self.rwkv_H,
+                                      cfg.rwkv_head_dim, scan=scan)
         x = x + y.to(x.dtype)
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         y, shift2 = rwkv6.channel_mix(
             {"mu_k": p["mu_k2"], "mu_r": p["mu_r2"], "w_in": p["w_in"],
-             "w_out": p["w_out"], "w_rgate": p["w_rgate"]},
-            h, sub["shift2"][r])
-        sub["shift2"][r].copy_(shift2)
-        return x + y
+             "w_out": p["w_out"], "w_rgate": p["w_rgate"]}, h, shift2)
+        return x + y, shift1, shift2
 
     def _recurrent_layer(self, p, x, kind: str, sub, r: int):
+        """Serving: layer ``r`` of a group from and into the cache."""
         if kind == "rec":
-            return self._rec_layer(p, x, sub, r)
-        return self._rwkv_layer(p, x, sub, r)
+            x, conv = self._rec_body(
+                p, x, sub["conv"][r],
+                functools.partial(self._rglru_scan, h0=sub["h"][r],
+                                  h_out=sub["h"][r]))
+            sub["conv"][r].copy_(conv)
+            return x
+        x, shift1, shift2 = self._rwkv_body(
+            p, x, sub["shift1"][r], sub["wkv"][r], sub["shift2"][r],
+            functools.partial(self._wkv_scan, state_out=sub["wkv"][r]))
+        sub["shift1"][r].copy_(shift1)
+        sub["shift2"][r].copy_(shift2)
+        return x
+
+    def _recurrent_train(self, p, x, kind: str):
+        """Training: a recurrent layer from zero state (conv, h0, shifts and
+        wkv), writing no state."""
+        B = x.shape[0]
+        f32 = dict(dtype=torch.float32, device=x.device)
+        if kind == "rec":
+            h0 = torch.zeros(B, self.W, **f32)
+            conv0 = x.new_zeros(B, self.cfg.conv1d_width - 1, self.W)
+            return self._rec_body(
+                p, x, conv0,
+                lambda *a: RGLRUScan.apply(*a, h0, self._plain))[0]
+        hd = self.cfg.rwkv_head_dim
+        shift0 = x.new_zeros(B, self.cfg.d_model)
+        wkv0 = torch.zeros(B, self.rwkv_H, hd, hd, **f32)
+        return self._rwkv_body(
+            p, x, shift0, wkv0, shift0,
+            lambda *a: rwkv6.WKVScan.apply(*a, self._plain))[0]
 
     def _embed_tokens(self, params, tokens) -> torch.Tensor:
         cfg = self.cfg
@@ -344,7 +376,11 @@ class Backbone:
         scan body does."""
         lp = self._layer_params(gp, r)
         for si, kind in enumerate(pattern):
-            x, _, _ = self._layer_fwd(lp[f"s{si}"], x, kind, positions, rope)
+            if kind in ("rec", "rwkv"):
+                x = self._recurrent_train(lp[f"s{si}"], x, kind)
+            else:
+                x, _, _ = self._layer_fwd(lp[f"s{si}"], x, kind, positions,
+                                          rope)
         return x
 
     def loss_fn(self, params: Params, batch: Dict[str, Any]) -> torch.Tensor:
@@ -352,18 +388,12 @@ class Backbone:
         against ``batch["labels"]`` (both [B, S]), plus ``AUX_COEF`` times
         the auxiliary loss, which is 0 without MoE."""
         cfg = self.cfg
-        for kind in cfg.layer_kinds():
-            if kind in ("rec", "rwkv"):
-                raise NotImplementedError(
-                    f"training the {kind!r} kind needs the backward of its "
-                    "scan: ROADMAP.md queue 2, the K2 and K3 backwards, with "
-                    "the slice that trains recurrentgemma and rwkv6")
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         labels = torch.as_tensor(batch["labels"], device=self.device)
         x = self._embed_tokens(params, tokens)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=self.device)
-        rope = self._rope(positions)
+        rope = self._rope(positions) if self._has_attn else None
         for gi, group in enumerate(cfg.groups):
             gp = params[f"g{gi}"]
             for r in range(group.repeat):

@@ -95,7 +95,8 @@ def dense_init(gen: torch.Generator, shape: Tuple[int, ...], in_axis: int = -2,
                dtype=torch.float32, device=None) -> torch.Tensor:
     fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * fan_in ** -0.5).to(dtype)
+    # in place: a stacked leaf of a wide model is tens of GB in fp32
+    return x.mul_(fan_in ** -0.5).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape: Tuple[int, ...],

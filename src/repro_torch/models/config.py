@@ -167,7 +167,8 @@ _REGISTRY: Dict[str, ModelConfig] = {}
 
 # The architectures the port runs. The rest of the reference's ten wait in
 # ROADMAP.md, queue 1.
-ARCH_NAMES = ["qwen3-4b", "recurrentgemma-9b", "rwkv6-3b"]
+ARCH_NAMES = ["qwen3-4b", "gemma2-2b", "qwen2-7b", "phi4-mini-3.8b",
+              "chameleon-34b", "recurrentgemma-9b", "rwkv6-3b"]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

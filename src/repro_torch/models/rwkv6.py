@@ -8,8 +8,10 @@ The port of ``repro.models.rwkv6``. Time mixing keeps a per-head state
 
 with the decay ``w_t = exp(-exp(w0 + A_w tanh(x̃_t B_w)))`` in fp32 and a
 LoRA-modulated token shift (ddlerp). The recurrence runs through ``scan``,
-:func:`repro_torch.kernels.ops.rwkv6_scan` unless the caller passes the
-plain version.
+:func:`repro_torch.kernels.ops.rwkv6_scan` unless the caller passes another:
+serving one that writes the state in place, training :class:`WKVScan`, whose
+backward is K3b (``kernels/rwkv6_bwd.py``) where the reference takes
+``jax.grad`` through its ``lax.scan``.
 
 JAX promotes mixed dtypes where PyTorch raises: the scan's ``y`` is fp32 and
 the gate ``g`` is in the compute dtype, so JAX computes ``y * g`` and
@@ -18,12 +20,12 @@ the result to the residual's dtype.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 from .common import rms_norm
 
@@ -47,15 +49,13 @@ def _shifted(x: torch.Tensor, shift_state: torch.Tensor) -> torch.Tensor:
 
 def time_mix(params: Dict, x: torch.Tensor, shift_state: torch.Tensor,
              wkv_state: torch.Tensor, n_heads: int, head_dim: int, *,
-             wkv_out: Optional[torch.Tensor] = None,
              scan: Callable = ops.rwkv6_scan
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """RWKV-6 attention analogue.
 
-    x: [B,T,D]; shift_state: [B,D] (x_{-1}); wkv_state: [B,H,hd,hd] fp32.
-    Returns (y [B,T,D] fp32, new shift state [B,D], new wkv state); the wkv
-    state is written into ``wkv_out`` when one is given (it may be
-    ``wkv_state``).
+    x: [B,T,D]; shift_state: [B,D] (x_{-1}); wkv_state: [B,H,hd,hd] fp32;
+    ``scan(r, k, v, w, u, state) -> (y, S_T)``. Returns (y [B,T,D] fp32, new
+    shift state [B,D], new wkv state).
     """
     B, T, _ = x.shape
     H, hd = n_heads, head_dim
@@ -70,8 +70,7 @@ def time_mix(params: Dict, x: torch.Tensor, shift_state: torch.Tensor,
     # data-dependent decay (the Finch mechanism), in fp32
     w_raw = params["w0"] + _lora(mixed["w"], params["wd_a"], params["wd_b"])
     w = torch.exp(-torch.exp(w_raw.float())).reshape(B, T, H, hd)
-    y, wkv = scan(r, k, v, w, params["u"].reshape(H, hd), wkv_state,
-                  state_out=wkv_out)
+    y, wkv = scan(r, k, v, w, params["u"].reshape(H, hd), wkv_state)
     # per-head group norm, then the gate and the output projection in fp32
     y = rms_norm(y, params["ln_x"].reshape(H, hd), eps=1e-5)
     y = y.reshape(B, T, H * hd) * g.float()
@@ -87,3 +86,26 @@ def channel_mix(params: Dict, x: torch.Tensor, shift_state: torch.Tensor
     rgate = torch.sigmoid(xr @ params["w_rgate"])
     hidden = torch.square(torch.relu(xk @ params["w_in"]))
     return rgate * (hidden @ params["w_out"]), x[:, -1, :]
+
+
+class WKVScan(torch.autograd.Function):
+    """(y, S_T) = rwkv6_scan(r, k, v, w, u, state) with its gradient: the
+    counterpart of :class:`repro_torch.models.attention.FlashAttention` for
+    the WKV. It saves the inputs and the initial state (the backward
+    recomputes the states from them) and writes no state in place, so remat
+    may run the forward twice. ``plain`` runs both halves' plain versions
+    (``ref.rwkv6_scan_plain``, ``ref.rwkv6_scan_bwd_plain``) on any device."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, plain):
+        scan = ref.rwkv6_scan_plain if plain else ops.rwkv6_scan
+        y, s = scan(r, k, v, w, u, state)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        ctx.plain = plain
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        bwd = ref.rwkv6_scan_bwd_plain if ctx.plain else ops.rwkv6_scan_bwd
+        grads = bwd(*ctx.saved_tensors, dy.contiguous(), ds.contiguous())
+        return (*grads, None)

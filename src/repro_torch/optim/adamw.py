@@ -131,21 +131,23 @@ def apply_updates(cfg: AdamWConfig, params: Params, opt_state: Dict[str, Any],
                   ) -> Tuple[Params, Dict[str, Any], Dict[str, torch.Tensor]]:
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
-    if cfg.clip_norm is not None:
-        scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-        grads = tree_map(lambda g: g * scale, grads)
+    scale = (torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+             if cfg.clip_norm is not None else None)
     lr = cosine_lr(cfg, step)
     b1c = 1 - cfg.b1 ** step.float()
     b2c = 1 - cfg.b2 ** step.float()
 
+    # The reference's operations in its order; a leaf's temporaries are
+    # updated in place where they are fresh, and the clip is applied leaf by
+    # leaf, so that the update of a large leaf (a 1 B-parameter embedding is
+    # 4.2 GB in fp32) holds few copies of it at a time.
     def upd(p, g, m, v):
-        g = g.float()
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
-        mh = m / b1c
-        vh = v / b2c
-        delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m, v
+        g = (g if scale is None else g * scale).float()
+        m = (cfg.b1 * m).add_((1 - cfg.b1) * g)
+        v = (cfg.b2 * v).add_(torch.square(g).mul_(1 - cfg.b2))
+        delta = (m / b1c).div_((v / b2c).sqrt_().add_(cfg.eps))
+        delta.add_(cfg.weight_decay * p.float())
+        return (p.float() - delta.mul_(lr)).to(p.dtype), m, v
 
     out = tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
     new_state = {"step": step, "m": _unzip(out, 1), "v": _unzip(out, 2)}

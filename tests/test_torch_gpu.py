@@ -1,5 +1,6 @@
-"""The Hopper kernels (K1 attention, K1b its backward, K2 RG-LRU scan, K3
-WKV scan) against their plain versions, on the card.
+"""The Hopper kernels (K1 attention, K1b its backward, K2 RG-LRU scan, K2b
+its backward, K3 WKV scan, K3b its backward) against their plain versions,
+on the card.
 
 Every test here needs a CUDA device and skips without one (decided in the
 ``cuda`` fixture, never at import). It imports torch and the port only, so
@@ -24,7 +25,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_bwd as fb
 from repro_torch.kernels import flash_decode as fd
-from repro_torch.kernels import ops, ref, rglru, rwkv6
+from repro_torch.kernels import ops, ref, rglru, rglru_bwd, rwkv6, rwkv6_bwd
 from repro_torch.models import Backbone, LayerGroup, get_config, reduced
 
 pytestmark = pytest.mark.gpu
@@ -45,6 +46,12 @@ SHAPES = [
     # recurrentgemma's local layers: Sq not a multiple of a CTA's 4 query
     # positions nor of the 32-key tile, the window cutting in
     (1, 2103, 2103, 16, 1, 256, True, 2048, None),
+    # odd groups: qwen2-7b (28/4, G 7) and phi4-mini (24/8, G 3)
+    (1, 200, 200, 28, 4, 128, True, None, None),
+    (2, 130, 130, 24, 8, 128, True, None, None),
+    # gemma2-2b's local layers: 8/4 at hd 256, window 4096, softcap 50,
+    # past the window
+    (1, 4200, 4200, 8, 4, 256, True, 4096, 50.0),
 ]
 DTYPES = {"fp32": (torch.float32, (5e-5, 5e-5)),
           "bf16": (torch.bfloat16, (1e-4, 2.0 ** -6))}
@@ -137,6 +144,9 @@ DECODE_CASES = [
     (4, 300, 4, 1, 32, 0, 299, None, 30.0),        # ragged last tile
     (2, 256, 32, 1, 128, 0, 255, None, None),      # G = 32: two row blocks
     (1, 100, 4, 2, 24, 0, 99, 32, 50.0),           # hd 24, window, softcap
+    (8, 1024, 28, 4, 128, 600, 1500, None, None),  # qwen2-7b, G = 7
+    (8, 1024, 24, 8, 128, 0, 700, None, None),     # phi4-mini, G = 3
+    (8, 4096, 8, 4, 256, 600, 4695, 4096, 50.0),   # gemma2-2b, wrapped
 ]
 
 
@@ -603,6 +613,185 @@ def test_model_grads_kernel_path_match_plain_path(cuda, dtype, remat):
     torch.cuda.synchronize()
     assert (fa.launches - before[0], fd.launches - before[1],
             fb.launches - before[2]) == (3 * (2 if remat else 1), 0, 3)
+    lp, gp = value_and_grad(plain, params, batch)
+    if dt == torch.float32:
+        torch.testing.assert_close(lk, lp, atol=1e-5, rtol=1e-5)
+        for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    else:
+        assert abs(float(lk) - float(lp)) <= 2.0 ** -6 * abs(float(lp))
+        for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+            assert float((a - b).norm()) <= 2.0 ** -4 * float(b.norm())
+
+
+# --------------------------------------------------------------------------- #
+# K2b (RG-LRU backward) and K3b (WKV backward) against their plain versions    #
+# --------------------------------------------------------------------------- #
+# Both take the same inputs as their plain versions and compute in fp32. K2b
+# does the plain version's operations in its order (only expf, log1pf, sqrtf
+# and the sigmoid may round differently); K3b sums dr, dk, dw over a row's
+# 64 columns and dv over 64 rows in another order (and recomputes the states
+# from checkpoints, by the plain version's operations). Each gradient is
+# held within TOL of itself plus TOL of its tensor's largest entry (its
+# entries are sums of terms up to that size), TOL 1e-5 for K2b and 2e-4 for
+# K3b, the forward kernels' limits; a bf16 gradient is rounded to bf16 by
+# both, which adds two bf16 ulps of itself (2**-6).
+BWD_TOL = {"rglru_scan_bwd": 1e-5, "wkv6_scan_bwd": 2e-4}
+BWD_BF16_RTOL = 2.0 ** -6
+# (B, T, W): ragged T and W, a sequence the forward's chunked body takes,
+# recurrentgemma-9b's training shape
+RGLRU_BWD_SHAPES = [(1, 1, 64), (2, 13, 100), (3, 65, 264), (1, 300, 4096),
+                    (2, 2560, 4096)]
+# (B, T, H, hd): ragged T (not whole checkpoint chunks nor sub-chunks),
+# hd below 64, rwkv6-3b's training shape
+WKV_BWD_SHAPES = [(1, 1, 1, 8), (2, 17, 3, 24), (1, 50, 2, 64),
+                  (2, 131, 4, 32), (1, 300, 40, 64), (4, 2048, 40, 64)]
+
+
+def _assert_grads_close_on_card(got, want, kernel):
+    tol = BWD_TOL[kernel]
+    for n, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, (kernel, n)
+        w = w.float()
+        limit = tol * (w.abs() + w.abs().max())
+        if g.dtype == torch.bfloat16:
+            limit = limit + BWD_BF16_RTOL * w.abs()
+        err = (g.float() - w).abs()
+        assert bool(torch.isfinite(g.float()).all()), (kernel, n)
+        assert bool((err <= limit).all()), (
+            f"{kernel} output {n}: max abs err {float(err.max())}, worst "
+            f"excess {float((err - limit).max())}")
+
+
+def _rglru_bwd_args(B, T, W, dt, dev, a_log=None):
+    x, al, gr, gi, h0 = _rglru_args(B, T, W, dt, dev)
+    if a_log is not None:
+        al, gr = a_log.to(dt), torch.ones_like(gr)
+    y, _ = ref.rglru_scan_plain(x, al, gr, gi, h0)
+    return (x, al, gr, gi, h0, y, _randn((B, T, W), torch.float32, dev, 16),
+            _randn((B, W), torch.float32, dev, 17))
+
+
+@pytest.mark.parametrize("dtype", list(SCAN_DTYPES))
+@pytest.mark.parametrize("shape", RGLRU_BWD_SHAPES, ids=str)
+def test_rglru_bwd_matches_plain(cuda, shape, dtype):
+    args = _rglru_bwd_args(*shape, SCAN_DTYPES[dtype], cuda)
+    before = rglru_bwd.launches
+    got = rglru_bwd.rglru_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert rglru_bwd.launches == before + 1
+    _assert_grads_close_on_card(got, ref.rglru_scan_bwd_plain(*args),
+                                "rglru_scan_bwd")
+    # no atomics: a rerun gives the same bits
+    again = rglru_bwd.rglru_scan_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("near", [0, 1])
+@pytest.mark.parametrize("T", [1, 40, 300])
+def test_rglru_bwd_edge_decays_on_the_card(cuda, T, near):
+    """a_t = 0 (a_log 20, r = 1), and a_t within 2e-3 of 1 with
+    1 - a_t² > 0 (a_log -9, r = 1), where a_t / b_t is large."""
+    a_log = torch.full((96,), 20.0 if near == 0 else -9.0, device=cuda)
+    args = _rglru_bwd_args(2, T, 96, torch.float32, cuda, a_log=a_log)
+    got = rglru_bwd.rglru_scan_bwd(*args)
+    _assert_grads_close_on_card(got, ref.rglru_scan_bwd_plain(*args),
+                                "rglru_scan_bwd")
+
+
+def _wkv_bwd_args(B, T, H, hd, dt, dev, w=None):
+    r, k, v, w_rand, u, s0 = _wkv_args(B, T, H, hd, dt, dev)
+    return (r, k, v, w_rand if w is None else w, u, s0,
+            _randn((B, T, H, hd), torch.float32, dev, 28),
+            _randn((B, H, hd, hd), torch.float32, dev, 29))
+
+
+@pytest.mark.parametrize("dtype", list(SCAN_DTYPES))
+@pytest.mark.parametrize("shape", WKV_BWD_SHAPES, ids=str)
+def test_wkv_bwd_matches_plain(cuda, shape, dtype):
+    args = _wkv_bwd_args(*shape, SCAN_DTYPES[dtype], cuda)
+    before = rwkv6_bwd.launches
+    got = rwkv6_bwd.wkv6_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert rwkv6_bwd.launches == before + 1
+    _assert_grads_close_on_card(got, ref.rwkv6_scan_bwd_plain(*args),
+                                "wkv6_scan_bwd")
+    again = rwkv6_bwd.wkv6_scan_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("w_value", [0.0, 1.0, "mixed"])
+def test_wkv_bwd_edge_decays_on_the_card(cuda, w_value):
+    """w = 0 (no state survives a step: dividing by w would fail), w = 1,
+    and decays of every size in one run."""
+    shape = (1, 70, 3, 64)
+    w = (torch.exp(-torch.exp(_randn(shape, torch.float32, cuda, 27) * 3))
+         if w_value == "mixed"
+         else torch.full(shape, w_value, device=cuda))
+    args = _wkv_bwd_args(*shape, torch.float32, cuda, w=w)
+    got = rwkv6_bwd.wkv6_scan_bwd(*args)
+    _assert_grads_close_on_card(got, ref.rwkv6_scan_bwd_plain(*args),
+                                "wkv6_scan_bwd")
+
+
+def test_scan_bwd_wrappers_reject_what_they_cannot_take(cuda):
+    x, al, gr, gi, h0, y, dy, dh = _rglru_bwd_args(1, 8, 64, torch.bfloat16,
+                                                    cuda)
+    r, k, v, w, u, s0, dyw, ds = _wkv_bwd_args(1, 8, 2, 64, torch.bfloat16,
+                                               cuda)
+    before = (rglru_bwd.launches, rwkv6_bwd.launches)
+    for bad in (dict(y=y.bfloat16()), dict(dy=dy[:, 1:].contiguous()),
+                dict(dh_T=dh.cpu()), dict(x=x.half(), gate_r=gr.half(),
+                                          gate_i=gi.half())):
+        a = dict(x=x, a_log=al, gate_r=gr, gate_i=gi, h0=h0, y=y, dy=dy,
+                 dh_T=dh)
+        a.update(bad)
+        with pytest.raises(ValueError):
+            ops.rglru_scan_bwd(**a)
+    for bad in (dict(dy=dyw.bfloat16()), dict(ds_T=ds[:, :1].contiguous()),
+                dict(w=w.bfloat16())):
+        a = dict(r=r, k=k, v=v, w=w, u=u, state=s0, dy=dyw, ds_T=ds)
+        a.update(bad)
+        with pytest.raises(ValueError):
+            ops.rwkv6_scan_bwd(**a)
+    assert (rglru_bwd.launches, rwkv6_bwd.launches) == before
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("arch,groups", [
+    ("recurrentgemma-9b", None), ("rwkv6-3b", (("rwkv",), 3))])
+def test_recurrent_model_grads_kernel_path_match_plain_path(cuda, arch, groups,
+                                                            dtype, remat):
+    """loss_fn and every leaf's gradient of reduced recurrentgemma-9b
+    ((rec, rec, local) + (rec), window 32) and a 3-layer rwkv6-3b with fp32
+    params, 65 tokens (the scans' chunked forward bodies, past the window):
+    the kernel path (K2 + K2b, K3 + K3b, K1 + K1b) against
+    kernel_impl="plain", with the limits of the qwen3 test above (the
+    chunked forward bodies regroup fp32 sums, and in bf16 compute their y
+    rounds to bf16 at other places)."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.steps import value_and_grad
+    dt = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    kw = {} if groups is None else {"groups": (LayerGroup(*groups),)}
+    cfg = reduced(get_config(arch), **kw)
+    kern = Backbone(cfg, compute_dtype=dt, remat=remat, device=cuda)
+    plain = Backbone(cfg, compute_dtype=dt, remat=remat, device=cuda,
+                     kernel_impl="plain")
+    params = kern.init(3)
+    toks = np.random.default_rng(12).integers(0, cfg.vocab, (2, 66),
+                                              dtype=np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    before = (rglru.launches, rglru_bwd.launches, rwkv6.launches,
+              rwkv6_bwd.launches)
+    lk, gk = value_and_grad(kern, params, batch)
+    torch.cuda.synchronize()
+    kinds = cfg.layer_kinds()
+    fwd = 2 if remat else 1
+    assert (rglru.launches - before[0], rglru_bwd.launches - before[1],
+            rwkv6.launches - before[2], rwkv6_bwd.launches - before[3]) == (
+        fwd * kinds.count("rec"), kinds.count("rec"),
+        fwd * kinds.count("rwkv"), kinds.count("rwkv"))
     lp, gp = value_and_grad(plain, params, batch)
     if dt == torch.float32:
         torch.testing.assert_close(lk, lp, atol=1e-5, rtol=1e-5)

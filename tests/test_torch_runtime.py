@@ -450,10 +450,12 @@ def test_straggler_detection_and_hook(tmp_path):
         tr.shutdown()
 
 
-def test_train_launcher_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
+@pytest.mark.parametrize("arch", ["qwen3-4b", "recurrentgemma-9b",
+                                  "rwkv6-3b"])
+def test_train_launcher_runs_on_the_cpu(tmp_path, monkeypatch, capsys, arch):
     from repro_torch.launch import train
     monkeypatch.setattr("sys.argv", [
-        "train", "--arch", "qwen3-4b", "--reduced", "--device", "cpu",
+        "train", "--arch", arch, "--reduced", "--device", "cpu",
         "--steps", "6", "--batch", "2", "--seq", "16", "--ckpt-every", "3",
         "--ckpt-dir", str(tmp_path)])
     train.main()

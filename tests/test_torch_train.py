@@ -4,10 +4,11 @@ the loss, ``Backbone.loss_fn`` and its gradients, AdamW, and the train step.
 The JAX init is grafted into the port through ``repro_torch.bridge``; data
 and noise are made with numpy from a seed and handed to both. Tolerances:
 the cross-entropy 1e-6 (one fp32 logsumexp against another); the loss after
-three layers 1e-5 and each leaf's gradient 1e-4 of the leaf's largest
-entry (the port's attention is the unchunked softmax and its backward the
-chunked one at other chunk sizes: fp32 round-off, compounded through three
-layers and back); AdamW's update 1e-6 (elementwise fp32, the same
+three or four layers 1e-5 and each leaf's gradient 1e-4 of the leaf's
+largest entry (the port's attention is the unchunked softmax and its
+backward the chunked one at other chunk sizes, the scans' backwards reverse
+loops against JAX's transposed scans: fp32 round-off, compounded through
+the layers and back); AdamW's update 1e-6 (elementwise fp32, the same
 operations); two train steps 1e-5 on the loss and grad_norm, and each
 parameter leaf's RMS difference 1e-3 x lr (Adam's step is lr times
 m / (sqrt(v) + eps), normalised per entry: where an entry's gradient is
@@ -88,15 +89,34 @@ def test_stable_cross_entropy_matches_jax(cap):
 # ---------------------------------------------------------------------------
 # loss_fn and its gradients
 # ---------------------------------------------------------------------------
+# variant -> (arch, layer groups or None for reduced()'s own, overrides):
+# reduced qwen3-4b with 3 attn layers, or an (attn, local) group with a
+# window and both softcaps; reduced recurrentgemma-9b ((rec, rec, local) +
+# (rec)) and a 3-layer rwkv6-3b, whose scans' gradients are K2b's and K3b's
+# plain versions here; the four dense archs' reduced configs
+VARIANTS = {
+    "attn": ("qwen3-4b", (("attn",), 3), {}),
+    "local": ("qwen3-4b", (("attn", "local"), 1),
+              dict(attn_window=8, attn_logit_softcap=30.0,
+                   final_logit_softcap=20.0)),
+    "rec": ("recurrentgemma-9b", None, {}),
+    "rwkv": ("rwkv6-3b", (("rwkv",), 3), {}),
+    "gemma2-2b": ("gemma2-2b", None, {}),
+    "qwen2-7b": ("qwen2-7b", None, {}),
+    "phi4-mini-3.8b": ("phi4-mini-3.8b", None, {}),
+    "chameleon-34b": ("chameleon-34b", None, {}),
+}
+
+
 def _pair(variant, remat):
-    """(JAX backbone, port backbone) of a 3-layer reduced qwen3-4b. 'local'
-    swaps in a window, attention and final softcaps and a local layer."""
-    groups = (("attn",), 3) if variant == "attn" else (("attn", "local"), 1)
-    over = {} if variant == "attn" else dict(
-        attn_window=8, attn_logit_softcap=30.0, final_logit_softcap=20.0)
-    jcfg = jreduced(jget_config("qwen3-4b"), groups=(JLayerGroup(*groups),),
-                    **over)
-    cfg = reduced(get_config("qwen3-4b"), groups=(LayerGroup(*groups),), **over)
+    """(JAX backbone, port backbone) of a variant's reduced config."""
+    arch, groups, over = VARIANTS[variant]
+    jover, over = dict(over), dict(over)
+    if groups is not None:
+        jover["groups"] = (JLayerGroup(*groups),)
+        over["groups"] = (LayerGroup(*groups),)
+    jcfg = jreduced(jget_config(arch), **jover)
+    cfg = reduced(get_config(arch), **over)
     jbb = JBackbone(jcfg, compute_dtype=jnp.float32, remat=remat)
     bb = Backbone(cfg, compute_dtype=torch.float32, remat=remat, device="cpu")
     return jbb, bb
@@ -108,13 +128,25 @@ def _batch(vocab, B=2, S=24, seed=1):
     return {"tokens": toks[:, :S], "labels": toks[:, 1:]}
 
 
+def _perturbed_init(jbb):
+    """JAX's init with its zero leaves (norm scales, biases, u, w0, the
+    LoRAs' second factors) perturbed, so that every leaf's gradient path is
+    exercised."""
+    leaves, treedef = jax.tree_util.tree_flatten(jbb.init(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(4)
+    leaves = [l + 0.1 * rng.standard_normal(l.shape).astype(np.float32)
+              if not np.any(np.asarray(l)) else l for l in leaves]
+    return jax.tree_util.tree_unflatten(treedef, leaves)
+
+
 @pytest.mark.parametrize("remat", [False, True])
-@pytest.mark.parametrize("variant", ["attn", "local"])
+@pytest.mark.parametrize("variant", list(VARIANTS))
 def test_loss_fn_and_grads_match_jax(variant, remat):
     jbb, bb = _pair(variant, remat)
-    jparams = jbb.init(jax.random.PRNGKey(0))
+    jparams = _perturbed_init(jbb)
     params = bridge.params_from_numpy(_np_tree(jparams), device="cpu")
-    batch = _batch(jbb.cfg.vocab)
+    # past the reduced window (32) where there is one
+    batch = _batch(jbb.cfg.vocab, S=40 if jbb.cfg.attn_window else 24)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     want_loss, want_grads = jax.value_and_grad(jbb.loss_fn)(jparams, jbatch)
     loss, grads = value_and_grad(bb, params, batch)
@@ -124,14 +156,6 @@ def test_loss_fn_and_grads_match_jax(variant, remat):
     for a, b in zip(adamw.tree_leaves(params),
                     jax.tree_util.tree_leaves(jparams)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-
-
-@pytest.mark.parametrize("kind", ["rec", "rwkv"])
-def test_loss_fn_of_the_recurrent_kinds_names_the_roadmap(kind):
-    arch = {"rec": "recurrentgemma-9b", "rwkv": "rwkv6-3b"}[kind]
-    bb = Backbone(reduced(get_config(arch)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-        bb.loss_fn(bb.init(0), _batch(bb.cfg.vocab))
 
 
 def test_meta_init_has_the_shapes_of_init():
