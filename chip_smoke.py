@@ -11,6 +11,7 @@ Phases; each one that fails raises, and the process exits non-zero:
 2. Build the kernels with nvcc from the checkout's sources, one nvcc per
    source, all started together; print the seconds and ``-Xptxas -v``;
    count the HMMA (tensor-core) instructions of K1b's dk/dv and dq kernels
+   and of K3b's matrix kernels (its chunk states and chunk cotangents)
    in the library (cuobjdump -sass), none of which may lack them.
 3. Hold each kernel against its plain PyTorch version on the card, in fp32
    and bf16 inputs, and time each (CUDA events, after warm-up, inputs
@@ -29,7 +30,10 @@ Phases; each one that fails raises, and the process exits non-zero:
    choice and the other), against the sequential plain version; state
    chaining for both scans; the scans' backwards K2b (rglru_bwd) and K3b
    (wkv6_bwd) at a ragged shape and at the training shapes of phase 6,
-   against their plain versions, two runs bit for bit.
+   against their plain versions, two runs bit for bit, each of their
+   launches timed at the training shapes (torch.profiler): K2b's maps,
+   carry, rescan and da_log sum, K3b's chunk states, chunk cotangents,
+   walk (dv inside it) and du sum.
 4. Each served arch at full width and reduced depth (see MODEL_CHECKS: 2
    layers, recurrentgemma-9b one (rec, rec, local) group and gemma2-2b one
    (local, attn) group, each with prompts past its window): in fp32, decode
@@ -175,10 +179,12 @@ OTHER_TRAIN = {
 # K2b and K3b against their plain versions: both compute in fp32 from the
 # same inputs, so each gradient is held within SCAN_BWD_TOL of itself plus
 # SCAN_BWD_TOL of its tensor's largest entry (an entry is a sum of terms up
-# to that size): 1e-5 for K2b (the plain version's operations in its order;
-# only expf, log1pf, sqrtf and the sigmoid round otherwise), 2e-4 for K3b
-# (its sums of 64 products in another order). A bf16 gradient is rounded to
-# bf16 once by both, which adds two bf16 ulps of itself.
+# to that size): 1e-5 for K2b (the plain version's operations, regrouped
+# into chunk maps and a carry; expf, log1pf, sqrtf and the sigmoid round
+# otherwise), 2e-4 for K3b (its chunk states and cotangents from 3xTF32
+# products and carries, its sums of 64 products in another order). A bf16
+# gradient is rounded to bf16 once by both, which adds two bf16 ulps of
+# itself.
 SCAN_BWD_TOL = {"rglru_bwd": 1e-5, "wkv6_bwd": 2e-4}
 BF16_GRAD_RTOL = 2.0 ** -6
 # K1b cases: (name, B, S, Hq, Hkv, hd, causal, window, cap, empty kv slots)
@@ -620,12 +626,27 @@ def phase_wkv():
     return rows
 
 
-def scan_bwd_case(kernel, name, dtype, make, run, plain, nbytes, flops):
+# the launches of each scan backward by pass, as the profiler names them
+BWD_PASSES = {
+    "rglru_bwd": {"maps": ("rglru_bwd_maps_kernel",),
+                  "carry": ("rglru_bwd_carry_kernel",),
+                  "rescan": ("rglru_bwd_rescan_kernel",),
+                  "sum": ("rglru_bwd_alog_kernel",)},
+    "wkv6_bwd": {"states": ("wkv_summary_kernel", "wkv_carry_kernel"),
+                 "cotangents": ("wkv_bwd_cot_kernel", "wkv_bwd_carry_kernel"),
+                 "walk": ("wkv_bwd_walk_kernel",),
+                 "du": ("wkv_bwd_du_kernel",)},
+}
+
+
+def scan_bwd_case(kernel, name, dtype, make, run, plain, nbytes, flops,
+                  timed_passes=False):
     """Hold a scan's backward kernel against its plain version on
     ``make(0)``'s inputs within SCAN_BWD_TOL, a rerun bit for bit, and time
     both (the timed shapes' inputs exceed the L2 cache: no rotation); the
     bound is the larger of ``nbytes`` over the memory rate and ``flops`` of
-    fp32 over the fp32 rate."""
+    fp32 over the fp32 rate. ``timed_passes``: each launch's device time
+    from torch.profiler too, summed by pass (BWD_PASSES)."""
     tol = SCAN_BWD_TOL[kernel]
     args = make(0)
     got = run(*args)
@@ -650,13 +671,28 @@ def scan_bwd_case(kernel, name, dtype, make, run, plain, nbytes, flops):
     del got, want, again
     ms = time_ms(lambda: run(*args), iters=10)
     plain_ms = time_ms(lambda: plain(*args), iters=1, warmup=1)
+    dname = str(dtype).replace("torch.", "")
+    passes = None
+    if timed_passes:
+        launch = kernel_ms(lambda: run(*args), calls=5)
+        passes = {p: sum(ms_ for k, ms_ in launch.items()
+                         if k.split("<")[0] in names)
+                  for p, names in BWD_PASSES[kernel].items()}
+        missing = set().union(*BWD_PASSES[kernel].values()) - {
+            k.split("<")[0] for k in launch}
+        if missing:
+            raise AssertionError(f"{kernel} {name}: no device time for "
+                                 f"{sorted(missing)} in the trace")
+        log(f"[kernel] {kernel} {name:>16} {dname:>8} passes "
+            + " ".join(f"{p} {t:.4f} ms" for p, t in passes.items())
+            + f" (sum {sum(passes.values()):.4f} ms)")
     t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES
     bound_ms = max(t_ops, t_bytes) * 1e3
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    row = dict(kernel=kernel, case=name, dtype=str(dtype).replace("torch.", ""),
+    row = dict(kernel=kernel, case=name, dtype=dname,
                shape=list(args[0].shape), max_abs_err=max_err, atol=tol,
                rtol=tol, ms=ms, plain_ms=plain_ms, library_ms=None,
-               bound_ms=bound_ms, bound_by=bound_by)
+               bound_ms=bound_ms, bound_by=bound_by, passes_ms=passes)
     log(f"[kernel] {kernel} {name:>16} {row['dtype']:>8} err {max_err:.3e} "
         f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library none "
         f"bound {bound_ms:.4f} ms ({bound_by})")
@@ -692,7 +728,8 @@ def phase_scan_bwd():
             nbytes = es * (6 * n + 2 * W) + 4 * (2 * n + 3 * B * W)
             rows.append(scan_bwd_case("rglru_bwd", name, dtype, make,
                                       rglru_bwd.rglru_scan_bwd,
-                                      ref.rglru_scan_bwd_plain, nbytes, 20 * n))
+                                      ref.rglru_scan_bwd_plain, nbytes, 20 * n,
+                                      timed_passes=name == "rgemma_train"))
         for name, B, T, H, hd in (("wkv_bwd_ragged", 2, 131, 3, 24),
                                   ("rwkv6_train", rw["batch"], rw["seq"], 40,
                                    64)):
@@ -711,7 +748,8 @@ def phase_scan_bwd():
             rows.append(scan_bwd_case("wkv6_bwd", name, dtype, make,
                                       rwkv6_bwd.wkv6_scan_bwd,
                                       ref.rwkv6_scan_bwd_plain, nbytes,
-                                      14 * hd * n))
+                                      14 * hd * n,
+                                      timed_passes=name == "rwkv6_train"))
     free_memory()
     return rows
 
@@ -1229,25 +1267,33 @@ def kernel_ms(fn, calls=6):
     return {k: round(t / n / 1e3, 5) for k, (t, n) in by_name.items()}
 
 
+# kernels that must hold HMMA instructions, by a part of their name, and how
+# many instantiations of each the library holds: K1b's dk/dv and dq kernels
+# (2 dtypes x 4 head-dim tilings), K3b's matrix passes (2 dtypes each)
+SASS_HMMA = {"flash_bwd_dkdv": 8, "flash_bwd_dq": 8, "wkv_summary_kernel": 2,
+             "wkv_bwd_cot_kernel": 2}
+
+
 def sass_hmma(lib_path):
-    """HMMA instructions in each K1b kernel of the built library, by
-    cuobjdump -sass: the dk/dv and dq kernels must run on the tensor cores
-    (bf16 m16n8k16 and, in the fp32 body, TF32 m16n8k8). cuobjdump is the
+    """HMMA instructions in each kernel of SASS_HMMA in the built library, by
+    cuobjdump -sass: K1b's dk/dv and dq kernels must run on the tensor cores
+    (bf16 m16n8k16 and, in the fp32 body, TF32 m16n8k8), and so must K3b's
+    chunk states and chunk cotangents (3xTF32 m16n8k8). cuobjdump is the
     one beside the nvcc that built the library; without it the check fails."""
     from repro_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(os.path.realpath(build.nvcc())),
                         "cuobjdump")
     if not os.path.exists(tool):
-        raise RuntimeError(f"{tool} not found: the HMMA check of K1b cannot "
-                           "run")
+        raise RuntimeError(f"{tool} not found: the HMMA check of K1b and "
+                           "K3b cannot run")
     text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     counts, name = {}, None
     for line in text.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            if "flash_bwd_dkdv" not in name and "flash_bwd_dq" not in name:
+            if not any(part in name for part in SASS_HMMA):
                 name = None
             else:
                 counts[name] = {"hmma": 0, "bf16": 0, "tf32": 0}
@@ -1259,10 +1305,10 @@ def sass_hmma(lib_path):
     for fn, c in sorted(counts.items()):
         log(f"[sass] {fn}: {c['hmma']} HMMA ({c['bf16']} bf16, {c['tf32']} "
             "tf32)")
-    # 2 kernels x 2 dtypes x 4 head-dim tilings
-    if len(counts) != 16 or any(c["hmma"] == 0 for c in counts.values()):
-        raise AssertionError(f"K1b kernels without HMMA, or not 16 of them: "
-                             f"{counts}")
+    found = {part: sum(part in fn for fn in counts) for part in SASS_HMMA}
+    if found != SASS_HMMA or any(c["hmma"] == 0 for c in counts.values()):
+        raise AssertionError(f"K1b or K3b kernels without HMMA, or not "
+                             f"{SASS_HMMA} of them: {found} {counts}")
     return counts
 
 
@@ -1575,7 +1621,8 @@ SOURCE = {"flash_fwd": "flash_fwd.cu", "flash_decode": "flash_decode.cu",
           "rglru_scan": "rglru_scan.cu", "wkv6_scan": "wkv6_chunk.cu",
           "flash_bwd": "flash_bwd.cu", "rglru_bwd": "rglru_bwd.cu",
           "wkv6_bwd": "wkv6_bwd.cu"}
-SOURCES = {"wkv6_scan": ("wkv6_chunk.cu", "wkv6_scan.cu")}
+SOURCES = {"wkv6_scan": ("wkv6_chunk.cu", "wkv6_scan.cu"),
+           "wkv6_bwd": ("wkv6_bwd.cu", "wkv6_chunk.cu", "wkv6_chunk.cuh")}
 # the port's kernel names in a profiler trace start with one of these
 TRACE_NAMES = ("flash_", "rglru_", "wkv")
 
@@ -1645,7 +1692,7 @@ def main() -> int:
                 path: {k.split(".")[1]: n for k, n in paths[path].items()
                        if k.startswith("flash_bwd.")} for path in by_path}
     log("[summary] " + json.dumps({"model": model, "serve": serve,
-                                   "train": train, "k1b_sass": sass,
+                                   "train": train, "hmma_sass": sass,
                                    "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -17,8 +17,9 @@ Times: CUDA events over 20 calls after warm-up, the inputs the same in each
 call (they are read once a call, from device memory: 63 MB and 21 MB, larger
 than a pass's worth of L2 reuse). The RG-LRU's look-back flags are zeroed
 before the timed calls, so its times are the kernel's alone. Variants are
-built with nvcc (one process each, started together) into
-build/kernels/phases/. It exits 2 without a CUDA device.
+built with nvcc (one process each, started together, the sources'
+headers on the include path) into build/kernels/phases/. It exits 2 without
+a CUDA device.
 """
 from __future__ import annotations
 
@@ -102,7 +103,7 @@ def build(paths):
     from repro_torch.kernels import build as kb
     procs = [(p, subprocess.Popen(
         [kb.nvcc(), *kb.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-         "-shared", "-o", str(p.with_suffix(".so")), str(p)],
+         "-I", str(CSRC), "-shared", "-o", str(p.with_suffix(".so")), str(p)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         for p in paths]
     libs = {}

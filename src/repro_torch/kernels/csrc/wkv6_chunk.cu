@@ -25,9 +25,10 @@
 //      ΔS_c = (k ⊙ decay to the chunk's end)ᵀ V, a 64x64x64 product;
 //   2. carry, one thread per (b, h, state element): S_{c+1} = D_c S_c + ΔS_c
 //      from state, each chunk's start state written over its ΔS in the
-//      scratch, S_T to state_out. A thread reads its element of state before
-//      it writes the same element of state_out, which keeps state_out =
-//      state safe; nothing else reads state.
+//      scratch, S_T to state_out; the next 8 chunks' loads are in flight
+//      while the current 8 are stored. A thread reads its element of state
+//      before it writes the same element of state_out, which keeps
+//      state_out = state safe; nothing else reads state.
 //   3. outputs, one CTA per (b, h, chunk), warp i on sub-chunk i's 16 rows:
 //      y = R̃ S_c + A V, R̃[t] = r_t ⊙ exp(Λ[t-1]), and A[t,s] the weight of
 //      v_s in y_t: for s in an earlier sub-chunk (r_t ⊙ decay from the
@@ -57,6 +58,13 @@
 // terms on the CUDA cores, 64 x 64 x 4 exps; pass 2 3 fp32 operations per
 // state element per chunk.
 //
+// The backward (K3b, wkv6_bwd.cu) runs its matrix passes here, through the
+// entry points of wkv6_chunk.cuh: passes 1-2 for its chunk start states,
+// and the same two on the cotangents (wkv_bwd_cot_kernel: ΔG_c = R̃ᵀ dY,
+// R̃[t] = r_t ⊙ decay from the chunk's start to t, a 64x64x64 product;
+// wkv_bwd_carry_kernel: G_c = D_c G_{c+1} + ΔG_c from dS_T, last chunk
+// first).
+//
 // Time (PERF.md, scan_phases.py): about 0.078 ms at the prefill shape
 // against the 0.0064 ms bound: pass 1 0.015, pass 2 0.004, pass 3 0.056
 // (staging 0.008, diagonal blocks 0.016-0.020, runs of log w and decays
@@ -70,6 +78,7 @@
 #include <stdint.h>
 
 #include "tf32x3.cuh"
+#include "wkv6_chunk.cuh"
 
 namespace {
 
@@ -189,33 +198,51 @@ __device__ __forceinline__ float run_sums(float* lw, float* pre, int ld, int j,
   return pre ? acc : after;
 }
 
+// In place over lw[t][k] of sub-chunk j, column k: lw[t] <- Σ lw of the
+// sub-chunk's steps before t; returns Σ lw of the sub-chunk.
+__device__ __forceinline__ float run_sums_before(float* lw, int ld, int j,
+                                                 int k) {
+  float acc = 0.f;
+#pragma unroll
+  for (int t = j * SUB; t < (j + 1) * SUB; ++t) {
+    const float l = lw[t * ld + k];
+    lw[t * ld + k] = acc;
+    acc += l;
+  }
+  return acc;
+}
+
 // ---- pass 1: the chunk summaries -------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(NT)
-wkv_summary_kernel(const T* __restrict__ k, const T* __restrict__ v,
-                   const float* __restrict__ w, float* __restrict__ scratch,
-                   float* __restrict__ decay, int T_, int H, int hd, bool vec) {
+// out[kk][v] = Σ_s a[s][kk] e[s][kk] b[s][v] over the chunk's steps, with
+// e[s] the decay from s to the chunk's end (a = k, b = v: ΔS_c; the chunk's
+// decay D_c goes to `decay`) or, FROM_START, from the chunk's start to s
+// (a = r, b = dy: the backward's ΔG_c; decay is not written).
+template <typename TA, typename TB, bool FROM_START>
+__device__ __forceinline__ void chunk_summary(
+    const TA* __restrict__ a, const TB* __restrict__ bm,
+    const float* __restrict__ w, float* __restrict__ scratch,
+    float* __restrict__ decay, int T_, int H, int hd, bool vec) {
   extern __shared__ __align__(16) float sm[];
-  float* ks = sm;                 // [L][LDB]: k, then k ⊙ decay to the end
-  float* vs = ks + L * LDB;       // [L][LDB]: v
-  float* qs = vs + L * LDB;       // [L][LDB]: w, log w, then Σ lw after t
+  float* ks = sm;                 // [L][LDB]: a, then a ⊙ its decay
+  float* vs = ks + L * LDB;       // [L][LDB]: b
+  float* qs = vs + L * LDB;       // [L][LDB]: w, log w, then its runs
   __shared__ float g[NSUB][HD];   // Σ lw of each sub-chunk
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int n_chunks = gridDim.x;
   const int t0 = c * L;
 
   if (vec) {
-    uint4 kb[tile_vectors<T>()], vb[tile_vectors<T>()],
+    uint4 kb[tile_vectors<TA>()], vb[tile_vectors<TB>()],
         wb[tile_vectors<float>()];
-    load_tile<T>(kb, k, b, t0, T_, H, h, hd);
-    load_tile<T>(vb, v, b, t0, T_, H, h, hd);
+    load_tile<TA>(kb, a, b, t0, T_, H, h, hd);
+    load_tile<TB>(vb, bm, b, t0, T_, H, h, hd);
     load_tile<float>(wb, w, b, t0, T_, H, h, hd);
-    store_tile<T>(ks, LDB, kb, t0, T_, hd, 0.f);
-    store_tile<T>(vs, LDB, vb, t0, T_, hd, 0.f);
+    store_tile<TA>(ks, LDB, kb, t0, T_, hd, 0.f);
+    store_tile<TB>(vs, LDB, vb, t0, T_, hd, 0.f);
     store_tile<float>(qs, LDB, wb, t0, T_, hd, 1.f);
   } else {
-    stage_rows(ks, LDB, k, b, t0, T_, H, h, hd, 0.f);
-    stage_rows(vs, LDB, v, b, t0, T_, H, h, hd, 0.f);
+    stage_rows(ks, LDB, a, b, t0, T_, H, h, hd, 0.f);
+    stage_rows(vs, LDB, bm, b, t0, T_, H, h, hd, 0.f);
     stage_rows(qs, LDB, w, b, t0, T_, H, h, hd, 1.f);
   }
   __syncthreads();
@@ -223,43 +250,47 @@ wkv_summary_kernel(const T* __restrict__ k, const T* __restrict__ v,
   __syncthreads();
   for (int task = threadIdx.x; task < NSUB * HD; task += NT)
     g[task / HD][task % HD] =
-        run_sums(qs, nullptr, LDB, task / HD, task % HD);
+        FROM_START ? run_sums_before(qs, LDB, task / HD, task % HD)
+                   : run_sums(qs, nullptr, LDB, task / HD, task % HD);
   __syncthreads();
-  // per column: Σ lw of the sub-chunks after j, then the chunk's decay
-  float* after = reinterpret_cast<float*>(g);  // reused in place below
+  // per column: Σ lw of the sub-chunks after j (before j, FROM_START),
+  // then the chunk's decay
+  float* other = reinterpret_cast<float*>(g);  // reused in place below
   if (threadIdx.x < HD) {
     const int kk = threadIdx.x;
     float acc = 0.f;
-    for (int j = NSUB - 1; j >= 0; --j) {
+    for (int i = 0; i < NSUB; ++i) {
+      const int j = FROM_START ? i : NSUB - 1 - i;
       const float gj = g[j][kk];
-      after[j * HD + kk] = acc;
+      other[j * HD + kk] = acc;
       acc += gj;
     }
-    decay[(((size_t)b * H + h) * n_chunks + c) * HD + kk] = expf(acc);
+    if (!FROM_START)
+      decay[(((size_t)b * H + h) * n_chunks + c) * HD + kk] = expf(acc);
   }
   __syncthreads();
   for (int e = threadIdx.x; e < L * HD; e += NT) {
     const int s = e / HD, kk = e % HD;
-    ks[s * LDB + kk] *= expf(qs[s * LDB + kk] + after[(s / SUB) * HD + kk]);
+    ks[s * LDB + kk] *= expf(qs[s * LDB + kk] + other[(s / SUB) * HD + kk]);
   }
   __syncthreads();
 
-  // ΔS[kk][v] = Σ_s ks[s][kk] vs[s][v]; warp wi takes rows kk of 16 wi ..
+  // out[kk][v] = Σ_s ks[s][kk] vs[s][v]; warp wi takes rows kk of 16 wi ..
   const int lane = threadIdx.x % 32, wi = threadIdx.x / 32;
   const int gq = lane / 4, tq = lane % 4;
   const int m0 = wi * 16;
   float acc[HD / 8][4] = {};
 #pragma unroll 2
   for (int s0 = 0; s0 < L; s0 += 8) {
-    const Split a[4] = {split(ks[(s0 + tq) * LDB + m0 + gq]),
-                        split(ks[(s0 + tq) * LDB + m0 + gq + 8]),
-                        split(ks[(s0 + tq + 4) * LDB + m0 + gq]),
-                        split(ks[(s0 + tq + 4) * LDB + m0 + gq + 8])};
+    const Split fa[4] = {split(ks[(s0 + tq) * LDB + m0 + gq]),
+                         split(ks[(s0 + tq) * LDB + m0 + gq + 8]),
+                         split(ks[(s0 + tq + 4) * LDB + m0 + gq]),
+                         split(ks[(s0 + tq + 4) * LDB + m0 + gq + 8])};
 #pragma unroll
     for (int nt = 0; nt < HD / 8; ++nt) {
       const Split bb[2] = {split(vs[(s0 + tq) * LDB + nt * 8 + gq]),
                            split(vs[(s0 + tq + 4) * LDB + nt * 8 + gq])};
-      mma3(acc[nt], a, bb);
+      mma3(acc[nt], fa, bb);
     }
   }
   float* out = scratch + (((size_t)b * H + h) * n_chunks + c) * HD * HD;
@@ -273,37 +304,89 @@ wkv_summary_kernel(const T* __restrict__ k, const T* __restrict__ v,
   }
 }
 
+// ΔS_c = (k ⊙ decay to the chunk's end)ᵀ V, and D_c
+template <typename T>
+__global__ void __launch_bounds__(NT)
+wkv_summary_kernel(const T* __restrict__ k, const T* __restrict__ v,
+                   const float* __restrict__ w, float* __restrict__ scratch,
+                   float* __restrict__ decay, int T_, int H, int hd, bool vec) {
+  chunk_summary<T, T, false>(k, v, w, scratch, decay, T_, H, hd, vec);
+}
+
+// the backward's ΔG_c = (r ⊙ decay from the chunk's start)ᵀ dY
+template <typename T>
+__global__ void __launch_bounds__(NT)
+wkv_bwd_cot_kernel(const T* __restrict__ r, const float* __restrict__ dy,
+                   const float* __restrict__ w, float* __restrict__ scratch,
+                   int T_, int H, int hd, bool vec) {
+  chunk_summary<T, float, true>(r, dy, w, scratch, nullptr, T_, H, hd, vec);
+}
+
 // ---- pass 2: the carry ------------------------------------------------------
-__global__ void __launch_bounds__(CARRY_NT)
-wkv_carry_kernel(const float* state, float* state_out, float* scratch,
-                 const float* __restrict__ decay, int hd, int n_chunks) {
+// x_{c+1} = D_c x_c + Δ_c over the chunks from init, first to last (the
+// states: each chunk's start state written over its Δ, S_T to out unless
+// out is null) or, REVERSE, last to first (the backward's cotangents from
+// dS_T: each chunk's end cotangent G_{c+1} written over its ΔG, ds0 to out).
+template <bool REVERSE>
+__device__ __forceinline__ void chunk_carry(const float* init, float* out,
+                                            float* scratch,
+                                            const float* __restrict__ decay,
+                                            int hd, int n_chunks) {
   const int e = blockIdx.x * CARRY_NT + threadIdx.x;  // of HD * HD
   const int bh = blockIdx.y;
   const int kk = e / HD, vv = e % HD;
   const bool ok = kk < hd && vv < hd;
   const size_t sidx = (size_t)bh * hd * hd + (size_t)kk * hd + vv;
-  float s = ok ? state[sidx] : 0.f;
+  float s = ok ? init[sidx] : 0.f;
   float* sc = scratch + (size_t)bh * n_chunks * HD * HD + e;
   const float* dc = decay + (size_t)bh * n_chunks * HD + kk;
+  // two batches of chunks in registers: the next batch's loads are in
+  // flight while the current batch's stores and chain run
   constexpr int BATCH = 8;
-  for (int c0 = 0; c0 < n_chunks; c0 += BATCH) {
-    float ds[BATCH], d[BATCH];
-#pragma unroll
-    for (int j = 0; j < BATCH; ++j) {  // every load of the batch first
-      if (c0 + j < n_chunks) {
-        ds[j] = sc[(size_t)(c0 + j) * HD * HD];
-        d[j] = dc[(size_t)(c0 + j) * HD];
-      }
-    }
+  float ds0[BATCH], d0[BATCH], ds1[BATCH], d1[BATCH];
+  auto chunk_of = [&](int m) { return REVERSE ? n_chunks - 1 - m : m; };
+  auto load = [&](float (&ds)[BATCH], float (&d)[BATCH], int c0) {
 #pragma unroll
     for (int j = 0; j < BATCH; ++j) {
       if (c0 + j < n_chunks) {
-        sc[(size_t)(c0 + j) * HD * HD] = s;  // the chunk's start state
+        ds[j] = sc[(size_t)chunk_of(c0 + j) * HD * HD];
+        d[j] = dc[(size_t)chunk_of(c0 + j) * HD];
+      }
+    }
+  };
+  auto step = [&](const float (&ds)[BATCH], const float (&d)[BATCH], int c0) {
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      if (c0 + j < n_chunks) {
+        // the chunk's start state (end cotangent, REVERSE)
+        sc[(size_t)chunk_of(c0 + j) * HD * HD] = s;
         s = d[j] * s + ds[j];
       }
     }
+  };
+  load(ds0, d0, 0);
+  for (int c0 = 0; c0 < n_chunks; c0 += 2 * BATCH) {
+    load(ds1, d1, c0 + BATCH);
+    step(ds0, d0, c0);
+    load(ds0, d0, c0 + 2 * BATCH);
+    step(ds1, d1, c0 + BATCH);
   }
-  if (ok) state_out[sidx] = s;
+  if (ok && out) out[sidx] = s;
+}
+
+// A thread reads its element of state before it writes the same element of
+// state_out, which keeps state_out = state safe; nothing else reads state.
+__global__ void __launch_bounds__(CARRY_NT)
+wkv_carry_kernel(const float* state, float* state_out, float* scratch,
+                 const float* __restrict__ decay, int hd, int n_chunks) {
+  chunk_carry<false>(state, state_out, scratch, decay, hd, n_chunks);
+}
+
+__global__ void __launch_bounds__(CARRY_NT)
+wkv_bwd_carry_kernel(const float* __restrict__ ds_T, float* __restrict__ ds0,
+                     float* scratch, const float* __restrict__ decay, int hd,
+                     int n_chunks) {
+  chunk_carry<true>(ds_T, ds0, scratch, decay, hd, n_chunks);
 }
 
 // ---- pass 3: the outputs ----------------------------------------------------
@@ -533,29 +616,58 @@ wkv_output_kernel(const T* __restrict__ r, const T* __restrict__ k,
 constexpr int SUMMARY_SMEM = 3 * L * LDB * sizeof(float);
 constexpr int OUTPUT_SMEM = (4 * L * LDA + L * LDB + HD * LDB) * sizeof(float);
 
+// passes 1-2: every chunk's start state into scratch, its decay into decay
+template <typename T>
+cudaError_t launch_states(const void* k, const void* v, const float* w,
+                          const float* state, float* state_out, float* scratch,
+                          float* decay, int B, int T_, int H, int hd, bool vec,
+                          cudaStream_t stream) {
+  const int n_chunks = (T_ + L - 1) / L;
+  cudaError_t err = cudaFuncSetAttribute(
+      wkv_summary_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SUMMARY_SMEM);
+  if (err != cudaSuccess) return err;
+  wkv_summary_kernel<T><<<dim3(n_chunks, H, B), NT, SUMMARY_SMEM, stream>>>(
+      static_cast<const T*>(k), static_cast<const T*>(v), w, scratch, decay,
+      T_, H, hd, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wkv_carry_kernel<<<dim3(HD * HD / CARRY_NT, B * H), CARRY_NT, 0, stream>>>(
+      state, state_out, scratch, decay, hd, n_chunks);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_cotangents(const void* r, const float* dy, const float* w,
+                              const float* ds_T, float* ds0, float* ends,
+                              const float* decay, int B, int T_, int H, int hd,
+                              bool vec, cudaStream_t stream) {
+  const int n_chunks = (T_ + L - 1) / L;
+  cudaError_t err = cudaFuncSetAttribute(
+      wkv_bwd_cot_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SUMMARY_SMEM);
+  if (err != cudaSuccess) return err;
+  wkv_bwd_cot_kernel<T><<<dim3(n_chunks, H, B), NT, SUMMARY_SMEM, stream>>>(
+      static_cast<const T*>(r), dy, w, ends, T_, H, hd, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wkv_bwd_carry_kernel<<<dim3(HD * HD / CARRY_NT, B * H), CARRY_NT, 0,
+                         stream>>>(ds_T, ds0, ends, decay, hd, n_chunks);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const void* r, const void* k, const void* v, const float* w,
                    const void* u, int u_bf16, const float* state, float* y,
                    float* state_out, float* scratch, float* decay, int B,
                    int T_, int H, int hd, bool vec, cudaStream_t stream) {
   const int n_chunks = (T_ + L - 1) / L;
-  cudaError_t err = cudaFuncSetAttribute(
-      wkv_summary_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SUMMARY_SMEM);
+  cudaError_t err = launch_states<T>(k, v, w, state, state_out, scratch, decay,
+                                     B, T_, H, hd, vec, stream);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(wkv_output_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              OUTPUT_SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid(n_chunks, H, B);
-  wkv_summary_kernel<T><<<grid, NT, SUMMARY_SMEM, stream>>>(
-      static_cast<const T*>(k), static_cast<const T*>(v), w, scratch, decay,
-      T_, H, hd, vec);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  wkv_carry_kernel<<<dim3(HD * HD / CARRY_NT, B * H), CARRY_NT, 0, stream>>>(
-      state, state_out, scratch, decay, hd, n_chunks);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  wkv_output_kernel<T><<<grid, NT, OUTPUT_SMEM, stream>>>(
+  wkv_output_kernel<T><<<dim3(n_chunks, H, B), NT, OUTPUT_SMEM, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), w, u, u_bf16, scratch, y, T_, H, hd, vec);
   return cudaGetLastError();
@@ -597,3 +709,30 @@ int wkv6_scan_chunked(const void* r, const void* k, const void* v,
 }
 
 }  // extern "C"
+
+// The backward's matrix passes (wkv6_chunk.cuh); dtype: 0 = fp32, 1 = bf16.
+namespace wkv6_chunk {
+
+cudaError_t states(const void* k, const void* v, const float* w,
+                   const float* state, float* state_out, float* starts,
+                   float* decay, int B, int T, int H, int hd, int dtype,
+                   bool vec, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_states<float>(k, v, w, state, state_out, starts, decay, B,
+                                T, H, hd, vec, stream);
+  return launch_states<__nv_bfloat16>(k, v, w, state, state_out, starts,
+                                      decay, B, T, H, hd, vec, stream);
+}
+
+cudaError_t cotangents(const void* r, const float* dy, const float* w,
+                       const float* ds_T, float* ds0, float* ends,
+                       const float* decay, int B, int T, int H, int hd,
+                       int dtype, bool vec, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_cotangents<float>(r, dy, w, ds_T, ds0, ends, decay, B, T, H,
+                                    hd, vec, stream);
+  return launch_cotangents<__nv_bfloat16>(r, dy, w, ds_T, ds0, ends, decay, B,
+                                          T, H, hd, vec, stream);
+}
+
+}  // namespace wkv6_chunk

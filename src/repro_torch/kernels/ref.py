@@ -367,6 +367,20 @@ def rglru_scan_chunked_plain(x: torch.Tensor, a_log: torch.Tensor,
     return y, h
 
 
+def _rglru_bwd_terms(x, a_log, gate_r, gate_i):
+    """(a_log, coef = -c softplus(a_log), x, r, i, a_t, b_t, the u-term
+    (a_t / b_t) i_t x_t, 0 where the clamp holds), all fp32."""
+    al = a_log.float()
+    coef = -RGLRU_C * (torch.clamp_min(al, 0.0)
+                       + torch.log1p(torch.exp(-al.abs())))
+    xf, r, i = x.float(), gate_r.float(), gate_i.float()
+    a = torch.exp(coef * r)
+    b = torch.sqrt(torch.clamp_min(1.0 - a * a, 0.0))
+    ratio = torch.where(b > 0, a / b, torch.zeros_like(b))
+    term = torch.where(b > 0, ratio * (i * xf), torch.zeros_like(b))
+    return al, coef, xf, r, i, a, b, term
+
+
 def rglru_scan_bwd_plain(x: torch.Tensor, a_log: torch.Tensor,
                          gate_r: torch.Tensor, gate_i: torch.Tensor,
                          h0: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
@@ -391,14 +405,7 @@ def rglru_scan_bwd_plain(x: torch.Tensor, a_log: torch.Tensor,
 
     Returns (dx, da_log, dgate_r, dgate_i, dh0), each in its input's dtype.
     """
-    al = a_log.float()
-    coef = -RGLRU_C * (torch.clamp_min(al, 0.0)
-                       + torch.log1p(torch.exp(-al.abs())))
-    xf, r, i = x.float(), gate_r.float(), gate_i.float()
-    a = torch.exp(coef * r)
-    b = torch.sqrt(torch.clamp_min(1.0 - a * a, 0.0))
-    ratio = torch.where(b > 0, a / b, torch.zeros_like(b))
-    term = torch.where(b > 0, ratio * (i * xf), torch.zeros_like(b))
+    al, coef, xf, r, i, a, b, term = _rglru_bwd_terms(x, a_log, gate_r, gate_i)
     dx, dr, di = (torch.empty_like(xf) for _ in range(3))
     acc = torch.zeros_like(xf[:, 0])
     g = dh_T.float()                       # a_{t+1} g_{t+1}, then g_t
@@ -418,6 +425,85 @@ def rglru_scan_bwd_plain(x: torch.Tensor, a_log: torch.Tensor,
     dal = (-RGLRU_C * torch.sigmoid(al)) * total
     return (dx.to(x.dtype), dal.to(a_log.dtype), dr.to(gate_r.dtype),
             di.to(gate_i.dtype), g.to(h0.dtype))
+
+
+def rglru_scan_bwd_chunked_plain(x: torch.Tensor, a_log: torch.Tensor,
+                                 gate_r: torch.Tensor, gate_i: torch.Tensor,
+                                 h0: torch.Tensor, y: torch.Tensor,
+                                 dy: torch.Tensor, dh_T: torch.Tensor, *,
+                                 chunk: int = 32, quarters: int = 4
+                                 ) -> Tuple[torch.Tensor, ...]:
+    """The chunk-parallel scheme of ``csrc/rglru_bwd.cu``, plainly; the
+    function of :func:`rglru_scan_bwd_plain`.
+
+    With c_t the carry into step t (dh_T at the last step), the reverse
+    recurrence is the affine map c_{t-1} = a_t (dy_t + c_t), so chunks of
+    ``chunk`` steps reduce in parallel (the last padded with a = 1, dy = 0):
+
+    1. maps: each quarter of a chunk composes its steps' maps last to first
+       (P = Π a, Q = the carry reached from 0), and the quarters' maps
+       compose into the chunk's, the last quarter first;
+    2. carry: from dh_T, chunk by chunk last to first: each chunk's carry
+       in, then c <- P c + Q; dh0 is the last c;
+    3. rescan: each chunk walks its steps last to first from its carry in,
+       g_t = dy_t + c, and writes dx, di, dr as the sequential version
+       does; h_{t-1} is y[t-1] (h0 at t = 0); each (batch row, chunk) sums
+       its r a da;
+    4. da_log: those sums over the rows and chunks in order, times
+       -c sigmoid(a_log).
+
+    The carries regroup the sequential version's products and sums, so
+    the two agree to rounding, not bit for bit.
+    """
+    if chunk % quarters or chunk < quarters:
+        raise ValueError(f"chunk {chunk}: want a positive multiple of "
+                         f"{quarters}")
+    al, coef, xf, r, i, a, b, term = _rglru_bwd_terms(x, a_log, gate_r, gate_i)
+    B, T, W = xf.shape
+    n, sub = -(-T // chunk), chunk // quarters
+    pad = n * chunk - T
+    h_prev = torch.cat([h0.float()[:, None], y.float()[:, :-1]], 1)
+
+    def blocks(t, fill=0.0):  # [B,T,W] -> [B,n,chunk,W]
+        t = torch.cat([t, t.new_full((B, pad, W), fill)], 1)
+        return t.reshape(B, n, chunk, W)
+
+    a, dyb = blocks(a, 1.0), blocks(dy.float())
+    qa, qd = a.reshape(B, n, quarters, sub, W), dyb.reshape(B, n, quarters,
+                                                             sub, W)
+    P, Q = a.new_ones(B, n, quarters, W), a.new_zeros(B, n, quarters, W)
+    for j in reversed(range(sub)):                       # 1. maps
+        Q = qa[:, :, :, j] * (qd[:, :, :, j] + Q)
+        P = qa[:, :, :, j] * P
+    cP, cQ = P[:, :, -1], Q[:, :, -1]
+    for q in reversed(range(quarters - 1)):
+        cP, cQ = P[:, :, q] * cP, P[:, :, q] * cQ + Q[:, :, q]
+    c, carry = dh_T.float(), [None] * n                  # 2. carry
+    for ch in reversed(range(n)):
+        carry[ch] = c
+        c = cP[:, ch] * c + cQ[:, ch]
+    dh0 = c
+    xb, rb, ib, bb, tb, hb = (blocks(t) for t in (xf, r, i, b, term, h_prev))
+    c = torch.stack(carry, 1)                            # 3. rescan
+    dx, dr, di = (torch.empty_like(xb) for _ in range(3))
+    part = torch.zeros_like(c)
+    for j in reversed(range(chunk)):
+        g = dyb[:, :, j] + c
+        gb = g * bb[:, :, j]
+        dx[:, :, j] = gb * ib[:, :, j]
+        di[:, :, j] = gb * xb[:, :, j]
+        da = g * (hb[:, :, j] - tb[:, :, j])
+        dr[:, :, j] = (coef * a[:, :, j]) * da
+        part = part + (rb[:, :, j] * a[:, :, j]) * da
+        c = a[:, :, j] * g
+    total = part.new_zeros(W)                            # 4. da_log
+    for row in part.reshape(B * n, W):
+        total = total + row
+    dal = (-RGLRU_C * torch.sigmoid(al)) * total
+    unblock = lambda t: t.reshape(B, n * chunk, W)[:, :T]
+    return (unblock(dx).to(x.dtype), dal.to(a_log.dtype),
+            unblock(dr).to(gate_r.dtype), unblock(di).to(gate_i.dtype),
+            dh0.to(h0.dtype))
 
 
 def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -504,59 +590,6 @@ def rwkv6_scan_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _wkv_bwd_finish(r, u, state, grads, du_rows, g)
 
 
-def rwkv6_scan_bwd_chunked_plain(r: torch.Tensor, k: torch.Tensor,
-                                 v: torch.Tensor, w: torch.Tensor,
-                                 u: torch.Tensor, state: torch.Tensor,
-                                 dy: torch.Tensor, ds_T: torch.Tensor, *,
-                                 chunk: int = 16, sub: int = 4
-                                 ) -> Tuple[torch.Tensor, ...]:
-    """The checkpoint-and-recompute scheme of ``csrc/wkv6_bwd.cu``, plainly;
-    the function of :func:`rwkv6_scan_bwd_plain`, whose steps it takes in
-    the same order on the same states (so the same bits).
-
-    A forward pass keeps the state at the start of every chunk of ``chunk``
-    steps. The reverse takes the chunks last to first, and each chunk's
-    sub-chunks of ``sub`` steps last to first: it steps a sub-chunk's start
-    state forward from the chunk's checkpoint, then the ``sub`` states of
-    the sub-chunk (which the kernel holds in registers), and runs their
-    reverse steps. No state is recovered by dividing by w, which reaches 0.
-    """
-    if chunk % sub or sub < 1:
-        raise ValueError(f"chunk {chunk}, sub {sub}: want sub | chunk")
-    rf, kf, vf, wf, dyf = (a.float() for a in (r, k, v, w, dy))
-    uf = u.float()
-    T = r.shape[1]
-
-    def step(s, t):
-        return wf[:, t, :, :, None] * s + kf[:, t, :, :, None] * vf[:, t, :, None, :]
-
-    s, checkpoints = state.float(), []
-    for t in range(T):
-        if t % chunk == 0:
-            checkpoints.append(s)
-        s = step(s, t)
-    g = ds_T.float()
-    grads, du_rows = ([], [], [], []), torch.zeros_like(rf[:, 0])
-    for c in reversed(range(len(checkpoints))):
-        t0 = c * chunk
-        for j in reversed(range(-(-min(chunk, T - t0) // sub))):
-            s = checkpoints[c]
-            for t in range(t0, t0 + j * sub):
-                s = step(s, t)
-            held = []
-            for t in range(t0 + j * sub, min(t0 + (j + 1) * sub, T)):
-                held.append(s)
-                s = step(s, t)
-            for t in reversed(range(t0 + j * sub, t0 + j * sub + len(held))):
-                *parts, du_t, g = _wkv_bwd_step(
-                    held[t - t0 - j * sub], g, rf[:, t], kf[:, t], vf[:, t],
-                    wf[:, t], uf, dyf[:, t])
-                for acc, part in zip(grads, parts):
-                    acc.append(part)
-                du_rows = du_rows + du_t
-    return _wkv_bwd_finish(r, u, state, grads, du_rows, g)
-
-
 def _sums_before(a: torch.Tensor, dim: int) -> torch.Tensor:
     """Σ of the entries before each along ``dim`` (0 for the first)."""
     z = torch.zeros_like(a.narrow(dim, 0, 1))
@@ -567,6 +600,160 @@ def _sums_before(a: torch.Tensor, dim: int) -> torch.Tensor:
 def _sums_after(a: torch.Tensor, dim: int) -> torch.Tensor:
     """Σ of the entries after each along ``dim`` (0 for the last)."""
     return _sums_before(a.flip(dim), dim).flip(dim)
+
+
+class _WKVChunks:
+    """[B,T,H,hd] tensors cut into chunks of ``chunk`` steps and sub-chunks
+    of ``sub`` ([B,H,n,m,sub,hd]; the last chunk padded with ``fill``), and
+    the runs of lw = max(log w, LOG_W_FLOOR) that the chunked WKV kernels
+    sum: p (before t in its sub-chunk), q (after t in it), g (each whole
+    sub-chunk) and g's sums over the sub-chunks before and after."""
+
+    def __init__(self, w: torch.Tensor, chunk: int, sub: int):
+        if chunk % sub or sub < 1:
+            raise ValueError(f"chunk {chunk}, sub {sub}: want sub | chunk")
+        B, T, H, hd = w.shape
+        self.shape, self.chunk, self.sub = (B, T, H, hd), chunk, sub
+        self.n, self.m = -(-T // chunk), chunk // sub
+        self.w = self.blocks(w, 1.0)
+        self.lw = torch.clamp_min(torch.log(self.w), LOG_W_FLOOR)
+        self.p, self.q = _sums_before(self.lw, 4), _sums_after(self.lw, 4)
+        self.g = self.lw.sum(4)                          # [B,H,n,m,hd]
+        self.g_before = _sums_before(self.g, 3)
+        self.g_after = _sums_after(self.g, 3)
+        self.d = torch.exp(self.g.sum(3))                # [B,H,n,hd]
+
+    def blocks(self, a: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+        B, T, H, hd = self.shape
+        pad = self.n * self.chunk - T
+        a = torch.cat([a.float(), a.new_full((B, pad, H, hd), fill).float()], 1)
+        return a.reshape(B, self.n, self.m, self.sub, H, hd).permute(
+            0, 4, 1, 2, 3, 5)
+
+    def steps(self, a: torch.Tensor) -> torch.Tensor:
+        """[B,H,n,m,sub,hd] -> [B,H,n,chunk,hd]"""
+        return a.reshape(*a.shape[:3], self.chunk, a.shape[-1])
+
+    def unblock(self, a: torch.Tensor) -> torch.Tensor:
+        """[B,H,n,chunk,hd] -> [B,T,H,hd]"""
+        B, T, H, hd = self.shape
+        return a.permute(0, 2, 3, 1, 4).reshape(B, -1, H, hd)[:, :T]
+
+    def k_to_end(self, k: torch.Tensor) -> torch.Tensor:
+        """K̂[s] = k_s ⊙ exp(Σ lw after s to the chunk's end)."""
+        return k * torch.exp(self.q + self.g_after[..., None, :])
+
+    def r_from_start(self, r: torch.Tensor) -> torch.Tensor:
+        """R̃[t] = r_t ⊙ exp(Σ lw from the chunk's start to t, exclusive)."""
+        return r * torch.exp(self.g_before[..., None, :] + self.p)
+
+    def starts(self, k: torch.Tensor, v: torch.Tensor, state: torch.Tensor):
+        """Passes 1-2 of the chunked form: each chunk's start state
+        [B,H,n,hd,hd] from ΔS_c = K̂ᵀ V and S_{c+1} = diag(D_c) S_c + ΔS_c,
+        and S_T."""
+        ds = torch.einsum("bhnjsk,bhnjsv->bhnkv", self.k_to_end(k), v)
+        s, starts = state.float(), []
+        for c in range(self.n):
+            starts.append(s)
+            s = self.d[:, :, c, :, None] * s + ds[:, :, c]
+        return torch.stack(starts, 2), s
+
+    def weights(self, r: torch.Tensor, k: torch.Tensor,
+                u: torch.Tensor) -> torch.Tensor:
+        """A [B,H,n,chunk,chunk], A[t,s] the weight of v_s in y_t within its
+        chunk: for s in an earlier sub-chunk (r_t ⊙ exp(p[t])) · (k_s ⊙
+        exp(q[s] + G between)), within a sub-chunk Σ_k r_t k_s Π_{s<m<t}
+        w_m (the sequential version's products), A[t,t] = Σ_k r_t u k_t
+        (the u-term), 0 for s > t."""
+        B, H, n, m, sub, hd = r.shape
+        a = r.new_zeros(B, H, n, m, sub, m, sub)
+        rh = r * torch.exp(self.p)
+        for i in range(1, m):
+            between = _sums_after(self.g[..., :i, :], 3)
+            kh = k[..., :i, :, :] * torch.exp(self.q[..., :i, :, :]
+                                              + between[..., None, :])
+            a[:, :, :, i, :, :i, :] = torch.einsum(
+                "bhntk,bhnjsk->bhntjs", rh[..., i, :, :], kh)
+        diag = torch.diag_embed(
+            (r * u.float()[:, None, None, None, :] * k).sum(-1))
+        decay = torch.ones_like(self.w)                  # Π_{s<m<s+dt} w_m
+        for dt in range(1, sub):
+            pair = (r[..., dt:, :] * k[..., :-dt, :] * decay[..., :-dt, :]).sum(-1)
+            diag = diag + torch.diag_embed(pair, -dt)
+            decay = torch.cat([decay[..., :-dt, :] * self.w[..., dt:, :],
+                               torch.ones_like(self.w[..., :dt, :])], 4)
+        for i in range(m):
+            a[:, :, :, i, :, i, :] = diag[:, :, :, i]
+        return a.reshape(B, H, n, m * sub, m * sub)
+
+
+def rwkv6_scan_bwd_chunked_plain(r: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, w: torch.Tensor,
+                                 u: torch.Tensor, state: torch.Tensor,
+                                 dy: torch.Tensor, ds_T: torch.Tensor, *,
+                                 chunk: int = 64, sub: int = 16
+                                 ) -> Tuple[torch.Tensor, ...]:
+    """The chunk-parallel scheme of ``csrc/wkv6_bwd.cu``, plainly; the
+    function of :func:`rwkv6_scan_bwd_plain`.
+
+    Chunks of ``chunk`` steps and their sub-chunks and decays as
+    :func:`rwkv6_scan_chunked_plain` cuts them; S_c is the state before the
+    chunk's first step, G_{c+1} the cotangent of the state after its last.
+
+    1. states: S_c by the forward's chunk summaries and carry;
+    2. cotangents: ΔG_c = R̃ᵀ dY, R̃[t] = r_t ⊙ Π_{c0<=m<t} w_m, and from
+       dS_T the reverse carry G_c = diag(D_c) G_{c+1} + ΔG_c; ds0 is the
+       last G;
+    3. every chunk at once: a forward walk from S_c keeps each step's state,
+       then the reverse walk from G_{c+1} takes the row sums
+       dr_t = S dy_t + u ⊙ k_t (v_t·dy_t), dk_t = G v_t + r_t ⊙ u (v_t·dy_t),
+       dw_t = Σ_v G ⊙ S (no division by w, which reaches 0), du's terms
+       r_t ⊙ k_t (v_t·dy_t), the column sums dv_t = Gᵀ k_t + (r_t·(u ⊙ k_t))
+       dy_t, and G <- diag(w_t) G + r_t dy_tᵀ;
+    4. du sums each (batch row, chunk)'s terms over the rows and chunks in
+       order.
+
+    The chunk states and cotangents regroup the sequential version's sums
+    (the kernel's are 3xTF32 products on the tensor cores), so the two agree
+    to rounding, not bit for bit.
+    """
+    ch = _WKVChunks(w, chunk, sub)
+    B, T, H, hd = r.shape
+    rb, kb, vb, dyb = (ch.blocks(a) for a in (r, k, v, dy))
+    starts, _ = ch.starts(kb, vb, state)                 # 1. states
+    dg = torch.einsum("bhnjsk,bhnjsv->bhnkv", ch.r_from_start(rb), dyb)
+    g, ends = ds_T.float(), [None] * ch.n                # 2. cotangents
+    for c in reversed(range(ch.n)):
+        ends[c] = g
+        g = ch.d[:, :, c, :, None] * g + dg[:, :, c]
+    ends = torch.stack(ends, 2)                          # G_{c+1}
+    R, K, V, Wt, DY = (ch.steps(a) for a in (rb, kb, vb, ch.w, dyb))
+    uf = u.float()[None, :, None, :]
+    s, states = starts, []                               # 3. the walk
+    for t in range(chunk):
+        states.append(s)
+        s = Wt[..., t, :, None] * s + K[..., t, :, None] * V[..., t, None, :]
+    G = ends
+    dr, dk, dv, dw = (torch.empty_like(R) for _ in range(4))
+    du_part = torch.zeros_like(R[..., 0, :])
+    for t in reversed(range(chunk)):
+        vdy = (V[..., t, :] * DY[..., t, :]).sum(-1, keepdim=True)
+        ruk = (R[..., t, :] * uf * K[..., t, :]).sum(-1, keepdim=True)
+        dr[..., t, :] = (torch.einsum("bhnij,bhnj->bhni", states[t], DY[..., t, :])
+                         + uf * K[..., t, :] * vdy)
+        dk[..., t, :] = (torch.einsum("bhnij,bhnj->bhni", G, V[..., t, :])
+                         + R[..., t, :] * uf * vdy)
+        dw[..., t, :] = (G * states[t]).sum(-1)
+        dv[..., t, :] = (torch.einsum("bhnij,bhni->bhnj", G, K[..., t, :])
+                         + ruk * DY[..., t, :])
+        du_part = du_part + R[..., t, :] * K[..., t, :] * vdy
+        G = Wt[..., t, :, None] * G + R[..., t, :, None] * DY[..., t, None, :]
+    du = du_part.new_zeros(H, hd)                        # 4. du
+    for row in du_part.permute(0, 2, 1, 3).reshape(B * ch.n, H, hd):
+        du = du + row
+    return (ch.unblock(dr).to(r.dtype), ch.unblock(dk).to(r.dtype),
+            ch.unblock(dv).to(r.dtype), ch.unblock(dw), du.to(u.dtype),
+            g.to(state.dtype))
 
 
 def rwkv6_scan_chunked_plain(r: torch.Tensor, k: torch.Tensor,
@@ -595,49 +782,13 @@ def rwkv6_scan_chunked_plain(r: torch.Tensor, k: torch.Tensor,
        sequential version's products), and A[t,t] = Σ_k r_t u k_t (the
        u-term).
     """
-    if chunk % sub or sub < 1:
-        raise ValueError(f"chunk {chunk}, sub {sub}: want sub | chunk")
-    B, T, H, hd = r.shape
-    n, m = -(-T // chunk), chunk // sub
-    pad = n * chunk - T
-
-    def blocks(a, fill):  # [B,T,H,hd] -> [B,H,n,m,sub,hd], padded with fill
-        a = torch.cat([a.float(), a.new_full((B, pad, H, hd), fill).float()], 1)
-        return a.reshape(B, n, m, sub, H, hd).permute(0, 4, 1, 2, 3, 5)
-
-    r, k, v, w = blocks(r, 0), blocks(k, 0), blocks(v, 0), blocks(w, 1)
-    lw = torch.clamp_min(torch.log(w), LOG_W_FLOOR)
-    p, q = _sums_before(lw, 4), _sums_after(lw, 4)
-    g = lw.sum(4)                                        # [B,H,n,m,hd]
-    g_before, g_after = _sums_before(g, 3), _sums_after(g, 3)
-    # 1. summaries
-    d = torch.exp(g.sum(3))                              # [B,H,n,hd]
-    kt = k * torch.exp(q + g_after[..., None, :])
-    ds = torch.einsum("bhnjsk,bhnjsv->bhnkv", kt, v)
-    # 2. carry
-    s, starts = state.float(), []
-    for c in range(n):
-        starts.append(s)
-        s = d[:, :, c, :, None] * s + ds[:, :, c]
-    sc = torch.stack(starts, 2)                          # [B,H,n,hd,hd]
-    # 3. outputs
-    rt = r * torch.exp(g_before[..., None, :] + p)
-    y = torch.einsum("bhnitk,bhnkv->bhnitv", rt, sc)
-    rh = r * torch.exp(p)
-    for i in range(1, m):
-        between = _sums_after(g[..., :i, :], 3)
-        kh = k[..., :i, :, :] * torch.exp(q[..., :i, :, :] + between[..., None, :])
-        a = torch.einsum("bhntk,bhnjsk->bhntjs", rh[..., i, :, :], kh)
-        y[..., i, :, :] += torch.einsum("bhntjs,bhnjsv->bhntv", a, v[..., :i, :, :])
-    diag = torch.diag_embed((r * u.float()[:, None, None, None, :] * k).sum(-1))
-    decay = torch.ones_like(w)                           # Π_{s<m<s+dt} w_m
-    for dt in range(1, sub):
-        pair = (r[..., dt:, :] * k[..., :-dt, :] * decay[..., :-dt, :]).sum(-1)
-        diag = diag + torch.diag_embed(pair, -dt)
-        decay = torch.cat([decay[..., :-dt, :] * w[..., dt:, :],
-                           torch.ones_like(w[..., :dt, :])], 4)
-    y = y + torch.einsum("bhnits,bhnisv->bhnitv", diag, v)
-    y = y.permute(0, 2, 3, 4, 1, 5).reshape(B, n * chunk, H, hd)[:, :T]
+    ch = _WKVChunks(w, chunk, sub)
+    rb, kb, vb = (ch.blocks(a) for a in (r, k, v))
+    sc, s = ch.starts(kb, vb, state)                     # 1-2.
+    y = torch.einsum("bhnjtk,bhnkv->bhnjtv", ch.r_from_start(rb), sc)  # 3.
+    y = ch.steps(y) + torch.einsum("bhnts,bhnsv->bhntv",
+                                   ch.weights(rb, kb, u), ch.steps(vb))
+    y = ch.unblock(y)
     if state_out is not None:
         s = state_out.copy_(s)
     return y, s

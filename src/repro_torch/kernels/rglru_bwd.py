@@ -3,22 +3,33 @@
 The reference writes no kernel for the RG-LRU's gradient: it takes
 ``jax.grad`` through ``src/repro/kernels/ref.py::rglru_scan_ref``. The port's
 gradient is this kernel, reached from
-:class:`repro_torch.models.rglru.RGLRUScan`. Its plain version is
-:func:`repro_torch.kernels.ref.rglru_scan_bwd_plain`, and
-:mod:`repro_torch.kernels.ops` picks between the two by the tensors' device.
+:class:`repro_torch.models.rglru.RGLRUScan`. It runs chunk-parallel on
+chunks of ``CHUNK`` steps: each chunk's map of the reverse recurrence (its
+quarters of ``SUB`` steps composed), a carry over the chunks, a rescan of
+every chunk at once, and da_log's sum in a fixed order. Its plain version is
+:func:`repro_torch.kernels.ref.rglru_scan_bwd_plain`;
+:func:`repro_torch.kernels.ref.rglru_scan_bwd_chunked_plain` repeats the
+scheme; :mod:`repro_torch.kernels.ops` picks between kernel and plain version
+by the tensors' device.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
 
 from . import build, rglru
 
+# steps per chunk and per quarter of the maps pass: L and SUB of
+# csrc/rglru_bwd.cu, which the wrapper checks when it loads the library
+CHUNK = 32
+SUB = 8
+
 # Calls that launched the kernel since the last reset (set it to 0 to
-# reset); each call is two launches, the reverse walk and da_log's sum over
-# the batch rows.
+# reset). Each call is four launches: the chunk maps, the carry over the
+# chunks, the rescan, and da_log's sum over the batch rows and chunks.
 launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
@@ -29,10 +40,14 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load()
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # x, r, i, a_log, h0, y, dy, dh_T, dx, dr, di, da_log, dh0, part;
-        # B, T, W, dtype, alog_dtype; stream
-        lib.rglru_scan_bwd.argtypes = [ptr] * 14 + [i32] * 5 + [ptr]
+        # x, r, i, a_log, h0, y, dy, dh_T, dx, dr, di, da_log, dh0, maps,
+        # part; B, T, W, dtype, alog_dtype, vector; stream
+        lib.rglru_scan_bwd.argtypes = [ptr] * 15 + [i32] * 6 + [ptr]
         lib.rglru_scan_bwd.restype = i32
+        lib.rglru_scan_bwd_steps.argtypes = [ptr] * 2
+        lib.rglru_scan_bwd_steps.restype = i32
+        build.check_steps("rglru_scan_bwd", lib.rglru_scan_bwd_steps,
+                          (CHUNK, SUB))
         _lib = lib
     return _lib
 
@@ -67,7 +82,14 @@ def rglru_scan_bwd(x: torch.Tensor, a_log: torch.Tensor, gate_r: torch.Tensor,
     B, T, W = x.shape
     dx, dr, di = (torch.empty_like(t) for t in (x, gate_r, gate_i))
     da_log, dh0 = torch.empty_like(a_log), torch.empty_like(h0)
-    part = torch.empty((B, W), dtype=torch.float32, device=x.device)
+    n = math.ceil(T / CHUNK)
+    # each chunk's map (P, then Q; the carry in is written over P) and its
+    # sum of r a da
+    maps = torch.empty((2, B, n, W), dtype=torch.float32, device=x.device)
+    part = torch.empty((B, n, W), dtype=torch.float32, device=x.device)
+    vector = (W * x.element_size() % 16 == 0
+              and all(t.data_ptr() % 16 == 0
+                      for t in (x, gate_r, gate_i, h0, y, dy)))
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     dtypes = rglru._DTYPES
@@ -76,8 +98,9 @@ def rglru_scan_bwd(x: torch.Tensor, a_log: torch.Tensor, gate_r: torch.Tensor,
             x.data_ptr(), gate_r.data_ptr(), gate_i.data_ptr(),
             a_log.data_ptr(), h0.data_ptr(), y.data_ptr(), dy.data_ptr(),
             dh_T.data_ptr(), dx.data_ptr(), dr.data_ptr(), di.data_ptr(),
-            da_log.data_ptr(), dh0.data_ptr(), part.data_ptr(), B, T, W,
-            dtypes[x.dtype], dtypes[a_log.dtype], stream)
+            da_log.data_ptr(), dh0.data_ptr(), maps.data_ptr(),
+            part.data_ptr(), B, T, W, dtypes[x.dtype], dtypes[a_log.dtype],
+            int(vector), stream)
     build.check_launch("rglru_scan_bwd", rc)
     launches += 1
     return dx, da_log, dr, di, dh0

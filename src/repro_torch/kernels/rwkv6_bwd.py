@@ -2,14 +2,17 @@
 
 The reference writes no kernel for the WKV's gradient: it takes ``jax.grad``
 through ``src/repro/kernels/ref.py::rwkv6_scan_ref``. The port's gradient is
-this kernel, reached from :class:`repro_torch.models.rwkv6.WKVScan`. It
-recomputes the forward's states from checkpoints taken every ``CHUNK`` steps
-(a scratch buffer of ``[B, H, ceil(T / CHUNK), hd, hd]`` fp32), never by
-dividing by a decay. Its plain version is
-:func:`repro_torch.kernels.ref.rwkv6_scan_bwd_plain`;
-:func:`repro_torch.kernels.ref.rwkv6_scan_bwd_chunked_plain` repeats its
-checkpoint-and-recompute scheme; :mod:`repro_torch.kernels.ops` picks between
-kernel and plain version by the tensors' device.
+this kernel, reached from :class:`repro_torch.models.rwkv6.WKVScan`. It runs
+chunk-parallel on the chunks of ``CHUNK`` steps of K3's chunked body: the
+state before each chunk (K3's chunk summaries and carry) and the cotangent
+after each (the same two passes on r and dy, last chunk first) on the tensor
+cores, each in a scratch buffer of ``[B, H, ceil(T / CHUNK), 64, 64]`` fp32;
+then every chunk's reverse walk at once (the states recomputed forward from
+the chunk's, never by dividing by a decay). Its
+plain version is :func:`repro_torch.kernels.ref.rwkv6_scan_bwd_plain`;
+:func:`repro_torch.kernels.ref.rwkv6_scan_bwd_chunked_plain` repeats the
+scheme; :mod:`repro_torch.kernels.ops` picks between kernel and plain version
+by the tensors' device.
 """
 from __future__ import annotations
 
@@ -21,14 +24,16 @@ import torch
 
 from . import build, rwkv6
 
-# steps per checkpoint and per sub-chunk held in registers: L and U of
-# csrc/wkv6_bwd.cu, which the wrapper checks when it loads the library
-CHUNK = 16
-SUB = 4
+# steps per chunk and per sub-chunk: L and SUB of csrc/wkv6_bwd.cu (K3's
+# chunk, rwkv6.CHUNK and rwkv6.SUB), which the wrapper checks when it loads
+# the library
+CHUNK = 64
+SUB = 16
 
 # Calls that launched the kernel since the last reset (set it to 0 to
-# reset); each call is three launches: the checkpoints, the reverse walk and
-# du's sum over the batch rows.
+# reset). Each call is six launches: the chunk states (K3's summary and
+# carry), the chunk cotangents (their summary and the reverse carry), the
+# chunks' reverse walk, and du's sum over the batch rows and chunks.
 launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
@@ -39,9 +44,9 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load()
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # r, k, v, w, u, state, dy, ds_T, dr, dk, dv, dw, du, ds0, ckpt,
-        # du_part; B, T, H, hd, dtype, u_dtype; stream
-        lib.wkv6_scan_bwd.argtypes = [ptr] * 16 + [i32] * 6 + [ptr]
+        # r, k, v, w, u, state, dy, ds_T, dr, dk, dv, dw, du, ds0, starts,
+        # ends, decay, du_part; B, T, H, hd, dtype, u_dtype, vec; stream
+        lib.wkv6_scan_bwd.argtypes = [ptr] * 18 + [i32] * 7 + [ptr]
         lib.wkv6_scan_bwd.restype = i32
         lib.wkv6_scan_bwd_steps.argtypes = [ptr] * 2
         lib.wkv6_scan_bwd_steps.restype = i32
@@ -66,12 +71,26 @@ def check_inputs(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be contiguous, on r's device")
 
 
+def scratch(B: int, T: int, H: int, hd: int, device) -> dict:
+    """The kernel's scratch buffers for r [B,T,H,hd]: ``starts`` (the state
+    before each chunk) and ``ends`` (the cotangent after each), each
+    [B, H, ceil(T / CHUNK), 64, 64] fp32, ``decay`` [B, H, ceil(T / CHUNK),
+    64] and ``du_part`` [B, H, ceil(T / CHUNK), hd]."""
+    n, m = math.ceil(T / CHUNK), rwkv6.MAX_HEAD_DIM
+    empty = lambda *s: torch.empty(s, dtype=torch.float32, device=device)
+    return {"starts": empty(B, H, n, m, m), "ends": empty(B, H, n, m, m),
+            "decay": empty(B, H, n, m), "du_part": empty(B, H, n, hd)}
+
+
 def wkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   w: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
-                  dy: torch.Tensor, ds_T: torch.Tensor
+                  dy: torch.Tensor, ds_T: torch.Tensor, *,
+                  scratch_out: Optional[dict] = None
                   ) -> Tuple[torch.Tensor, ...]:
     """Launch K3b on CUDA tensors: (dr, dk, dv, dw, du, ds0), each in its
-    input's dtype. dy and ds_T are the cotangents of y and S_T."""
+    input's dtype. dy and ds_T are the cotangents of y and S_T. The scratch
+    comes from :func:`scratch`; ``scratch_out`` takes a dict of those
+    buffers to use instead (a test reads the chunk states back)."""
     global launches
     check_inputs(r, k, v, w, u, state, dy, ds_T)
     if r.device.type != "cuda":
@@ -79,17 +98,17 @@ def wkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, T, H, hd = r.shape
     dr, dk, dv, dw = (torch.empty_like(t) for t in (r, k, v, w))
     du, ds0 = torch.empty_like(u), torch.empty_like(state)
-    ckpt = torch.empty((B, H, math.ceil(T / CHUNK), hd, hd),
-                       dtype=torch.float32, device=r.device)
-    du_part = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
+    sc = scratch(B, T, H, hd, r.device) if scratch_out is None else scratch_out
     lib = _library()
     stream = torch.cuda.current_stream(r.device).cuda_stream
     dtypes = rwkv6._DTYPES
+    vec = hd % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (r, k, v, w, dy))
     with torch.cuda.device(r.device):
         rc = lib.wkv6_scan_bwd(
             *(t.data_ptr() for t in (r, k, v, w, u, state, dy, ds_T, dr, dk,
-                                     dv, dw, du, ds0, ckpt, du_part)),
-            B, T, H, hd, dtypes[r.dtype], dtypes[u.dtype], stream)
+                                     dv, dw, du, ds0, sc["starts"],
+                                     sc["ends"], sc["decay"], sc["du_part"])),
+            B, T, H, hd, dtypes[r.dtype], dtypes[u.dtype], int(vec), stream)
     build.check_launch("wkv6_scan_bwd", rc)
     launches += 1
     return dr, dk, dv, dw, du, ds0

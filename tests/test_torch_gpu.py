@@ -627,25 +627,30 @@ def test_model_grads_kernel_path_match_plain_path(cuda, dtype, remat):
 # --------------------------------------------------------------------------- #
 # K2b (RG-LRU backward) and K3b (WKV backward) against their plain versions    #
 # --------------------------------------------------------------------------- #
-# Both take the same inputs as their plain versions and compute in fp32. K2b
-# does the plain version's operations in its order (only expf, log1pf, sqrtf
-# and the sigmoid may round differently); K3b sums dr, dk, dw over a row's
-# 64 columns and dv over 64 rows in another order (and recomputes the states
-# from checkpoints, by the plain version's operations). Each gradient is
+# Both take the same inputs as their plain versions and compute in fp32,
+# chunk-parallel: K2b joins chunk maps of the reverse recurrence through a
+# carry (the plain version's operations regrouped; expf, log1pf, sqrtf and
+# the sigmoid may round differently); K3b takes its chunk states and
+# cotangents from 3xTF32 products and carries, sums dr, dk, dw over a row's
+# 64 columns and dv as a matrix product, in another order. Each gradient is
 # held within TOL of itself plus TOL of its tensor's largest entry (its
 # entries are sums of terms up to that size), TOL 1e-5 for K2b and 2e-4 for
 # K3b, the forward kernels' limits; a bf16 gradient is rounded to bf16 by
 # both, which adds two bf16 ulps of itself (2**-6).
 BWD_TOL = {"rglru_scan_bwd": 1e-5, "wkv6_scan_bwd": 2e-4}
 BWD_BF16_RTOL = 2.0 ** -6
-# (B, T, W): ragged T and W, a sequence the forward's chunked body takes,
-# recurrentgemma-9b's training shape
-RGLRU_BWD_SHAPES = [(1, 1, 64), (2, 13, 100), (3, 65, 264), (1, 300, 4096),
-                    (2, 2560, 4096)]
-# (B, T, H, hd): ragged T (not whole checkpoint chunks nor sub-chunks),
-# hd below 64, rwkv6-3b's training shape
+# (B, T, W): ragged T and W, T of one step and T not whole 32-step chunks
+# at full width (the vector path), a sequence the forward's chunked body
+# takes, recurrentgemma-9b's training shape
+RGLRU_BWD_SHAPES = [(1, 1, 64), (2, 13, 100), (3, 65, 264), (1, 1, 4096),
+                    (2, 100, 4096), (1, 300, 4096), (2, 2560, 4096)]
+# (B, T, H, hd): ragged T (below, at and past one 64-step chunk, not whole
+# sub-chunks), hd below 64 and not a multiple of 8, B x H above the 132
+# SMs, rwkv6-3b's training shape
 WKV_BWD_SHAPES = [(1, 1, 1, 8), (2, 17, 3, 24), (1, 50, 2, 64),
-                  (2, 131, 4, 32), (1, 300, 40, 64), (4, 2048, 40, 64)]
+                  (1, 63, 2, 64), (2, 64, 3, 64), (1, 65, 2, 24),
+                  (2, 131, 4, 32), (4, 100, 40, 32), (1, 300, 40, 64),
+                  (4, 2048, 40, 64)]
 
 
 def _assert_grads_close_on_card(got, want, kernel):
@@ -699,6 +704,20 @@ def test_rglru_bwd_edge_decays_on_the_card(cuda, T, near):
                                 "rglru_scan_bwd")
 
 
+def test_rglru_bwd_takes_the_clamp_on_the_card(cuda):
+    """r = 0 on every third step gives a_t = 1 exactly (the clamped branch,
+    b_t = 0): finite gradients equal to the plain version's, no gradient to
+    x or i at those steps."""
+    args = list(_rglru_bwd_args(2, 100, 4096, torch.float32, cuda))
+    args[2] = args[2].clone()
+    args[2][:, ::3] = 0.0
+    args[5], _ = ref.rglru_scan_plain(*args[:5])
+    got = rglru_bwd.rglru_scan_bwd(*args)
+    _assert_grads_close_on_card(got, ref.rglru_scan_bwd_plain(*args),
+                                "rglru_scan_bwd")
+    assert got[0][:, ::3].abs().max() == 0 and got[3][:, ::3].abs().max() == 0
+
+
 def _wkv_bwd_args(B, T, H, hd, dt, dev, w=None):
     r, k, v, w_rand, u, s0 = _wkv_args(B, T, H, hd, dt, dev)
     return (r, k, v, w_rand if w is None else w, u, s0,
@@ -732,6 +751,36 @@ def test_wkv_bwd_edge_decays_on_the_card(cuda, w_value):
     got = rwkv6_bwd.wkv6_scan_bwd(*args)
     _assert_grads_close_on_card(got, ref.rwkv6_scan_bwd_plain(*args),
                                 "wkv6_scan_bwd")
+
+
+@pytest.mark.parametrize("dtype", list(SCAN_DTYPES))
+@pytest.mark.parametrize("shape", [(2, 200, 3, 64), (1, 129, 2, 24)], ids=str)
+def test_wkv_bwd_scratch_holds_k3s_chunk_states(cuda, shape, dtype):
+    """K3b's scratch is the state before every 64-step chunk,
+    [B, H, ceil(T/64), 64, 64] (not checkpoints every 16 steps), and the
+    same bits as K3's chunked body computes: the state K3 hands on after a
+    prefix of c whole chunks is starts[:, :, c]. The cotangent after the
+    last chunk is dS_T."""
+    B, T, H, hd = shape
+    args = _wkv_bwd_args(*shape, SCAN_DTYPES[dtype], cuda)
+    sc = rwkv6_bwd.scratch(B, T, H, hd, cuda)
+    rwkv6_bwd.wkv6_scan_bwd(*args, scratch_out=sc)
+    torch.cuda.synchronize()
+    n = -(-T // rwkv6_bwd.CHUNK)
+    assert rwkv6_bwd.CHUNK == rwkv6.CHUNK == 64
+    assert sc["starts"].shape == (B, H, n, 64, 64)
+    starts = sc["starts"][..., :hd, :hd]
+    r, k, v, w, u, s0 = args[:6]
+    assert torch.equal(starts[:, :, 0], s0)
+    pad = torch.ones(64, 64, dtype=torch.bool, device=cuda)
+    pad[:hd, :hd] = False
+    assert not bool(sc["starts"][..., pad].any())
+    for c in range(1, n):
+        t = c * rwkv6.CHUNK
+        _, s_c = rwkv6.wkv6_scan(*(a[:, :t].contiguous() for a in (r, k, v, w)),
+                                 u, s0, body="chunked")
+        assert torch.equal(starts[:, :, c], s_c), c
+    assert torch.equal(sc["ends"][:, :, n - 1, :hd, :hd], args[7])
 
 
 def test_scan_bwd_wrappers_reject_what_they_cannot_take(cuda):

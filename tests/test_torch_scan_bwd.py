@@ -2,11 +2,11 @@
 ``ref.rglru_scan_bwd_plain`` (K2b's plain version) and
 ``ref.rwkv6_scan_bwd_plain`` (K3b's) against ``jax.vjp`` of the oracles
 ``rglru_scan_ref`` and ``rwkv6_scan_ref``; the autograd Functions
-``RGLRUScan`` and ``WKVScan`` against ``jax.grad``; K3b's
-checkpoint-and-recompute scheme (``ref.rwkv6_scan_bwd_chunked_plain``)
-against the sequential plain backward. The CUDA kernels themselves are held
-against the plain versions on the card (tests/test_torch_gpu.py,
-chip_smoke.py).
+``RGLRUScan`` and ``WKVScan`` against ``jax.grad``; the chunk-parallel
+schemes of K2b (``ref.rglru_scan_bwd_chunked_plain``) and K3b
+(``ref.rwkv6_scan_bwd_chunked_plain``) against the sequential plain
+backwards and ``jax.vjp``. The CUDA kernels themselves are held against the
+plain versions on the card (tests/test_torch_gpu.py, chip_smoke.py).
 
 Inputs are made with numpy from a seed; initial states and the final
 state's cotangent are nonzero. Tolerances: the gradients are sums of many
@@ -157,6 +157,62 @@ def test_rglru_function_matches_jax_grad(dtype):
         _assert_grads_close(got, want, RGLRU_TOL, f"RGLRUScan plain={plain}")
 
 
+# (B, T, W, input dtype, a_log): T of one step, below, at and past K2b's
+# 32-step chunk, and several chunks with a ragged last one
+RGLRU_CHUNKED_CASES = [
+    (2, 1, 16, jnp.float32, "random"),
+    (2, 31, 16, jnp.float32, "random"),
+    (1, 32, 24, jnp.float32, "random"),
+    (2, 33, 16, jnp.float32, "random"),
+    (3, 100, 16, jnp.float32, "random"),
+    (2, 70, 16, jnp.bfloat16, "random"),
+    (2, 70, 16, jnp.float32, "near_0"),
+    (2, 70, 16, jnp.float32, "near_1"),
+]
+
+
+@pytest.mark.parametrize("case", RGLRU_CHUNKED_CASES, ids=str)
+def test_rglru_bwd_chunked_scheme_matches_plain_and_jax(case):
+    """K2b's scheme (chunk maps, reverse carry, rescan, ordered da_log sum)
+    against the sequential plain backward and jax.vjp of the oracle, both
+    within RGLRU_TOL: the carries regroup the products and sums."""
+    B, T, W, dtype, decay = case
+    (jx, jal, jr, ji, jh0), (jdy, jdh) = _rglru_arrays(B, T, W, dtype, decay,
+                                                       seed=T)
+    _, vjp = jax.vjp(jref.rglru_scan_ref, jx, jal, jr, ji, jh0)
+    want = vjp((jdy, jdh))
+    x, al, r, i, h0 = _to_torch([jx, jal, jr, ji, jh0])
+    y, _ = ref.rglru_scan_plain(x, al, r, i, h0)
+    args = (x, al, r, i, h0, y, *_to_torch([jdy, jdh]))
+    got = ref.rglru_scan_bwd_chunked_plain(*args)
+    assert all(bool(torch.isfinite(g.float()).all()) for g in got)
+    _assert_grads_close(got, want, RGLRU_TOL, "rglru chunked vs jax")
+    plain = ref.rglru_scan_bwd_plain(*args)
+    _assert_grads_close(got, [np.asarray(p.float()).astype(w.dtype)
+                              for p, w in zip(plain, want)],
+                        RGLRU_TOL, "rglru chunked vs plain")
+
+
+@pytest.mark.parametrize("chunk,quarters", [(32, 4), (8, 4), (4, 1)])
+def test_rglru_bwd_chunked_scheme_takes_the_clamp(chunk, quarters):
+    """r = 0 on every third step gives a_t = 1 there (b_t = 0, the clamped
+    branch): the scheme gives the plain backward's finite gradients, with
+    no gradient to x or i at those steps."""
+    (jx, jal, jr, ji, jh0), (jdy, jdh) = _rglru_arrays(2, 45, 8, jnp.float32,
+                                                       "random", seed=9)
+    x, al, r, i, h0 = _to_torch([jx, jal, jr, ji, jh0])
+    r[:, ::3] = 0.0
+    y, _ = ref.rglru_scan_plain(x, al, r, i, h0)
+    args = (x, al, r, i, h0, y, *_to_torch([jdy, jdh]))
+    got = ref.rglru_scan_bwd_chunked_plain(*args, chunk=chunk,
+                                           quarters=quarters)
+    want = ref.rglru_scan_bwd_plain(*args)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert got[0][:, ::3].abs().max() == 0 and got[3][:, ::3].abs().max() == 0
+    _assert_grads_close(got, [w.numpy() for w in want], RGLRU_TOL,
+                        "rglru chunked clamp")
+
+
 # --------------------------------------------------------------------------- #
 # The WKV                                                                     #
 # --------------------------------------------------------------------------- #
@@ -179,7 +235,10 @@ def _wkv_arrays(B, T, H, hd, dtype, decay, seed=0):
     shape = (B, T, H, hd)
     w = {"random": _sigmoid(n(*shape)), "zero": np.zeros(shape, np.float32),
          "one": np.ones(shape, np.float32),
-         "mixed": np.exp(-np.exp(3 * n(*shape))).astype(np.float32)}[decay]
+         "mixed": np.exp(-np.exp(3 * n(*shape))).astype(np.float32),
+         "rows": _sigmoid(n(*shape))}[decay]
+    if decay == "rows":   # state row 0 never survives a step, row 1 never decays
+        w[..., 0], w[..., 1] = 0.0, 1.0
     arrays = _to_jax([n(*shape), n(*shape), n(*shape), w, n(H, hd) * 0.5,
                       n(B, H, hd, hd)],
                      [dtype, dtype, dtype, jnp.float32, dtype, jnp.float32])
@@ -220,18 +279,47 @@ def test_wkv_function_matches_jax_grad(dtype):
         _assert_grads_close(got, want, WKV_TOL, f"WKVScan plain={plain}")
 
 
-@pytest.mark.parametrize("chunk,sub", [(16, 4), (8, 8), (12, 3), (4, 1)])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=str)
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 131, 200])
+def test_rwkv6_bwd_chunked_scheme_matches_plain_and_jax(T, dtype):
+    """K3b's chunk-parallel scheme at its own chunk (64) and sub-chunk (16):
+    T of one step, below, at and past one chunk, and several chunks with a
+    ragged last one; state row 0 has w = 0 (dividing by w would fail) and
+    row 1 w = 1. Held against the sequential plain backward and jax.vjp of
+    the oracle, within WKV_TOL."""
+    arrays, cot = _wkv_arrays(2, T, 2, 8, dtype, "rows", seed=T)
+    _, vjp = jax.vjp(jref.rwkv6_scan_ref, *arrays)
+    want = vjp(tuple(cot))
+    inputs, tcot = _to_torch(arrays), _to_torch(cot)
+    got = ref.rwkv6_scan_bwd_chunked_plain(*inputs, *tcot)
+    assert all(bool(torch.isfinite(g.float()).all()) for g in got)
+    _assert_grads_close(got, want, WKV_TOL, "rwkv6 chunked vs jax")
+    plain = ref.rwkv6_scan_bwd_plain(*inputs, *tcot)
+    _assert_grads_close(got, [np.asarray(p.float()).astype(w.dtype)
+                              for p, w in zip(plain, want)],
+                        WKV_TOL, "rwkv6 chunked vs plain")
+
+
+@pytest.mark.parametrize("chunk,sub", [(64, 16), (16, 4), (12, 3), (4, 1)])
 @pytest.mark.parametrize("T", [1, 15, 16, 17, 50])
 def test_rwkv6_bwd_checkpoint_scheme_matches_sequential(T, chunk, sub):
-    """K3b's scheme (checkpoints every ``chunk`` steps, sub-chunks of
-    ``sub`` recomputed from them, last to first) takes the sequential plain
-    backward's steps on the same states: the same bits, ragged T too."""
+    """K3b's scheme (chunk states and end cotangents from the carries, each
+    chunk walked on its own) at other chunk and sub-chunk lengths, ragged T
+    too, bf16 inputs and decays of every size: within
+    WKV_TOL of the sequential plain backward (the chunk states and
+    cotangents regroup its sums, so the bits differ); with a single chunk
+    (T <= chunk) the states are the plain version's, and dr, dk, dv, dw
+    its bits."""
     arrays, cot = _wkv_arrays(2, T, 3, 8, jnp.bfloat16, "mixed", seed=T)
     inputs, cot = _to_torch(arrays), _to_torch(cot)
     want = ref.rwkv6_scan_bwd_plain(*inputs, *cot)
     got = ref.rwkv6_scan_bwd_chunked_plain(*inputs, *cot, chunk=chunk, sub=sub)
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and torch.equal(g, w)
+    _assert_grads_close(got, [np.asarray(w.float()).astype(
+        jnp.bfloat16 if w.dtype == torch.bfloat16 else np.float32)
+        for w in want], WKV_TOL, f"chunk {chunk} sub {sub}")
+    if T <= chunk:
+        for n in range(4):
+            assert torch.equal(got[n], want[n])
 
 
 def test_scan_backwards_leave_their_inputs_alone():
@@ -242,6 +330,7 @@ def test_scan_backwards_leave_their_inputs_alone():
     args = (x, al, r, i, h0, y, *_to_torch([jdy, jdh]))
     copies = [a.clone() for a in args]
     ref.rglru_scan_bwd_plain(*args)
+    ref.rglru_scan_bwd_chunked_plain(*args)
     assert all(torch.equal(a, c) for a, c in zip(args, copies))
     arrays, cot = _wkv_arrays(1, 6, 2, 8, jnp.float32, "random")
     args = (*_to_torch(arrays), *_to_torch(cot))
@@ -252,8 +341,9 @@ def test_scan_backwards_leave_their_inputs_alone():
 
 
 @pytest.mark.parametrize("source,module,names", [
-    ("wkv6_bwd.cu", "rwkv6_bwd", ("L", "U")),
+    ("wkv6_bwd.cu", "rwkv6_bwd", ("L", "SUB")),
     ("wkv6_chunk.cu", "rwkv6", ("L", "SUB")),
+    ("rglru_bwd.cu", "rglru_bwd", ("L", "SUB")),
 ])
 def test_wrapper_steps_match_the_kernel_source(source, module, names):
     """The wrappers size their scratch buffers by CHUNK and SUB, which must
@@ -270,8 +360,8 @@ def test_wrapper_steps_match_the_kernel_source(source, module, names):
     assert got == (mod.CHUNK, mod.SUB)
 
 
-@pytest.mark.parametrize("library,ok", [((16, 4), True), ((64, 4), False),
-                                        ((16, 8), False)])
+@pytest.mark.parametrize("library,ok", [((64, 16), True), ((16, 16), False),
+                                        ((64, 4), False)])
 def test_check_steps_raises_when_library_and_wrapper_differ(library, ok):
     from repro_torch.kernels import build
 
@@ -279,7 +369,7 @@ def test_check_steps_raises_when_library_and_wrapper_differ(library, ok):
         steps._obj.value, sub._obj.value = library
         return 0
     if ok:
-        build.check_steps("wkv6_scan_bwd", query, (16, 4))
+        build.check_steps("wkv6_scan_bwd", query, (64, 16))
     else:
         with pytest.raises(RuntimeError, match="wkv6_scan_bwd"):
-            build.check_steps("wkv6_scan_bwd", query, (16, 4))
+            build.check_steps("wkv6_scan_bwd", query, (64, 16))
