@@ -38,9 +38,15 @@ Phases; each one that fails raises, and the process exits non-zero:
    layers, recurrentgemma-9b one (rec, rec, local) group and gemma2-2b one
    (local, attn) group, each with prompts past its window): in fp32, decode
    matches a longer prefill; in bf16, the kernel path matches the all-plain
-   path with the same weights.
-5. Serve each model (see SERVES: the seven archs, chameleon-34b at 32 of
-   its 48 layers, the others at full depth; bf16 weights and compute,
+   path with the same weights. The MoE archs (phase_moe_model): decode
+   against a longer prefill in fp32 and bf16 at a drop-free capacity
+   factor, rows with a flipped route counted and left out (none in fp32);
+   at the config's own factor the bf16 kernel path against the plain path
+   pinned to its routes, each layer's dropped assignments and the routes
+   the unpinned plain path picks otherwise printed.
+5. Serve each model (see SERVES: the nine archs, chameleon-34b at 32 of
+   its 48 layers and the MoE archs at 6, the others at full depth; bf16
+   weights and compute,
    weights from a seeded torch.Generator) through ``Server``, two
    synchronised waves of 16 requests. Every launch counter is set to 0 just
    before the run and read just after: each kernel must have launched
@@ -50,7 +56,11 @@ Phases; each one that fails raises, and the process exits non-zero:
    their sequential bodies (each body counts its own launches), no
    backward. The first tokens must equal a direct prefill's; a
    torch.profiler trace shows where a prefill's and a decode step's time
-   goes. Each model is freed before the next.
+   goes, for the MoE archs by step of the MoE layer (router, positions,
+   dispatch scatter, expert GEMMs, combine, aux loss). Each model is freed
+   before the next. Then moe_mlp_ep over a one-rank NCCL group equals
+   moe_mlp bit for bit, forward and gradients, on one full-width layer of
+   each MoE arch (phase_ep).
 6. Training. K1 with its LSE against the plain LSE; K1b (flash_bwd: delta,
    dkdv, dq, and reduce where its plan splits the dk/dv grid) against
    flash_bwd_plain in fp32 and bf16 (causal, GQA 32/8, 28/4 and 24/8, MQA
@@ -73,9 +83,12 @@ Phases; each one that fails raises, and the process exits non-zero:
    ``Trainer`` steps each with remat on (see OTHER_TRAIN): exact launches
    of rglru_scan (twice a rec layer and step) and rglru_bwd, wkv6_scan and
    wkv6_bwd, K1 and K1b in recurrentgemma's local layer, a falling loss,
-   step ms, tokens/s, peak memory, a profiled step. Finally a crash at step
-   13 of the reduced qwen3-4b and its restart from the step-8 checkpoint
-   match an uninterrupted run.
+   step ms, tokens/s, peak memory, a profiled step. The MoE archs' gradient
+   check at one layer (see MOE_TRAIN), fp32 and bf16 compute, remat's
+   recomputed routes equal to the forward's, the route flips counted, the
+   bf16 plain path pinned to the kernel path's routes. Finally a crash at
+   step 13 of the reduced qwen3-4b and its restart from the step-8
+   checkpoint match an uninterrupted run.
 7. Print the kernels line (seven kernels: flash_fwd, flash_decode,
    rglru_scan, wkv6_scan, flash_bwd, rglru_bwd, wkv6_bwd), the card line
    and the result line.
@@ -85,6 +98,7 @@ absent.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -176,6 +190,15 @@ OTHER_TRAIN = {
                      grad_seq=256, remat=True, grad_dtype=torch.float32,
                      bf16_groups=((("rwkv",), 2),)),
 }
+# The MoE archs' gradient checks (phase 6), one layer, in fp32 and bf16
+# compute: mixtral past its 4096-token window. Their Trainer steps wait for
+# the distribution slice: fp32 parameters and AdamW state of one mixtral
+# layer with its embeddings (2.90 B parameters) take 46 GB, the update's
+# fresh state 35 GB more (ROADMAP.md).
+MOE_TRAIN = {
+    "mixtral-8x22b": dict(groups=((("local",), 1),), grad_seq=4200),
+    "qwen3-moe-235b-a22b": dict(groups=((("attn",), 1),), grad_seq=512),
+}
 # K2b and K3b against their plain versions: both compute in fp32 from the
 # same inputs, so each gradient is held within SCAN_BWD_TOL of itself plus
 # SCAN_BWD_TOL of its tensor's largest entry (an entry is a sum of terms up
@@ -200,6 +223,8 @@ BWD_CASES = [
     ("gemma2_window_softcap", 1, 4200, 8, 4, 256, True, 4096, 50.0, False),
     ("qwen3_train", TRAIN["batch"], TRAIN["seq"], 32, 8, 128, True, None,
      None, False),
+    # mixtral-8x22b's local layers: 48/8 (G 6), window 4096, past it
+    ("mixtral_window", 1, 4200, 48, 8, 128, True, 4096, None, False),
 ]
 
 # (B, Sq, Skv, Hq, Hkv, hd, causal, window, cap) of FLASH_CASES
@@ -232,6 +257,14 @@ SERVES = {
                            max_new=32),
     "chameleon-34b": dict(slots=8, ctx=1024, requests=16, prompt_len=512,
                           max_new=32, depth=32),
+    # the MoE archs at 6 layers: a layer holds 2.42 B expert parameters
+    # (4.8 GB in bf16), and the init draws a stacked expert leaf in fp32
+    # (6 x 8 x 6144 x 16384 x 4 bytes = 19.3 GB) before it casts (PERF.md,
+    # section 4). mixtral's prompts pass its 4096-token window.
+    "mixtral-8x22b": dict(slots=8, ctx=4608, requests=16, prompt_len=4200,
+                          max_new=32, depth=6),
+    "qwen3-moe-235b-a22b": dict(slots=8, ctx=1024, requests=16,
+                                prompt_len=512, max_new=32, depth=6),
 }
 SERVE = SERVES["qwen3-4b"]
 RG = SERVES["recurrentgemma-9b"]
@@ -400,7 +433,8 @@ def _ring(C, first, last):
 # short names of the served archs in the kernel rows
 TAGS = {"qwen3-4b": "qwen3", "recurrentgemma-9b": "rgemma", "rwkv6-3b": "rwkv6",
         "gemma2-2b": "gemma2", "qwen2-7b": "qwen2", "phi4-mini-3.8b": "phi4",
-        "chameleon-34b": "chameleon"}
+        "chameleon-34b": "chameleon", "mixtral-8x22b": "mixtral",
+        "qwen3-moe-235b-a22b": "qwen3moe"}
 
 
 def serve_attention_cases():
@@ -774,6 +808,13 @@ MODEL_CHECKS = {
     "chameleon-34b": (((("attn",), 2),), 64,
                       SERVES["chameleon-34b"]["prompt_len"],
                       SERVES["chameleon-34b"]["ctx"]),
+    # the MoE archs: see phase_moe_model
+    "mixtral-8x22b": (((("local",), 2),), SERVES["mixtral-8x22b"]["prompt_len"],
+                      SERVES["mixtral-8x22b"]["prompt_len"],
+                      SERVES["mixtral-8x22b"]["ctx"]),
+    "qwen3-moe-235b-a22b": (((("attn",), 2),), 512,
+                            SERVES["qwen3-moe-235b-a22b"]["prompt_len"],
+                            SERVES["qwen3-moe-235b-a22b"]["ctx"]),
 }
 
 
@@ -783,6 +824,8 @@ def phase_model(arch):
     groups, n32, n16, ctx = MODEL_CHECKS[arch]
     cfg = dataclasses.replace(get_config(arch), groups=tuple(
         LayerGroup(pattern, repeat) for pattern, repeat in groups))
+    if cfg.ffn_kind == "moe":
+        return phase_moe_model(arch, cfg, n32, n16, ctx)
     depth = f"{cfg.n_layers} layers {'+'.join(cfg.layer_kinds())}"
     rng = np.random.default_rng(SEED)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, n32 + 1),
@@ -837,6 +880,155 @@ def phase_model(arch):
             "bf16_kernel_vs_plain_err": max(errs)}
 
 
+class Routes:
+    """Records the experts each call of the MoE layer picks (the indices of
+    ``repro_torch.models.ffn.top_k``, [T, K] a call), in call order, while
+    installed over ``ffn.top_k``. With ``pin``, another run's record, each
+    call takes that run's indices instead, with the gate values from its
+    own probabilities: two paths then run the same routes, and what is
+    left between them is the kernels' rounding."""
+
+    def __init__(self, pin=None):
+        self.calls, self.pin = [], pin
+
+    def __enter__(self):
+        from repro_torch.models import ffn
+        self._top_k = top_k = ffn.top_k
+
+        def recording(probs, k):
+            vals, idx = top_k(probs, k)
+            if self.pin is not None:
+                idx = self.pin[len(self.calls)]
+                vals = torch.gather(probs, -1, idx)
+            self.calls.append(idx.detach())
+            return vals, idx
+        ffn.top_k = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import ffn
+        ffn.top_k = self._top_k
+
+
+def dropped(cfg, idx):
+    """Assignments of one MoE call (experts ``idx`` [T, K]) past their
+    expert's capacity."""
+    from repro_torch.models import ffn
+    C = ffn.moe_capacity(idx.shape[0], cfg.n_experts, cfg.top_k,
+                         cfg.capacity_factor)
+    return int((ffn.slot_positions(idx.reshape(-1), cfg.n_experts) >= C).sum())
+
+
+def phase_moe_model(arch, cfg, n32, n16, ctx):
+    """The MoE archs at full width, 2 layers. Decode against a longer
+    prefill in fp32 (2 rows) and bf16 (4 rows) at the drop-free capacity
+    factor E / K (then C >= T: a token gives an expert one assignment at
+    most), the reference's convention (reduced() takes 8 so that smoke
+    tests compare decode against prefill exactly); a row is compared where
+    its routes agree in every layer (a flipped route is another function),
+    and fp32 may flip none. Then the config's own factor (1.25), bf16: the
+    kernel path against the plain path pinned to its routes (Routes), with
+    each layer's dropped assignments and the routes the unpinned plain path
+    picks otherwise."""
+    from repro_torch.models import Backbone
+
+    rng = np.random.default_rng(SEED)
+    n_moe = cfg.n_layers
+    free_cf = cfg.n_experts / cfg.top_k
+    drop_free = dataclasses.replace(cfg, capacity_factor=free_cf)
+    depth = f"{cfg.n_layers} layers {'+'.join(cfg.layer_kinds())}"
+    out = {"drop_free_capacity_factor": free_cf}
+    for dtype, B, n, tol in ((torch.float32, 2, n32, MODEL_FP32_TOL),
+                             (torch.bfloat16, 4, n16, MODEL_BF16_TOL)):
+        bb = Backbone(drop_free, compute_dtype=dtype, param_dtype=dtype,
+                      device=DEVICE)
+        params = bb.init(SEED + 1)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, n + 1),
+                                             dtype=np.int32)).to(DEVICE)
+        _, cache = bb.prefill(params, {"tokens": toks[:, :n]}, ctx)
+        with Routes() as rd:
+            got, _ = bb.decode_step(params, cache, toks[:, n:])
+        with Routes() as rp:
+            want, _ = bb.prefill(params, {"tokens": toks}, ctx)
+        if got.shape != (B, 1, bb.Vp) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{arch} decode logits not finite")
+        same = torch.ones(B, dtype=torch.bool, device=DEVICE)
+        for d, p in zip(rd.calls, rp.calls):
+            same &= (d == p.view(B, n + 1, -1)[:, -1]).all(-1)
+        drops = sum(dropped(drop_free, c) for c in rd.calls + rp.calls)
+        err = (got - want).float().abs().amax((1, 2))
+        flipped = int((~same).sum())
+        name = str(dtype)[6:]
+        worst = float(err[same].max()) if bool(same.any()) else math.inf
+        log(f"[model] {arch} full width, {depth}, {name}, capacity factor "
+            f"{free_cf} (drop-free: {drops} dropped): decode after {n} vs "
+            f"prefill of {n + 1}, {B} rows, {flipped} with a flipped route, "
+            f"max abs err of the others {worst:.3e} (tol {tol})")
+        if drops or worst > tol or (dtype == torch.float32 and flipped):
+            raise AssertionError(f"{arch} {name}: decode disagrees with the "
+                                 "longer prefill")
+        out[f"{name}_decode_vs_prefill_err"] = worst
+        out[f"{name}_flipped_rows"] = flipped
+        del bb, params, cache, got, want
+        free_memory()
+
+    kern = Backbone(cfg, compute_dtype=torch.bfloat16,
+                    param_dtype=torch.bfloat16, device=DEVICE)
+    plain = Backbone(cfg, compute_dtype=torch.bfloat16,
+                     param_dtype=torch.bfloat16, kernel_impl="plain",
+                     device=DEVICE)
+    params = kern.init(SEED + 2)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n16 + 4),
+                                           dtype=np.int32)).to(DEVICE)
+
+    def drive(bb):
+        logits, cache = bb.prefill(params, {"tokens": prompt[:, :n16]}, ctx)
+        outs = [logits]
+        for i in range(4):
+            logits, cache = bb.decode_step(params, cache,
+                                           prompt[:, n16 + i:n16 + i + 1])
+            outs.append(logits)
+        return outs
+
+    with Routes() as rk:
+        lk = drive(kern)
+    with Routes() as rf:
+        lf = drive(plain)
+    with Routes(pin=rk.calls):
+        lp = drive(plain)
+    errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(lk, lp)]
+    free_errs = [float((a.float() - b.float()).abs().max())
+                 for a, b in zip(lk, lf)]
+    layers = []
+    for layer in range(n_moe):
+        calls = range(layer, len(rk.calls), n_moe)
+        layers.append({
+            "dropped_prefill": dropped(cfg, rk.calls[layer]),
+            "assignments_prefill": rk.calls[layer].numel(),
+            "dropped_decode": sum(dropped(cfg, rk.calls[c]) for c in calls
+                                  if c >= n_moe),
+            "routes_differing": sum(int((rk.calls[c] != rf.calls[c]).sum())
+                                    for c in calls)})
+    log(f"[model] {arch} full width, {depth}, bf16, capacity factor "
+        f"{cfg.capacity_factor}: kernels vs plain versions (pinned to the "
+        f"kernel path's routes), max abs logit err prefill of {n16} "
+        f"{errs[0]:.3e}, decode {max(errs[1:]):.3e} (tol {MODEL_BF16_TOL}); "
+        f"unpinned {max(free_errs):.3e}; by layer: " + "; ".join(
+            f"{i}: {l['dropped_prefill']} of {l['assignments_prefill']} "
+            f"assignments dropped in prefill, {l['dropped_decode']} in decode,"
+            f" {l['routes_differing']} (token, k) routes differ unpinned"
+            for i, l in enumerate(layers)))
+    if max(errs) > MODEL_BF16_TOL:
+        raise AssertionError(f"{arch}: bf16 kernel path disagrees with the "
+                             "plain path")
+    del kern, plain, params
+    free_memory()
+    out.update(bf16_kernel_vs_plain_err=max(errs),
+               bf16_kernel_vs_plain_unpinned_err=max(free_errs),
+               layers=layers)
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # Phase 5: serve each model at full depth                                      #
 # --------------------------------------------------------------------------- #
@@ -884,12 +1076,15 @@ def phase_serve(arch):
             LayerGroup(cfg.groups[0].pattern, spec["depth"]),))
     bb = Backbone(cfg, compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
                   device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = bb.init(SEED)
     torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
     log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.param_count() / 1e9:.3f} B params in bf16, init "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{cfg.param_count() / 1e9:.3f} B params in bf16 "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB), init "
+        f"{time.perf_counter() - t0:.2f} s, peak {init_peak / 1e9:.2f} GB")
     rng = np.random.default_rng(SEED)
     prompts = rng.integers(0, cfg.vocab, (spec["requests"], spec["prompt_len"]),
                            dtype=np.int32)
@@ -965,6 +1160,7 @@ def phase_serve(arch):
         "decode_ms_per_step": srv.timing["decode_s"] / steps * 1e3,
         "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
         "max_memory_allocated_gb": peak / 1e9,
+        "init_max_memory_allocated_gb": init_peak / 1e9,
     }
     counts = ", ".join(
         f"{name} {launches[name]} = {n} x {why}"
@@ -1003,9 +1199,14 @@ def profile_calls(label, fn, calls=3):
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     prof.stop()
-    spans, by_name = [], {}
+    spans, by_name, parts = [], {}, {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.name.startswith("moe.") and e.device_type == \
+                torch.autograd.DeviceType.CPU:   # moe_spans' ranges
+            parts[e.name[4:]] = parts.get(e.name[4:], 0.0) + e.device_time_total
+        # the ranges' GPU-side spans cover the gaps between their kernels
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                e.name.startswith("moe."):
             continue
         spans.append((e.time_range.start, e.time_range.end))
         t, n = by_name.get(e.name, (0.0, 0))
@@ -1031,14 +1232,60 @@ def profile_calls(label, fn, calls=3):
     log(f"[trace] {label}: host {r['host_ms_per_call']:.3f} "
         f"ms/call, device busy {r['device_busy_ms_per_call']:.3f} ms, idle "
         f"share {r['device_idle_share']:.3f}")
+    if parts:
+        r["moe_device_ms_per_call"] = {k: t / calls / 1e3
+                                       for k, t in sorted(parts.items())}
+        steps = sum(t for k, t in r["moe_device_ms_per_call"].items()
+                    if k != "layer")
+        log(f"[trace]   MoE layers, device ms a call: " + ", ".join(
+            f"{k} {t:.4f}" for k, t in r["moe_device_ms_per_call"].items())
+            + f" (the layers' other ops "
+            f"{r['moe_device_ms_per_call'].get('layer', 0.0) - steps:.4f})")
     for k, (t, n) in r["top_kernels_ms_per_call"].items():
         log(f"[trace]   {t:9.4f} ms  x{n:<5d} {k}")
     return r
 
 
+# the MoE layer's steps in repro_torch.models.ffn that the traces time
+MOE_STEPS = ("route", "slot_positions", "dispatch", "expert_ffn", "combine",
+             "aux_loss")
+
+
+class moe_spans:
+    """While installed, each MoE layer (``moe.layer``) and each of its steps
+    (``moe.route``, ``moe.dispatch``, ...) runs inside a
+    ``torch.profiler.record_function`` range, whose device time
+    profile_calls sums: the router (route: the fp32 product, softmax and
+    top-k), the positions, the dispatch scatter, the expert GEMMs
+    (expert_ffn), the combine and the aux loss."""
+
+    def __enter__(self):
+        from repro_torch.models import backbone, ffn
+        self._saved = [(ffn, n, getattr(ffn, n)) for n in MOE_STEPS]
+        self._saved.append((backbone, "moe_mlp", backbone.moe_mlp))
+        for mod, name, fn in self._saved:
+            setattr(mod, name, self._ranged(
+                "layer" if name == "moe_mlp" else name, fn))
+        return self
+
+    @staticmethod
+    def _ranged(name, fn):
+        from torch.profiler import record_function
+
+        def call(*args, **kw):
+            with record_function(f"moe.{name}"):
+                return fn(*args, **kw)
+        return call
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
 def phase_trace(bb, params, prompts, spec):
     """Where the time goes: 3 batch-1 prefills and 3 decode steps of all
-    slots under the profiler."""
+    slots under the profiler; for an MoE arch, the device ms of its layers'
+    steps (moe_spans)."""
     slots, ctx = spec["slots"], spec["ctx"]
     _, cache = bb.prefill(params, {"tokens": torch.from_numpy(
         prompts[:slots]).to(DEVICE)}, ctx)
@@ -1046,9 +1293,18 @@ def phase_trace(bb, params, prompts, spec):
     one = torch.from_numpy(prompts[:1]).to(DEVICE)
     bb.decode_step(params, cache, tok)
     torch.cuda.synchronize()
-    return {name: profile_calls(f"{bb.cfg.name} {name}", fn) for name, fn in (
-        ("prefill", lambda: bb.prefill(params, {"tokens": one}, ctx)),
-        ("decode", lambda: bb.decode_step(params, cache, tok)))}
+    moe = bb.cfg.ffn_kind == "moe"
+    out = {}
+    for name, fn in (("prefill", lambda: bb.prefill(params, {"tokens": one},
+                                                    ctx)),
+                     ("decode", lambda: bb.decode_step(params, cache, tok))):
+        with moe_spans() if moe else contextlib.nullcontext():
+            out[name] = profile_calls(f"{bb.cfg.name} {name}", fn)
+        if moe and isinstance(out[name], dict) and not out[name].get(
+                "moe_device_ms_per_call", {}).get("layer"):
+            raise AssertionError(f"{bb.cfg.name} {name}: no device time for "
+                                 "the MoE layers in the trace")
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -1338,7 +1594,14 @@ def train_grads_check(arch, cfg, seq, compute_dtype=torch.bfloat16):
     """One microbatch [1, seq] through loss_fn and the backward, kernel path
     against plain path, from the same fp32 parameters, bf16 compute unless
     ``compute_dtype`` says otherwise; remat on, so each forward kernel runs
-    twice a layer."""
+    twice a layer. An MoE arch's recomputed routes must equal its forward's,
+    and the (token, k) routes the plain path picks otherwise are counted.
+    fp32 holds the plain path unpinned. In bf16 a flipped route moves the
+    gradients of two experts by a token's whole contribution: with N of M
+    assignments flipped, a stacked expert leaf's gradient by about
+    sqrt(2 N / M) of its norm, which no rounding limit bounds. So bf16 holds
+    the plain path pinned to the kernel path's routes (Routes), where the
+    dense archs' limits apply, and prints the unpinned path's errors."""
     from repro_torch.models import Backbone
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.runtime.steps import value_and_grad
@@ -1351,20 +1614,54 @@ def train_grads_check(arch, cfg, seq, compute_dtype=torch.bfloat16):
     loss_rtol, grad_rtol = ((TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL)
                             if compute_dtype == torch.bfloat16 else
                             (TRAIN_FP32_LOSS_RTOL, TRAIN_FP32_GRAD_RTOL))
+    moe = cfg.ffn_kind == "moe"
+    torch.cuda.reset_peak_memory_stats()
     params = kern.init(SEED + 3)
     toks = np.random.default_rng(SEED + 3).integers(
         0, cfg.vocab, (1, seq + 1), dtype=np.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     _reset_counts()
-    lk, gk = value_and_grad(kern, params, batch)
+    with Routes() as rk:
+        lk, gk = value_and_grad(kern, params, batch)
     torch.cuda.synchronize()
     counts = _counts()
     _check_counts(f"{arch} loss_fn + backward (remat)", counts,
                   _train_want(kern, 1, seq, 1, 2))
-    lp, gp = value_and_grad(plain, params, batch)
+
+    def worst(grads):
+        return max(float((a - b).norm() / b.norm())
+                   for a, b in zip(tree_leaves(gk), tree_leaves(grads)))
+    routes, unpinned = "", None
+    with Routes() as rf:
+        lp, gp = value_and_grad(plain, params, batch)
+    if moe:
+        n = cfg.n_layers
+        fwd, again = rk.calls[:n], rk.calls[n:][::-1]
+        if len(again) != n or not all(torch.equal(a, b)
+                                      for a, b in zip(fwd, again)):
+            raise AssertionError(f"train {arch}: remat's recomputed routes "
+                                 "differ from the forward's")
+        flips = sum(int((a != b).sum()) for a, b in zip(fwd, rf.calls[:n]))
+        total = sum(c.numel() for c in fwd)
+        routes = (f"; {flips} of {total} (token, k) routes differ on the "
+                  f"plain path unpinned, "
+                  f"{sum(dropped(cfg, c) for c in fwd)} assignments dropped")
+        if compute_dtype == torch.bfloat16:
+            unpinned = {"flips": flips, "assignments": total,
+                        "loss_err": abs(float(lk) - float(lp)),
+                        "worst_grad_rel_err": worst(gp),
+                        "sqrt_2n_over_m": math.sqrt(2 * flips / total)}
+            del gp
+            with Routes(pin=rk.calls):
+                lp, gp = value_and_grad(plain, params, batch)
+            routes += (f"; held with the plain path pinned to the kernel "
+                       f"path's routes (unpinned: loss err "
+                       f"{unpinned['loss_err']:.3e}, worst leaf "
+                       f"{unpinned['worst_grad_rel_err']:.3e} of its norm, "
+                       f"sqrt(2 N / M) {unpinned['sqrt_2n_over_m']:.3e})")
+    peak = torch.cuda.max_memory_allocated()
     loss_err = abs(float(lk) - float(lp))
-    grad_err = max(float((a - b).norm() / b.norm())
-                   for a, b in zip(tree_leaves(gk), tree_leaves(gp)))
+    grad_err = worst(gp)
     finite = all(bool(torch.isfinite(a).all()) for a in tree_leaves(gk))
     launched = {k: n for k, n in counts.items() if n}
     log(f"[train] {arch} full width, {cfg.n_layers} layers "
@@ -1373,7 +1670,7 @@ def train_grads_check(arch, cfg, seq, compute_dtype=torch.bfloat16):
         f"{float(lk):.6f} vs {float(lp):.6f} (err {loss_err:.3e}, tol "
         f"{loss_rtol} x loss), worst leaf gradient err {grad_err:.3e} of its "
         f"norm (tol {grad_rtol}), {len(tree_leaves(gk))} leaves; launches "
-        f"{launched}")
+        f"{launched}{routes}; peak memory {peak / 1e9:.2f} GB")
     if not finite or not math.isfinite(float(lk)):
         raise AssertionError(f"train {arch}: a gradient or the loss is not "
                              "finite")
@@ -1385,7 +1682,8 @@ def train_grads_check(arch, cfg, seq, compute_dtype=torch.bfloat16):
     return {"seq": seq, "compute_dtype": str(compute_dtype)[6:],
             "loss_kernel": float(lk), "loss_plain": float(lp),
             "loss_err": loss_err, "worst_grad_rel_err": grad_err,
-            "launches": launched}
+            "launches": launched, "routes": routes, "unpinned": unpinned,
+            "max_memory_allocated_gb": peak / 1e9}
 
 
 def bf16_witness(arch, cfg, seq):
@@ -1576,7 +1874,8 @@ def train_restart_check():
 
 def phase_train():
     """Train qwen3-4b (depth 8), the gemma2-2b gradient check, then
-    recurrentgemma-9b and rwkv6-3b; each model is freed before the next."""
+    recurrentgemma-9b and rwkv6-3b, then the MoE archs' gradient checks;
+    each model is freed before the next."""
     out = {}
     cfg = _config("qwen3-4b", ((("attn",), TRAIN["depth"]),))
     out["qwen3-4b"] = {
@@ -1599,7 +1898,66 @@ def phase_train():
                                                      spec["grad_seq"])
         out[arch]["trainer"] = train_run(arch, cfg, spec["batch"], spec["seq"],
                                          spec["steps"], spec["remat"])
+    for arch, spec in MOE_TRAIN.items():
+        cfg = _config(arch, spec["groups"])
+        out[arch] = {f"grads_{str(dt)[6:]}": train_grads_check(
+            arch, cfg, spec["grad_seq"], dt)
+            for dt in (torch.float32, torch.bfloat16)}
     out["restart"] = train_restart_check()
+    return out
+
+
+def phase_ep():
+    """moe_mlp_ep over a one-rank NCCL group (an in-memory store, no
+    network) against moe_mlp: one full-width MoE layer of each MoE arch,
+    bf16 weights at the init's scale, [1, 512] tokens at the config's own
+    capacity factor; y, aux and every gradient (of the leaves and of x) bit
+    for bit, through the all_reduce and its backward."""
+    import torch.distributed as dist
+
+    from repro_torch.models import ffn, get_config, moe_ep
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    out = {}
+    try:
+        for arch in MOE_TRAIN:
+            cfg = get_config(arch)
+            g = _gen(700)
+            D, E, Fe = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+
+            def dense(*shape):
+                w = torch.randn(shape, generator=g, device=DEVICE)
+                return w.mul_(shape[-2] ** -0.5).to(torch.bfloat16)
+            leaves = {"router": dense(D, E), "w_gate": dense(E, D, Fe),
+                      "w_up": dense(E, D, Fe), "w_down": dense(E, Fe, D)}
+            x = torch.randn((1, 512, D), generator=g,
+                            device=DEVICE).to(torch.bfloat16)
+            ct = torch.randn((1, 512, D), generator=g,
+                             device=DEVICE).to(torch.bfloat16)
+
+            def run(fn):
+                p = {k: v.detach().requires_grad_() for k, v in leaves.items()}
+                xx = x.detach().requires_grad_()
+                y, aux = fn(p, xx, cfg)
+                (torch.sum((y * ct).float()) + aux).backward()
+                return [y.detach(), aux.detach(), xx.grad] + [
+                    p[k].grad for k in leaves]
+            want = run(ffn.moe_mlp)
+            got = run(lambda p, xx, c: moe_ep.moe_mlp_ep(p, xx, c,
+                                                         dist.group.WORLD))
+            same = [torch.equal(a, b) for a, b in zip(got, want)]
+            log(f"[ep] {arch} one full-width layer, [1, 512], bf16, world "
+                f"size 1 (NCCL): moe_mlp_ep vs moe_mlp, y, aux, dx and "
+                f"{len(leaves)} leaf gradients bit for bit: {all(same)}")
+            if not all(same):
+                raise AssertionError(f"{arch}: moe_mlp_ep at world size 1 "
+                                     f"differs from moe_mlp: {same}")
+            out[arch] = {"bitwise": True}
+            del leaves, want, got
+            free_memory()
+    finally:
+        dist.destroy_process_group()
     return out
 
 
@@ -1652,6 +2010,7 @@ def main() -> int:
     rows = phase_flash() + phase_rglru() + phase_wkv() + phase_scan_bwd()
     model = {arch: phase_model(arch) for arch in MODEL_CHECKS}
     serve = {arch: phase_serve(arch) for arch in SERVES}
+    ep = phase_ep()
     rows += phase_train_kernels()
     train = phase_train()
     # the main path's runs, each read with the counts set to 0 just before
@@ -1692,7 +2051,8 @@ def main() -> int:
                 path: {k.split(".")[1]: n for k, n in paths[path].items()
                        if k.startswith("flash_bwd.")} for path in by_path}
     log("[summary] " + json.dumps({"model": model, "serve": serve,
-                                   "train": train, "hmma_sass": sass,
+                                   "ep": ep, "train": train,
+                                   "hmma_sass": sass,
                                    "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())

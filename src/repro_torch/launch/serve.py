@@ -2,19 +2,24 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
         --reduced --requests 8 --max-new 12 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch mixtral-8x22b --depth 6
 
 The flags of ``repro.launch.serve``, plus ``--device`` (default ``cuda``;
-with no card it raises unless ``--device cpu`` is given).
+with no card it raises unless ``--device cpu`` is given) and ``--depth N``
+(full width, the first layer group's pattern repeated N times: the MoE
+archs do not fit one card at full depth).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.models import Backbone, get_config, reduced
+from repro_torch.models import Backbone, LayerGroup, get_config, reduced
 from repro_torch.runtime.serve_loop import Request, Server
 
 
@@ -28,11 +33,15 @@ def main() -> None:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--depth", type=int, default=None)
     args = ap.parse_args()
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.depth is not None:
+        cfg = dataclasses.replace(cfg, groups=(
+            LayerGroup(cfg.groups[0].pattern, args.depth),))
     bb = Backbone(cfg, compute_dtype=torch.float32, device=args.device)
     params = bb.init(0)
     srv = Server(bb, params, slots=args.slots, ctx=args.ctx)

@@ -1,5 +1,5 @@
 """The decoder backbone for the layer kinds ``attn``, ``local``, ``rec`` and
-``rwkv``.
+``rwkv``, with dense or MoE feed-forward layers.
 
 The port of ``repro.models.backbone.Backbone`` for serving and training:
 the same parameter tree (``g{i}/s{j}/<leaf>``, each group's leaves stacked
@@ -25,8 +25,12 @@ kernels too: :class:`repro_torch.models.attention.FlashAttention` (K1b),
 :class:`repro_torch.models.rglru.RGLRUScan` (K2b) and
 :class:`repro_torch.models.rwkv6.WKVScan` (K3b); the recurrent layers train
 from zero state and write none, as the reference's stateless ``_layer_fwd``.
-The encoder-decoder kinds and MoE raise ``NotImplementedError`` naming their
-slice in ROADMAP.md.
+The MoE layer (``ffn_kind="moe"``) is :func:`repro_torch.models.ffn.moe_mlp`
+or, with ``moe_impl="ep"``, its expert-parallel form
+:func:`repro_torch.models.moe_ep.moe_mlp_ep`; ``loss_fn`` adds ``AUX_COEF``
+times the layers' summed load-balancing loss, and serving drops it, as the
+reference does. The encoder-decoder kinds raise ``NotImplementedError``
+naming their slice in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -44,7 +48,8 @@ from .attention import flash_attention
 from .common import (apply_rope_table, dense_init, embed_init, resolve_device,
                      rms_norm, rope_table, stable_cross_entropy)
 from .config import ModelConfig
-from .ffn import gated_mlp
+from .ffn import gated_mlp, moe_mlp
+from .moe_ep import moe_mlp_ep, virtualization
 from .partition import IDENTITY_PLAN, PartitionPlan
 from .rglru import RGLRUScan, causal_conv1d
 
@@ -64,20 +69,32 @@ class Backbone:
     def __init__(self, cfg: ModelConfig, plan: PartitionPlan = IDENTITY_PLAN,
                  *, compute_dtype=torch.bfloat16, param_dtype=torch.float32,
                  remat: bool = True, device="cuda",
-                 kernel_impl: str = "kernel"):
+                 kernel_impl: str = "kernel", moe_impl: str = "gspmd",
+                 model_group=None, data_group=None):
+        """``moe_impl``: ``"gspmd"`` (the scatter path, ``ffn.moe_mlp``) or
+        ``"ep"`` (``moe_ep.moe_mlp_ep`` over ``model_group``, a
+        ``torch.distributed`` group of ``plan.tp`` ranks, or none at tp 1;
+        the expert leaves are stored virtualized for ``plan.tp``, as the
+        reference stores them; ``data_group`` averages the aux loss over
+        the data ranks)."""
         plan.check(cfg)
         for kind in cfg.layer_kinds():
             if kind not in _KINDS:
                 raise NotImplementedError(
                     f"layer kind {kind!r} is not ported yet: ROADMAP.md "
                     f"queue 1, {_KIND_SLICE.get(kind, 'unknown kind')}")
-        if cfg.ffn_kind not in ("swiglu", "geglu", "gelu"):
-            raise NotImplementedError(
-                f"ffn kind {cfg.ffn_kind!r} is not ported yet: ROADMAP.md "
-                "queue 1, slice 6 (MoE)")
         if kernel_impl not in ("kernel", "plain"):
             raise ValueError(f"kernel_impl {kernel_impl!r}: want 'kernel' or "
                              "'plain'")
+        if moe_impl not in ("gspmd", "ep"):
+            raise ValueError(f"moe_impl {moe_impl!r}: want 'gspmd' or 'ep'")
+        self.moe_impl = moe_impl
+        self.model_group = model_group
+        self.data_group = data_group
+        if moe_impl == "ep" and cfg.ffn_kind == "moe":
+            self.moe_V, self.moe_split = virtualization(cfg, plan.tp)
+        else:
+            self.moe_V, self.moe_split = cfg.n_experts, 1
         self.cfg = cfg
         self.plan = plan
         self.device = resolve_device(device)
@@ -151,7 +168,15 @@ class Backbone:
                 specs["q_norm"] = ((hd,), "zero")
                 specs["k_norm"] = ((hd,), "zero")
         specs["ln2"] = ((D,), "zero")
-        if cfg.ffn_kind in ("swiglu", "geglu"):
+        if cfg.ffn_kind == "moe":
+            # the ep path stores virtualized experts [V, D, Fe/split] (an
+            # exact column split, see moe_ep.py), as the reference does
+            Fv = (cfg.moe_d_ff or F_) // self.moe_split
+            specs["router"] = ((D, cfg.n_experts), "dense")
+            specs["w_gate"] = ((self.moe_V, D, Fv), "dense")
+            specs["w_up"] = ((self.moe_V, D, Fv), "dense")
+            specs["w_down"] = ((self.moe_V, Fv, D), "dense")
+        elif cfg.ffn_kind in ("swiglu", "geglu"):
             specs["w_gate"] = ((D, F_), "dense")
             specs["w_up"] = ((D, F_), "dense")
             specs["w_down"] = ((F_, D), "dense")
@@ -246,16 +271,24 @@ class Backbone:
                                plain=self._plain)
 
     def _ffn_sublayer(self, p, x):
-        h = rms_norm(x, p["ln2"], self.cfg.norm_eps)
-        return gated_mlp(p, h, self.cfg.ffn_kind)
+        """(y, aux): the MoE layer's load-balancing loss, or 0.0 for a dense
+        one (a Python float: serving drops it without a launch)."""
+        cfg = self.cfg
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        if cfg.ffn_kind != "moe":
+            return gated_mlp(p, h, cfg.ffn_kind), 0.0
+        if self.moe_impl == "ep":
+            return moe_mlp_ep(p, h, cfg, self.model_group, self.data_group)
+        return moe_mlp(p, h, cfg)
 
     def _rope(self, positions):
         cfg = self.cfg
         return rope_table(positions, self.hd, cfg.rope_theta, cfg.rotary_pct)
 
     def _layer_fwd(self, p, x, kind: str, positions, rope):
-        """One attention layer over a sequence. Returns (x, k, v): the
-        rotated keys and the values, which prefill keeps in the cache."""
+        """One attention layer over a sequence. Returns (x, k, v, aux): the
+        rotated keys and the values, which prefill keeps in the cache, and
+        the FFN's aux loss."""
         cfg = self.cfg
         B, S, _ = x.shape
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -264,7 +297,8 @@ class Backbone:
         k = apply_rope_table(k, rope)
         o = self._attend(q, k, v, kind, positions, positions)
         x = x + o.reshape(B, S, self.H * self.hd) @ p["wo"]
-        return x + self._ffn_sublayer(p, x), k, v
+        y, aux = self._ffn_sublayer(p, x)
+        return x + y, k, v, aux
 
     # -- the recurrent kinds: one body per kind for prefill, decode and
     # training. Serving reads layer r's state from the cache and writes the
@@ -291,10 +325,12 @@ class Backbone:
         return (y.to(h.dtype) * gate) @ p["w_out"], conv_new
 
     def _rec_body(self, p, x, conv_state, scan):
+        """Returns (x, the new conv state, the FFN's aux loss)."""
         h = rms_norm(x, p["ln1"], self.cfg.norm_eps)
         y, conv_new = self._rglru_apply(p, h, conv_state, scan)
         x = x + y.to(x.dtype)
-        return x + self._ffn_sublayer(p, x), conv_new
+        y, aux = self._ffn_sublayer(p, x)
+        return x + y, conv_new, aux
 
     def _rwkv_body(self, p, x, shift1, wkv, shift2, scan):
         """Returns (x, the new shift states 1 and 2); ``scan`` is time
@@ -313,7 +349,7 @@ class Backbone:
     def _recurrent_layer(self, p, x, kind: str, sub, r: int):
         """Serving: layer ``r`` of a group from and into the cache."""
         if kind == "rec":
-            x, conv = self._rec_body(
+            x, conv, _ = self._rec_body(
                 p, x, sub["conv"][r],
                 functools.partial(self._rglru_scan, h0=sub["h"][r],
                                   h_out=sub["h"][r]))
@@ -328,21 +364,22 @@ class Backbone:
 
     def _recurrent_train(self, p, x, kind: str):
         """Training: a recurrent layer from zero state (conv, h0, shifts and
-        wkv), writing no state."""
+        wkv), writing no state. Returns (x, aux)."""
         B = x.shape[0]
         f32 = dict(dtype=torch.float32, device=x.device)
         if kind == "rec":
             h0 = torch.zeros(B, self.W, **f32)
             conv0 = x.new_zeros(B, self.cfg.conv1d_width - 1, self.W)
-            return self._rec_body(
+            x, _, aux = self._rec_body(
                 p, x, conv0,
-                lambda *a: RGLRUScan.apply(*a, h0, self._plain))[0]
+                lambda *a: RGLRUScan.apply(*a, h0, self._plain))
+            return x, aux
         hd = self.cfg.rwkv_head_dim
         shift0 = x.new_zeros(B, self.cfg.d_model)
         wkv0 = torch.zeros(B, self.rwkv_H, hd, hd, **f32)
         return self._rwkv_body(
             p, x, shift0, wkv0, shift0,
-            lambda *a: rwkv6.WKVScan.apply(*a, self._plain))[0]
+            lambda *a: rwkv6.WKVScan.apply(*a, self._plain))[0], 0.0
 
     def _embed_tokens(self, params, tokens) -> torch.Tensor:
         cfg = self.cfg
@@ -372,21 +409,24 @@ class Backbone:
     # ------------------------------------------------------------------ #
     def _train_layer(self, gp, r: int, pattern, x, positions, rope):
         """Layer ``r`` of a group in training: its parameters sliced and
-        cast inside, so that remat recomputes the cast as the reference's
-        scan body does."""
+        cast inside, so that remat recomputes the cast (and the MoE layers'
+        routing) as the reference's scan body does. Returns (x, the layer's
+        aux loss)."""
         lp = self._layer_params(gp, r)
+        aux = 0.0
         for si, kind in enumerate(pattern):
             if kind in ("rec", "rwkv"):
-                x = self._recurrent_train(lp[f"s{si}"], x, kind)
+                x, a = self._recurrent_train(lp[f"s{si}"], x, kind)
             else:
-                x, _, _ = self._layer_fwd(lp[f"s{si}"], x, kind, positions,
-                                          rope)
-        return x
+                x, _, _, a = self._layer_fwd(lp[f"s{si}"], x, kind,
+                                             positions, rope)
+            aux = aux + a
+        return x, aux
 
     def loss_fn(self, params: Params, batch: Dict[str, Any]) -> torch.Tensor:
         """Mean next-token cross-entropy (fp32) of ``batch["tokens"]``
         against ``batch["labels"]`` (both [B, S]), plus ``AUX_COEF`` times
-        the auxiliary loss, which is 0 without MoE."""
+        the MoE layers' summed auxiliary loss (0 without MoE)."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         labels = torch.as_tensor(batch["labels"], device=self.device)
@@ -394,17 +434,18 @@ class Backbone:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=self.device)
         rope = self._rope(positions) if self._has_attn else None
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for gi, group in enumerate(cfg.groups):
             gp = params[f"g{gi}"]
             for r in range(group.repeat):
                 if self.remat:
-                    x = checkpoint(self._train_layer, gp, r, group.pattern, x,
-                                   positions, rope, use_reentrant=False)
+                    x, a = checkpoint(self._train_layer, gp, r, group.pattern,
+                                      x, positions, rope, use_reentrant=False)
                 else:
-                    x = self._train_layer(gp, r, group.pattern, x, positions,
-                                          rope)
+                    x, a = self._train_layer(gp, r, group.pattern, x,
+                                             positions, rope)
+                aux = aux + a
         logits = self._logits(params, x)
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         loss = stable_cross_entropy(logits, labels, cfg.final_logit_softcap)
         return loss + AUX_COEF * aux
 
@@ -471,7 +512,8 @@ class Backbone:
         kpos[slot] = pos
         o = self._attend(q, ck.to(x.dtype), cv.to(x.dtype), kind, posv, kpos)
         x = x + o.reshape(B, 1, self.H * self.hd) @ p["wo"]
-        return x + self._ffn_sublayer(p, x)
+        y, _ = self._ffn_sublayer(p, x)
+        return x + y
 
     def decode_step(self, params: Params, cache: Params, tokens
                     ) -> Tuple[torch.Tensor, Params]:
@@ -527,7 +569,7 @@ class Backbone:
                     if kind in ("rec", "rwkv"):
                         x = self._recurrent_layer(p, x, kind, sub, r)
                         continue
-                    x, k, v = self._layer_fwd(p, x, kind, positions, rope)
+                    x, k, v, _ = self._layer_fwd(p, x, kind, positions, rope)
                     C = sub["kpos"].shape[1]
                     n = min(C, S)
                     sel = positions[S - n:]

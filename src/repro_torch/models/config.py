@@ -168,7 +168,8 @@ _REGISTRY: Dict[str, ModelConfig] = {}
 # The architectures the port runs. The rest of the reference's ten wait in
 # ROADMAP.md, queue 1.
 ARCH_NAMES = ["qwen3-4b", "gemma2-2b", "qwen2-7b", "phi4-mini-3.8b",
-              "chameleon-34b", "recurrentgemma-9b", "rwkv6-3b"]
+              "chameleon-34b", "recurrentgemma-9b", "rwkv6-3b",
+              "mixtral-8x22b", "qwen3-moe-235b-a22b"]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -176,11 +177,16 @@ def register(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
+# the reference's architectures still queued, and their slice in ROADMAP.md
+_QUEUED = {"whisper-tiny": "slice 7"}
+
+
 def get_config(name: str) -> ModelConfig:
     if name not in ARCH_NAMES:
         raise KeyError(
             f"{name!r} is not ported yet: the port runs {ARCH_NAMES}; the "
-            "other architectures are queued in ROADMAP.md, queue 1")
+            "other architectures are queued in ROADMAP.md, queue 1"
+            + (f", {_QUEUED[name]}" if name in _QUEUED else ""))
     load_all_configs()
     return _REGISTRY[name]
 

@@ -1,0 +1,104 @@
+"""Expert-parallel MoE over ``torch.distributed`` (the port of
+``repro.models.moe_ep``, which does it with ``shard_map``).
+
+Experts are homed on the ranks of the model group and every token takes its
+computation to its experts' home: each rank routes all of its data shard's
+tokens (the router is replicated, so every rank computes the same routes and
+positions), keeps the assignments to its own experts, runs them and combines
+its partial output. One ``all_reduce`` over the model group sums the
+partials; its backward is an ``all_reduce`` of the gradient
+(``torch.distributed.nn.functional``). No capacity buffer crosses ranks.
+
+When there are fewer experts than ranks, each expert is split column-wise
+into ``split`` virtual experts (tensor parallelism inside the expert), an
+exact decomposition of the gated FFN:
+
+    silu(x Wg) * (x Wu) Wd  ==  sum_h silu(x Wg_h) * (x Wu_h) Wd_h
+
+so the parameters are stored virtualized, ``[V, D, Fe/split]``
+(``Backbone._leaf_specs`` with ``moe_impl="ep"``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.nn.functional import all_reduce
+
+from .ffn import (aux_loss, combine, dispatch, expert_ffn, moe_capacity,
+                  route, slot_positions)
+
+
+def virtualization(cfg, tp: int) -> Tuple[int, int]:
+    """(V, split): virtual expert count and per-expert column split."""
+    E = cfg.n_experts
+    if E % tp == 0:
+        return E, 1
+    split = -(-tp // E)
+    if (E * split) % tp:
+        raise ValueError(f"{cfg.name}: {E} experts split {split} ways do "
+                         f"not divide over {tp} ranks")
+    return E * split, split
+
+
+def _local_moe(xt: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
+               w_up: torch.Tensor, w_down: torch.Tensor, *, cfg, V: int,
+               split: int, tp: int, rank: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rank's part. xt: [T, D], the tokens of this rank's data shard
+    (the same on every rank of the model group); router [D, E]; w_*: this
+    rank's V / tp virtual experts, [V/tp, D, Fe/split] and [V/tp, Fe/split,
+    D]. Returns (this rank's partial y [T, D], aux): the partials of the
+    model group's ranks sum to the layer's output."""
+    T, D = xt.shape
+    E, K = cfg.n_experts, cfg.top_k
+    V_loc = V // tp
+    base = rank * V_loc
+    probs, gate_vals, gate_idx = route(xt, router, K)
+    # expert e -> its virtuals e * split + h, in token-major order
+    vflat = (gate_idx[..., None] * split
+             + torch.arange(split, device=xt.device)).reshape(-1)
+    wflat = gate_vals.reshape(-1).repeat_interleave(split)
+    C = moe_capacity(T, E, K, cfg.capacity_factor)
+    pos = slot_positions(vflat, V)        # the same on every rank
+    own = (vflat >= base) & (vflat < base + V_loc)
+    keep = own & (pos < C)
+    slot_v = torch.where(keep, vflat - base, 0)
+    slot_c = torch.where(keep, pos, 0)
+    buf = dispatch(xt, keep, slot_v, slot_c, (V_loc, C, D))
+    out_buf = expert_ffn(buf, w_gate, w_up, w_down)
+    y = combine(out_buf, keep, slot_v, slot_c, wflat, T)
+    return y, aux_loss(probs, gate_idx, E)
+
+
+def moe_mlp_ep(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
+               group: Optional[dist.ProcessGroup] = None,
+               data_group: Optional[dist.ProcessGroup] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE. x: [B, S, D] -> (y, aux).
+
+    ``params``: router [D, E]; w_gate / w_up [V, D, Fe_v], w_down [V, Fe_v,
+    D], all V virtual experts (this rank takes its own V / tp of them, a
+    view). ``group`` is the model group (tp = its size; None: tp = 1, no
+    collective); ``data_group``, where given, averages aux over the data
+    ranks, whose tokens differ."""
+    B, S, D = x.shape
+    tp = dist.get_world_size(group) if group is not None else 1
+    rank = dist.get_rank(group) if group is not None else 0
+    V, split = virtualization(cfg, tp)
+    if params["w_gate"].shape[0] != V:
+        raise ValueError(f"expert leaves hold {params['w_gate'].shape[0]} "
+                         f"virtual experts, want {V} for tp {tp}")
+    V_loc = V // tp
+    own = slice(rank * V_loc, (rank + 1) * V_loc)
+    y, aux = _local_moe(x.reshape(B * S, D), params["router"],
+                        params["w_gate"][own], params["w_up"][own],
+                        params["w_down"][own], cfg=cfg, V=V, split=split,
+                        tp=tp, rank=rank)
+    if group is not None:
+        y = all_reduce(y, group=group)
+    if data_group is not None:
+        aux = all_reduce(aux, group=data_group) / dist.get_world_size(
+            data_group)
+    return y.reshape(B, S, D), aux

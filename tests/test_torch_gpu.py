@@ -26,7 +26,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_bwd as fb
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops, ref, rglru, rglru_bwd, rwkv6, rwkv6_bwd
-from repro_torch.models import Backbone, LayerGroup, get_config, reduced
+from repro_torch.models import Backbone, LayerGroup, ffn, get_config, reduced
 
 pytestmark = pytest.mark.gpu
 
@@ -52,6 +52,10 @@ SHAPES = [
     # gemma2-2b's local layers: 8/4 at hd 256, window 4096, softcap 50,
     # past the window
     (1, 4200, 4200, 8, 4, 256, True, 4096, 50.0),
+    # mixtral-8x22b's local layers: 48/8 (G 6) at hd 128, window 4096,
+    # past the window; qwen3-moe-235b-a22b: 64/4 (G 16)
+    (1, 4200, 4200, 48, 8, 128, True, 4096, None),
+    (1, 512, 512, 64, 4, 128, True, None, None),
 ]
 DTYPES = {"fp32": (torch.float32, (5e-5, 5e-5)),
           "bf16": (torch.bfloat16, (1e-4, 2.0 ** -6))}
@@ -147,6 +151,8 @@ DECODE_CASES = [
     (8, 1024, 28, 4, 128, 600, 1500, None, None),  # qwen2-7b, G = 7
     (8, 1024, 24, 8, 128, 0, 700, None, None),     # phi4-mini, G = 3
     (8, 4096, 8, 4, 256, 600, 4695, 4096, 50.0),   # gemma2-2b, wrapped
+    (8, 4096, 48, 8, 128, 135, 4230, 4096, None),  # mixtral-8x22b, wrapped
+    (8, 1024, 64, 4, 128, 0, 542, None, None),     # qwen3-moe, G = 16
 ]
 
 
@@ -850,3 +856,74 @@ def test_recurrent_model_grads_kernel_path_match_plain_path(cuda, arch, groups,
         assert abs(float(lk) - float(lp)) <= 2.0 ** -6 * abs(float(lp))
         for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
             assert float((a - b).norm()) <= 2.0 ** -4 * float(b.norm())
+
+
+# --------------------------------------------------------------------------- #
+# The MoE layer on the card                                                   #
+# --------------------------------------------------------------------------- #
+def _moe_case(arch, seed):
+    """A MoE layer of the arch's expert count and top-k at a narrow width
+    (D 256, Fe 128) and the config's own capacity factor 1.25, and 2 x 160
+    tokens: numpy weights at the init scale and inputs."""
+    import dataclasses
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(reduced(full), d_model=256, moe_d_ff=128,
+                              n_experts=full.n_experts, top_k=full.top_k,
+                              capacity_factor=full.capacity_factor)
+    rng = np.random.default_rng(seed)
+    D, E, Fe = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+
+    def dense(*shape):
+        return (rng.standard_normal(shape) / np.sqrt(shape[-2])).astype(
+            np.float32)
+    p = {"router": dense(D, E), "w_gate": dense(E, D, Fe),
+         "w_up": dense(E, D, Fe), "w_down": dense(E, Fe, D)}
+    x = rng.standard_normal((2, 160, D)).astype(np.float32)
+    return cfg, p, x
+
+
+def _moe_run(cfg, p, x, device):
+    tp = {k: torch.from_numpy(v).to(device).requires_grad_()
+          for k, v in p.items()}
+    tx = torch.from_numpy(x).to(device).requires_grad_()
+    y, aux = ffn.moe_mlp(tp, tx, cfg)
+    (y.square().sum() + aux).backward()
+    _, _, idx = ffn.route(tx.detach().reshape(-1, cfg.d_model),
+                          tp["router"].detach(), cfg.top_k)
+    return [t.detach().cpu() for t in (idx, y, aux, tx.grad)] + [
+        tp[k].grad.cpu() for k in p]
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-235b-a22b"])
+def test_moe_mlp_on_the_card_matches_the_cpu_port(cuda, arch):
+    """fp32, the config's capacity factor (qwen3-moe's 128 experts drop
+    here): the same routes, and y, aux and every gradient within 1e-4 of
+    the CPU port (cuBLAS sums the products in another order)."""
+    cfg, p, x = _moe_case(arch, 50)
+    got = _moe_run(cfg, p, x, cuda)
+    want = _moe_run(cfg, p, x, "cpu")
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_moe_router_is_full_fp32_whatever_tf32_is_set_to(cuda):
+    """With TF32 switched on for fp32 products, the router still computes
+    in full fp32: the same logits bit for bit, and the caller's setting is
+    back afterwards."""
+    cfg, p, x = _moe_case("qwen3-moe-235b-a22b", 51)
+    xt = torch.from_numpy(x.reshape(-1, cfg.d_model)).to(cuda)
+    router = torch.from_numpy(p["router"]).to(cuda)
+    want = ffn.route(xt, router, cfg.top_k)
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        assert torch.backends.cuda.matmul.allow_tf32
+        got = ffn.route(xt, router, cfg.top_k)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision(before)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

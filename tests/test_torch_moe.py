@@ -1,0 +1,486 @@
+"""The port's MoE layer (``models/ffn.py``), its expert-parallel form
+(``models/moe_ep.py``) and the MoE archs' ``Backbone`` against the JAX
+package on the CPU, in fp32.
+
+Inputs and weights are made with numpy from a seed and handed to both; the
+backbone gets the JAX init grafted through repro_torch.bridge. Tolerances:
+the layer's y, aux and every gradient 1e-5 (atol = rtol; one fp32 order of
+the same products against another, the routes equal); the backbone's logits
+and caches 1e-4, its loss 1e-5 and each leaf's gradient 1e-4 of the leaf's
+largest entry, as tests/test_torch_train.py and test_torch_models.py hold
+the dense archs (the port's attention is the unchunked softmax, JAX's the
+chunked online one). The routing itself (which experts, in which order,
+which assignments are dropped) is held exactly. The expert-parallel form at
+world size 1 equals ``moe_mlp`` bit for bit; summed over 8 emulated ranks
+with column-split experts it equals it within 1e-5 (the split sums each
+expert's products in two halves).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro.models import Backbone as JBackbone
+from repro.models import ffn as jffn
+from repro.models import get_config as jget_config
+from repro.models import moe_ep as jmoe_ep
+from repro.models import reduced as jreduced
+from repro_torch import bridge
+from repro_torch.models import Backbone, get_config, reduced
+from repro_torch.models import ffn, moe_ep
+from repro_torch.optim import adamw
+from repro_torch.runtime.steps import value_and_grad
+
+MOE_ARCHS = ["mixtral-8x22b", "qwen3-moe-235b-a22b"]
+TOL = 1e-5
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _layer(cfg, seed, router_scale=1.0):
+    """numpy weights of one MoE layer: router [D, E] (scaled by
+    ``router_scale``; 0 makes every probability tie), experts [E, D, Fe] and
+    [E, Fe, D], each at the backbone's init scale."""
+    rng = np.random.default_rng(seed)
+    D, E, Fe = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+
+    def dense(*shape):
+        return (rng.standard_normal(shape) / np.sqrt(shape[-2])).astype(
+            np.float32)
+    return {"router": dense(D, E) * np.float32(router_scale),
+            "w_gate": dense(E, D, Fe), "w_up": dense(E, D, Fe),
+            "w_down": dense(E, Fe, D)}
+
+
+def _x(cfg, B, S, seed):
+    return np.random.default_rng(seed).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)
+
+
+def _jax_layer(p, x, cfg, ct, c_aux):
+    """JAX's (y, aux) and the gradients of sum(y * ct) + c_aux * aux with
+    respect to every leaf and x."""
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+
+    def f(jp, x):
+        y, aux = jffn.moe_mlp(jp, x, cfg)
+        return jnp.sum(y * ct) + c_aux * aux, (y, aux)
+    (_, (y, aux)), (gp, gx) = jax.value_and_grad(f, argnums=(0, 1),
+                                                 has_aux=True)(
+        jp, jnp.asarray(x))
+    return y, aux, gp, gx
+
+
+def _torch_layer(p, x, cfg, ct, c_aux, fn=ffn.moe_mlp):
+    tp = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    y, aux = fn(tp, tx, cfg)
+    (torch.sum(y * torch.from_numpy(ct)) + c_aux * aux).backward()
+    return y.detach(), aux.detach(), {k: t.grad for k, t in tp.items()}, \
+        tx.grad
+
+
+def _jax_keep(p, x, cfg):
+    """The reference's routes and kept assignments, from its own router and
+    ``jax.lax.top_k`` and its formula (ffn.py:48-63), in numpy."""
+    xt = jnp.asarray(x.reshape(-1, cfg.d_model))
+    probs = jax.nn.softmax(xt @ jnp.asarray(p["router"]), axis=-1)
+    _, idx = jax.lax.top_k(probs, cfg.top_k)
+    idx = np.asarray(idx)
+    flat = idx.reshape(-1)
+    onehot = np.eye(cfg.n_experts, dtype=np.int64)[flat]
+    pos = (np.cumsum(onehot, 0) - 1)[np.arange(len(flat)), flat]
+    C = jffn.moe_capacity(xt.shape[0], cfg.n_experts, cfg.top_k,
+                          cfg.capacity_factor)
+    return idx, pos < C
+
+
+def _port_keep(p, x, cfg):
+    xt = torch.from_numpy(x.reshape(-1, cfg.d_model))
+    _, _, idx = ffn.route(xt, torch.from_numpy(p["router"]), cfg.top_k)
+    pos = ffn.slot_positions(idx.reshape(-1), cfg.n_experts)
+    C = ffn.moe_capacity(xt.shape[0], cfg.n_experts, cfg.top_k,
+                         cfg.capacity_factor)
+    return idx.numpy(), (pos < C).numpy()
+
+
+def _check_layer(cfg, jcfg, p, x, seed):
+    ct = np.random.default_rng(seed).standard_normal(x.shape).astype(
+        np.float32)
+    jy, jaux, jgp, jgx = _jax_layer(p, x, jcfg, ct, 0.5)
+    ty, taux, tgp, tgx = _torch_layer(p, x, cfg, ct, 0.5)
+    assert ty.shape == x.shape and taux.dtype == torch.float32
+    _close(ty, jy, TOL)
+    _close(taux, jaux, TOL)
+    _close(tgx, jgx, TOL)
+    for k in p:
+        _close(tgp[k], jgp[k], TOL)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_mlp_matches_jax(arch):
+    """y, aux and the gradients of every leaf and of x, drop-free
+    (reduced()'s capacity factor 8)."""
+    cfg, jcfg = reduced(get_config(arch)), jreduced(jget_config(arch))
+    p, x = _layer(cfg, 0), _x(cfg, 2, 16, 1)
+    idx, keep = _port_keep(p, x, cfg)
+    assert keep.all()
+    np.testing.assert_array_equal(idx, _jax_keep(p, x, jcfg)[0])
+    _check_layer(cfg, jcfg, p, x, 2)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_mlp_drops_like_jax(arch):
+    """capacity_factor 1.0 at T = 64: C = 32 slots for 128 assignments over
+    4 experts, so an unbalanced router drops for certain. The kept set, y,
+    aux and the gradients match JAX's."""
+    cfg = reduced(get_config(arch), capacity_factor=1.0)
+    jcfg = jreduced(jget_config(arch), capacity_factor=1.0)
+    p, x = _layer(cfg, 3, router_scale=3.0), _x(cfg, 2, 32, 4)
+    idx, keep = _port_keep(p, x, cfg)
+    jidx, jkeep = _jax_keep(p, x, jcfg)
+    np.testing.assert_array_equal(idx, jidx)
+    np.testing.assert_array_equal(keep, jkeep)
+    assert 0 < (~keep).sum() < keep.size
+    _check_layer(cfg, jcfg, p, x, 5)
+
+
+@pytest.mark.parametrize("E,K", [(4, 2), (8, 2), (128, 8)])
+def test_tied_probabilities_pick_the_lower_index_first(E, K):
+    """Every probability equal: ``ffn.top_k`` picks experts 0..K-1 in that
+    order, as ``jax.lax.top_k`` does (``torch.topk`` promises no order)."""
+    probs = np.full((5, E), 1.0 / E, np.float32)
+    probs[1, E // 2:] = 2.0 / E      # ties among the larger half too
+    vals, idx = ffn.top_k(torch.from_numpy(probs), K)
+    jvals, jidx = jax.lax.top_k(jnp.asarray(probs), K)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jvals))
+    np.testing.assert_array_equal(idx[0].numpy(), np.arange(K))
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("cf", [1.0, 8.0])
+def test_zero_router_routes_like_jax(arch, cf):
+    """A zero router ties every probability: every token goes to experts
+    0..K-1 in that order, in both packages, and at capacity factor 1 the
+    same assignments are dropped."""
+    cfg = reduced(get_config(arch), capacity_factor=cf)
+    jcfg = jreduced(jget_config(arch), capacity_factor=cf)
+    p, x = _layer(cfg, 6, router_scale=0.0), _x(cfg, 2, 16, 7)
+    idx, keep = _port_keep(p, x, cfg)
+    jidx, jkeep = _jax_keep(p, x, jcfg)
+    np.testing.assert_array_equal(idx, jidx)
+    np.testing.assert_array_equal(idx, np.tile(np.arange(cfg.top_k), (32, 1)))
+    np.testing.assert_array_equal(keep, jkeep)
+    assert (~keep).any() == (cf == 1.0)
+    _check_layer(cfg, jcfg, p, x, 8)
+
+
+@pytest.mark.parametrize("cf", [0.5, 1.0, 1.25, 2.0, 8.0])
+def test_moe_capacity_matches_jax(cf):
+    for T in (1, 7, 8, 64, 512, 4200, 4097):
+        for E, K in ((4, 2), (8, 2), (128, 8), (3, 1)):
+            assert ffn.moe_capacity(T, E, K, cf) == jffn.moe_capacity(
+                T, E, K, cf), (T, E, K, cf)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_aux_loss_is_at_least_one(arch):
+    """tests/test_models.py::test_moe_router_load_balance_loss_positive on
+    the port: >= 1 by Cauchy-Schwarz, 1 iff balanced."""
+    cfg = reduced(get_config(arch))
+    p = {k: torch.from_numpy(v) for k, v in _layer(cfg, 9).items()}
+    y, aux = ffn.moe_mlp(p, torch.from_numpy(_x(cfg, 2, 16, 10)), cfg)
+    assert y.shape == (2, 16, cfg.d_model)
+    assert float(aux) >= 1.0 - 1e-3
+
+
+# --------------------------------------------------------------------------- #
+# Expert parallelism                                                          #
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("tp", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_virtualization_matches_jax(tp):
+    for arch in MOE_ARCHS:
+        assert moe_ep.virtualization(get_config(arch), tp) == \
+            jmoe_ep.virtualization(jget_config(arch), tp)
+    assert moe_ep.virtualization(get_config("mixtral-8x22b"), 16) == (16, 2)
+    assert moe_ep.virtualization(get_config("qwen3-moe-235b-a22b"),
+                                 16) == (128, 1)
+
+
+def test_column_split_is_exact():
+    """tests/test_models.py::test_moe_virtualization_split_is_exact on the
+    port: silu(x Wg) * (x Wu) Wd is the sum over column halves."""
+    rng = np.random.default_rng(11)
+    x, wg, wu, wd = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)) for s in ((5, 8), (8, 12), (8, 12), (12, 8)))
+    full = ffn.expert_ffn(x[None], wg[None], wu[None], wd[None])[0]
+    parts = sum(ffn.expert_ffn(x[None], wg[None, :, i * 6:(i + 1) * 6],
+                               wu[None, :, i * 6:(i + 1) * 6],
+                               wd[None, i * 6:(i + 1) * 6])[0]
+                for i in range(2))
+    _close(parts, full, TOL)
+
+
+def _virtualize(p, split):
+    """[E, D, Fe] experts -> [E * split, D, Fe / split] (virtual e * split
+    + h takes columns h of expert e), as Backbone stores them for ep."""
+    E, D, Fe = p["w_gate"].shape
+    Fv = Fe // split
+    out = {"router": p["router"]}
+    for k in ("w_gate", "w_up"):
+        out[k] = p[k].reshape(E, D, split, Fv).transpose(0, 2, 1, 3).reshape(
+            E * split, D, Fv)
+    out["w_down"] = p["w_down"].reshape(E * split, Fv, D)
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_local_moe_summed_over_ranks_equals_moe_mlp(arch, tp):
+    """Emulated tensor parallelism: _local_moe of ranks 0..tp-1 on their
+    virtual experts (4 experts: split 2 at tp 8) sums to moe_mlp, at a
+    capacity that drops (the positions are global, so every rank drops the
+    same assignments)."""
+    cfg = reduced(get_config(arch), capacity_factor=1.0)
+    p, x = _layer(cfg, 12, router_scale=3.0), _x(cfg, 2, 32, 13)
+    V, split = moe_ep.virtualization(cfg, tp)
+    vp = {k: torch.from_numpy(v) for k, v in _virtualize(p, split).items()}
+    xt = torch.from_numpy(x.reshape(-1, cfg.d_model))
+    V_loc = V // tp
+    parts = [moe_ep._local_moe(
+        xt, vp["router"], vp["w_gate"][r * V_loc:(r + 1) * V_loc],
+        vp["w_up"][r * V_loc:(r + 1) * V_loc],
+        vp["w_down"][r * V_loc:(r + 1) * V_loc], cfg=cfg, V=V, split=split,
+        tp=tp, rank=r) for r in range(tp)]
+    want_y, want_aux = ffn.moe_mlp({k: torch.from_numpy(v)
+                                    for k, v in p.items()},
+                                   torch.from_numpy(x), cfg)
+    _close(sum(y for y, _ in parts).reshape(x.shape), want_y, TOL)
+    for _, aux in parts:
+        assert torch.equal(aux, want_aux)
+    assert not _port_keep(p, x, cfg)[1].all()
+
+
+@pytest.fixture(scope="module")
+def one_rank():
+    """A one-process gloo group over an in-memory store (no network)."""
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_mlp_ep_at_world_size_1_equals_moe_mlp(one_rank, arch):
+    """tests/test_models.py::test_moe_ep_matches_gspmd_baseline on the port,
+    through the collective of a one-rank group: y, aux and the gradients
+    bit for bit, also where assignments drop; with the data group too."""
+    cfg = reduced(get_config(arch), capacity_factor=1.0)
+    p, x = _layer(cfg, 14, router_scale=3.0), _x(cfg, 2, 32, 15)
+    ct = np.random.default_rng(16).standard_normal(x.shape).astype(np.float32)
+    want = _torch_layer(p, x, cfg, ct, 0.5)
+    for group, data_group in ((one_rank, None), (one_rank, one_rank)):
+        got = _torch_layer(p, x, cfg, ct, 0.5, fn=lambda tp, tx, c:
+                           moe_ep.moe_mlp_ep(tp, tx, c, group, data_group))
+        for a, b in zip(got[:2] + (got[3],), want[:2] + (want[3],)):
+            assert torch.equal(a, b)
+        for k in p:
+            assert torch.equal(got[2][k], want[2][k]), k
+
+
+def test_moe_mlp_ep_rejects_leaves_of_another_split(one_rank):
+    cfg = reduced(get_config("mixtral-8x22b"))
+    p = {k: torch.from_numpy(v) for k, v in _layer(cfg, 17).items()}
+    p["w_gate"] = p["w_gate"][:2]
+    with pytest.raises(ValueError, match="virtual experts"):
+        moe_ep.moe_mlp_ep(p, torch.zeros(1, 2, cfg.d_model), cfg, one_rank)
+
+
+# --------------------------------------------------------------------------- #
+# The backbone                                                                #
+# --------------------------------------------------------------------------- #
+# variant -> (reduced() overrides, router scale): drop-free, capacity
+# factor 1 (prefill drops), a zero router (every probability ties; at
+# capacity factor 1 the ties drop)
+VARIANTS = {"drop_free": ({}, 1.0),
+            "drops": (dict(capacity_factor=1.0), 1.0),
+            "ties": (dict(capacity_factor=1.0), 0.0)}
+
+
+def _moe_pair(arch, variant, remat=False, **kw):
+    over, router_scale = VARIANTS[variant]
+    jbb = JBackbone(jreduced(jget_config(arch), **over),
+                    compute_dtype=jnp.float32, remat=remat)
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(
+        jbb.init(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(4)
+    out = []
+    for path, leaf in leaves:
+        leaf = np.asarray(leaf)
+        if not np.any(leaf):   # norm scales: perturbed, as the dense tests
+            leaf = leaf + 0.1 * rng.standard_normal(leaf.shape).astype(
+                np.float32)
+        if jax.tree_util.keystr(path).endswith("['router']"):
+            leaf = leaf * np.float32(router_scale)
+        out.append(leaf)
+    jparams = jax.tree_util.tree_unflatten(
+        jax.tree_util.tree_structure(jbb.init(jax.random.PRNGKey(0))), out)
+    bb = Backbone(reduced(get_config(arch), **over),
+                  compute_dtype=torch.float32, remat=remat, device="cpu",
+                  **kw)
+    return jbb, jparams, bb, bridge.params_from_numpy(jparams, device="cpu")
+
+
+def _tokens(vocab, B, S, seed):
+    return np.random.default_rng(seed).integers(0, vocab, (B, S),
+                                                dtype=np.int32)
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_backbone_prefill_and_decode_match_jax(arch, variant):
+    """Prefill past the reduced window (mixtral's local ring wraps), every
+    cache leaf, then 4 decode steps of 2 slots."""
+    jbb, jparams, bb, params = _moe_pair(arch, variant)
+    assert params["g0"]["s0"]["router"].shape == (1, 64, 4)
+    assert params["g0"]["s0"]["w_gate"].shape == (1, 4, 64, 32)
+    B, S, N, ctx = 2, 45, 4, 64
+    toks = _tokens(bb.cfg.vocab, B, S + N, 5)
+    jlog, jcache = jbb.prefill(jparams, {"tokens": jnp.asarray(toks[:, :S])},
+                               ctx)
+    tlog, tcache = bb.prefill(params, {"tokens": torch.from_numpy(
+        toks[:, :S])}, ctx)
+    _close(tlog, jlog, 1e-4)
+    mine, want = bridge.cache_to_numpy(tcache), _np_tree(jcache)
+    assert (jax.tree_util.tree_structure(mine)
+            == jax.tree_util.tree_structure(want))
+    for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(mine)[0],
+                            jax.tree_util.tree_leaves(want)):
+        if jax.tree_util.keystr(path).endswith("['kpos']"):
+            np.testing.assert_array_equal(a, b)
+        else:
+            _close(a, b, 1e-4)
+    jdec = jax.jit(jbb.decode_step)
+    for i in range(N):
+        tok = toks[:, S + i:S + i + 1]
+        jlog, jcache = jdec(jparams, jcache, jnp.asarray(tok))
+        tlog, tcache = bb.decode_step(params, tcache, torch.from_numpy(tok))
+        _close(tlog, jlog, 1e-4)
+    assert tcache["pos"] == S + N
+
+
+def _leaves_close(got_tree, want_tree, rel):
+    got = adamw.tree_leaves(got_tree)
+    want = jax.tree_util.tree_leaves(want_tree)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        g = g.detach().float().numpy()
+        assert g.shape == w.shape
+        scale = max(float(np.abs(w).max()), 1e-30)
+        np.testing.assert_allclose(g, w, atol=rel * scale, rtol=rel)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_backbone_loss_and_grads_match_jax(arch, variant, remat):
+    """loss_fn (cross-entropy + AUX_COEF * the summed aux) and every leaf's
+    gradient against jax.value_and_grad, past mixtral's reduced window; with
+    remat the routing is recomputed in the backward and must pick the same
+    experts."""
+    jbb, jparams, bb, params = _moe_pair(arch, variant, remat=remat)
+    toks = _tokens(bb.cfg.vocab, 2, 41, 1)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    want_loss, want_grads = jax.value_and_grad(jbb.loss_fn)(jparams, jbatch)
+    loss, grads = value_and_grad(bb, params, batch)
+    _close(loss, want_loss, 1e-5)
+    _leaves_close(grads, want_grads, 1e-4)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_backbone_loss_adds_the_aux_loss(arch):
+    """loss_fn - AUX_COEF * (the layers' aux) is the plain cross-entropy."""
+    from repro_torch.models import backbone, common
+
+    _, _, bb, params = _moe_pair(arch, "drops")
+    toks = _tokens(bb.cfg.vocab, 2, 25, 2)
+    loss = bb.loss_fn(params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    x = bb._embed_tokens(params, torch.from_numpy(toks[:, :-1]))
+    pos = torch.arange(24, dtype=torch.int32)
+    x, aux = bb._train_layer(params["g0"], 0, bb.cfg.groups[0].pattern, x,
+                             pos, bb._rope(pos))
+    ce = common.stable_cross_entropy(bb._logits(params, x),
+                                     torch.from_numpy(toks[:, 1:]))
+    assert float(aux) >= 1.0 - 1e-3
+    _close(loss, ce + backbone.AUX_COEF * aux, 1e-6)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_backbone_ep_at_world_size_1_equals_gspmd(one_rank, arch):
+    """Backbone(moe_impl="ep") over a one-rank group: the same leaves, and
+    the same loss and gradients bit for bit, as the scatter path."""
+    _, _, bb, params = _moe_pair(arch, "drops")
+    ep = Backbone(bb.cfg, compute_dtype=torch.float32, remat=False,
+                  device="cpu", moe_impl="ep", model_group=one_rank)
+    assert (ep.moe_V, ep.moe_split) == (bb.cfg.n_experts, 1)
+    toks = _tokens(bb.cfg.vocab, 2, 25, 3)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    l1, g1 = value_and_grad(bb, params, batch)
+    l2, g2 = value_and_grad(ep, params, batch)
+    assert torch.equal(l1, l2)
+    for a, b in zip(adamw.tree_leaves(g1), adamw.tree_leaves(g2)):
+        assert torch.equal(a, b)
+
+
+def test_backbone_ep_rejects_a_group_that_does_not_fit_its_leaves():
+    """The leaves follow the plan's tp (8 virtual experts of half the
+    columns at tp 8); driven with no group (tp 1) the layer raises."""
+    from repro_torch.models import PartitionPlan
+
+    cfg = reduced(get_config("mixtral-8x22b"))
+    bb = Backbone(cfg, PartitionPlan(tp=8, vocab_align=1), device="cpu",
+                  moe_impl="ep", compute_dtype=torch.float32)
+    params = bb.init(0)
+    assert params["g0"]["s0"]["w_gate"].shape == (1, 8, 64, 16)
+    toks = _tokens(cfg.vocab, 1, 9, 4)
+    with pytest.raises(ValueError, match="virtual experts"):
+        bb.loss_fn(params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    with pytest.raises(ValueError, match="moe_impl"):
+        Backbone(cfg, device="cpu", moe_impl="shard_map")
+
+
+@pytest.mark.parametrize("moe_impl", ["gspmd", "ep"])
+@pytest.mark.parametrize("tp", [1, 16])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_full_size_leaves_match_the_reference(arch, tp, moe_impl):
+    """The full-size parameter tree (meta tensors, no memory) against the
+    reference's param_specs: at tp 16 with ep mixtral's 8 experts are
+    stored as 16 virtual experts of half the columns."""
+    from repro.models.partition import PartitionPlan as JPartitionPlan
+    from repro_torch.models import PartitionPlan
+
+    jbb = JBackbone(jget_config(arch), JPartitionPlan(tp=tp),
+                    moe_impl=moe_impl)
+    bb = Backbone(get_config(arch), PartitionPlan(tp=tp), device="cpu",
+                  moe_impl=moe_impl)
+    mine = bb.init(device="meta")
+    want = jbb.param_specs()
+    got = jax.tree_util.tree_map(lambda t: tuple(t.shape), mine)
+    assert got == jax.tree_util.tree_map(lambda s: tuple(s.shape), want)
+    if arch == "mixtral-8x22b" and tp == 16 and moe_impl == "ep":
+        assert got["g0"]["s0"]["w_gate"] == (56, 16, 6144, 8192)
