@@ -22,7 +22,10 @@ Phases; each one that fails raises, and the process exits non-zero:
    FLASH_CASES shapes and the prefill of every served arch and attention
    kind, and as flash_decode (one query position, split over the keys) at
    their ring decodes (see serve_attention_cases), a wrapped ring with empty
-   slots, a half-empty ring and a ring where every split but one is empty;
+   slots, a half-empty ring and a ring where every split but one is empty,
+   and whisper-tiny's calls (whisper_attention_cases: the encoder's
+   non-causal [8, 1500], the decoder's prefill, cross prefill 32 x 1500,
+   the ring decode and the cross decode over 1500 frames);
    K2 (rglru_scan) at RGLRU_CASES shapes, a ragged
    chunked shape and recurrentgemma's prefill and decode; K3 (wkv6_scan) at
    RWKV_CASES shapes, a ragged chunked shape, rwkv6-3b's prefill and decode;
@@ -43,7 +46,8 @@ Phases; each one that fails raises, and the process exits non-zero:
    factor, rows with a flipped route counted and left out (none in fp32);
    at the config's own factor the bf16 kernel path against the plain path
    pinned to its routes, each layer's dropped assignments and the routes
-   the unpinned plain path picks otherwise printed.
+   the unpinned plain path picks otherwise printed. whisper-tiny at full
+   depth (4 enc + 4 dec), each sequence over its own 1500 frames.
 5. Serve each model (see SERVES: the nine archs, chameleon-34b at 32 of
    its 48 layers and the MoE archs at 6, the others at full depth; bf16
    weights and compute,
@@ -60,12 +64,17 @@ Phases; each one that fails raises, and the process exits non-zero:
    dispatch scatter, expert GEMMs, combine, aux loss). Each model is freed
    before the next. Then moe_mlp_ep over a one-rank NCCL group equals
    moe_mlp bit for bit, forward and gradients, on one full-width layer of
-   each MoE arch (phase_ep).
+   each MoE arch (phase_ep). whisper-tiny (phase_serve_whisper) is served
+   as the reference serves it, through Backbone.prefill and decode_step
+   (its Server takes no frames): two waves of 8 requests with their own
+   frames, the counts set to 0 before each wave, flash_fwd exactly 12 a
+   prefill and flash_decode 8 a decode step.
 6. Training. K1 with its LSE against the plain LSE; K1b (flash_bwd: delta,
    dkdv, dq, and reduce where its plan splits the dk/dv grid) against
    flash_bwd_plain in fp32 and bf16 (causal, GQA 32/8, 28/4 and 24/8, MQA
    16/1, softcap 50, window 2048 at hd 256, gemma2-2b's 8/4 at hd 256 with
-   window 4096 and softcap 50, empty kv slots), two runs bit for bit, timed
+   window 4096 and softcap 50, empty kv slots, whisper-tiny's encoder,
+   cross (Sq != Skv) and decoder shapes), two runs bit for bit, timed
    beside the plain version, SDPA forward + backward and the bound. Then
    qwen3-4b at full width, depth 8 (see TRAIN): one microbatch of [1, 512]
    through loss_fn and the backward on the kernel path and on the plain path
@@ -86,7 +95,11 @@ Phases; each one that fails raises, and the process exits non-zero:
    step ms, tokens/s, peak memory, a profiled step. The MoE archs' gradient
    check at one layer (see MOE_TRAIN), fp32 and bf16 compute, remat's
    recomputed routes equal to the forward's, the route flips counted, the
-   bf16 plain path pinned to the kernel path's routes. Finally a crash at
+   bf16 plain path pinned to the kernel path's routes. whisper-tiny at full
+   depth: the gradient check at [2, 448] tokens over 1500 frames in fp32
+   and bf16 compute, then 6 ``Trainer`` steps of 16 x 448 tokens and 16 x
+   1500 frames, remat off (flash_fwd and each K1b pass 12 a step: 4
+   encoder, 4 self, 4 cross), a falling loss. Finally a crash at
    step 13 of the reduced qwen3-4b and its restart from the step-8
    checkpoint match an uninterrupted run.
 7. Print the kernels line (seven kernels: flash_fwd, flash_decode,
@@ -210,21 +223,43 @@ MOE_TRAIN = {
 # itself.
 SCAN_BWD_TOL = {"rglru_bwd": 1e-5, "wkv6_bwd": 2e-4}
 BF16_GRAD_RTOL = 2.0 ** -6
-# K1b cases: (name, B, S, Hq, Hkv, hd, causal, window, cap, empty kv slots)
+# whisper-tiny at full width and full depth (4 enc + 4 dec layers, MHA 6/6
+# at hd 64), served and trained through Backbone (the reference's Server
+# takes no frames): serving in two waves of `slots` requests, each request
+# with its own enc_seq frames, a prompt_len-token prompt and max_new new
+# tokens at ctx 448, Whisper's text context (n_text_ctx, Radford et al.
+# 2022); each wave one batched prefill, then max_new - 1 decode steps.
+# Training: the Trainer at batch x seq tokens (and frames), remat off; the
+# gradient check at [grad_batch, grad_seq].
+WHISPER = dict(slots=8, ctx=448, requests=16, prompt_len=32, max_new=64,
+               batch=16, seq=448, steps=6, grad_batch=2, grad_seq=448)
+# K1b cases: (name, B, Sq, Skv, Hq, Hkv, hd, causal, window, cap, empty kv
+# slots)
 BWD_CASES = [
-    ("gqa_32_8", 1, 512, 32, 8, 128, True, None, None, False),
-    ("softcap_50", 1, 200, 32, 8, 128, True, None, 50.0, False),
-    ("window_2048_hd256", 1, 2100, 16, 1, 256, True, 2048, None, False),
-    ("mqa_16_1_empty_slots", 2, 300, 16, 1, 128, True, None, None, True),
+    ("gqa_32_8", 1, 512, 512, 32, 8, 128, True, None, None, False),
+    ("softcap_50", 1, 200, 200, 32, 8, 128, True, None, 50.0, False),
+    ("window_2048_hd256", 1, 2100, 2100, 16, 1, 256, True, 2048, None, False),
+    ("mqa_16_1_empty_slots", 2, 300, 300, 16, 1, 128, True, None, None, True),
     # odd groups: a 16-row fragment straddles query positions
-    ("gqa_28_4_qwen2", 1, 320, 28, 4, 128, True, None, None, False),
-    ("gqa_24_8_phi4", 2, 256, 24, 8, 128, True, None, None, True),
+    ("gqa_28_4_qwen2", 1, 320, 320, 28, 4, 128, True, None, None, False),
+    ("gqa_24_8_phi4", 2, 256, 256, 24, 8, 128, True, None, None, True),
     # gemma2-2b: 8/4 at hd 256, window 4096 and softcap 50, past the window
-    ("gemma2_window_softcap", 1, 4200, 8, 4, 256, True, 4096, 50.0, False),
-    ("qwen3_train", TRAIN["batch"], TRAIN["seq"], 32, 8, 128, True, None,
-     None, False),
+    ("gemma2_window_softcap", 1, 4200, 4200, 8, 4, 256, True, 4096, 50.0,
+     False),
+    ("qwen3_train", TRAIN["batch"], TRAIN["seq"], TRAIN["seq"], 32, 8, 128,
+     True, None, None, False),
     # mixtral-8x22b's local layers: 48/8 (G 6), window 4096, past it
-    ("mixtral_window", 1, 4200, 48, 8, 128, True, 4096, None, False),
+    ("mixtral_window", 1, 4200, 4200, 48, 8, 128, True, 4096, None, False),
+    # whisper-tiny's training step: the encoder over 1500 frames, not
+    # causal (a ragged last key tile); cross-attention from the 448 text
+    # positions to the frames (Sq != Skv); the decoder's causal
+    # self-attention
+    ("whisper_encoder", WHISPER["batch"], 1500, 1500, 6, 6, 64, False, None,
+     None, False),
+    ("whisper_cross", WHISPER["batch"], WHISPER["seq"], 1500, 6, 6, 64,
+     False, None, None, False),
+    ("whisper_decoder", WHISPER["batch"], WHISPER["seq"], WHISPER["seq"], 6,
+     6, 64, True, None, None, False),
 ]
 
 # (B, Sq, Skv, Hq, Hkv, hd, causal, window, cap) of FLASH_CASES
@@ -403,7 +438,9 @@ def kernel_case(name, kernel, B, Sq, Skv, Hq, Hkv, hd, causal, window, cap,
                      c.repeat_interleave(G, 2).transpose(1, 2))
                     for a, b, c in bufs]
         aligned = qpos is None and kpos is None and window is None and causal
-        mask = None if aligned else _valid(qp, kp, causal, window)
+        ok = _valid(qp, kp, causal, window)
+        # a call that is not causal and sees every key needs no mask
+        mask = None if aligned or (not causal and bool(ok.all())) else ok
         library_ms = time_ms(rotating(
             lambda a, b, c: F.scaled_dot_product_attention(
                 a, b, c, attn_mask=mask, is_causal=aligned), lib_bufs))
@@ -468,6 +505,34 @@ def serve_attention_cases():
     return cases
 
 
+def whisper_attention_cases():
+    """K1's calls in whisper-tiny's serving run (phase 5), each the
+    arguments of kernel_case after the dtype: a wave's batched prefill runs
+    flash_fwd over the encoder ([slots, 1500] x [slots, 1500], not causal),
+    the decoder's self-attention ([slots, prompt_len], causal) and the cross
+    attention (prompt_len queries against the 1500 frames, not causal); its
+    last decode step runs flash_decode against the self-attention ring
+    (ctx slots holding positions 0..last) and across to the 1500 frames."""
+    from repro_torch.models import get_config
+
+    cfg = get_config("whisper-tiny")
+    B, P, Se = WHISPER["slots"], WHISPER["prompt_len"], cfg.enc_seq
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+    last = P + WHISPER["max_new"] - 2
+    return [
+        ("whisper_encoder", "flash_fwd", B, Se, Se, *heads, False, None, None,
+         None, None),
+        ("whisper_self_prefill", "flash_fwd", B, P, P, *heads, True, None,
+         None, None, None),
+        ("whisper_cross_prefill", "flash_fwd", B, P, Se, *heads, False, None,
+         None, None, None),
+        ("whisper_self_decode", "flash_decode", B, 1, WHISPER["ctx"], *heads,
+         True, None, None, [last], _ring(WHISPER["ctx"], 0, last)),
+        ("whisper_cross_decode", "flash_decode", B, 1, Se, *heads, False, None,
+         None, [last], None),
+    ]
+
+
 def phase_flash():
     """K1 at FLASH_CASES shapes, at every served arch's prefill and ring
     decode (serve_attention_cases), and at three rings the serving run does
@@ -476,7 +541,7 @@ def phase_flash():
     qw = dict(Hq=32, Hkv=8, hd=128)
     C, first, last = SERVE["ctx"], 600, 1500   # wrapped at 1024, 123 empty
     ring = _ring(C, first, last)
-    served = serve_attention_cases()
+    served = serve_attention_cases() + whisper_attention_cases()
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for i, (B, Sq, Skv, Hq, Hkv, hd, causal, window, cap) in enumerate(
@@ -815,6 +880,10 @@ MODEL_CHECKS = {
     "qwen3-moe-235b-a22b": (((("attn",), 2),), 512,
                             SERVES["qwen3-moe-235b-a22b"]["prompt_len"],
                             SERVES["qwen3-moe-235b-a22b"]["ctx"]),
+    # full depth, over 1500 frames a sequence; the bf16 prompt ends 4
+    # decode steps short of the 448-token text context
+    "whisper-tiny": (((("enc",), 4), (("dec",), 4)), 64, WHISPER["ctx"] - 4,
+                     WHISPER["ctx"]),
 }
 
 
@@ -830,13 +899,21 @@ def phase_model(arch):
     rng = np.random.default_rng(SEED)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, n32 + 1),
                                          dtype=np.int32)).to(DEVICE)
+    # an encoder-decoder model's frames (the stub frontend's), one set a row
+    frames = (torch.from_numpy(rng.standard_normal(
+        (2, cfg.enc_seq, cfg.d_model), dtype=np.float32)).to(DEVICE)
+        if cfg.is_enc_dec else None)
+
+    def batch(t):
+        return ({"tokens": t} if frames is None else
+                {"tokens": t, "enc_frames": frames[:t.shape[0]]})
 
     bb = Backbone(cfg, compute_dtype=torch.float32, param_dtype=torch.float32,
                   device=DEVICE)
     params = bb.init(SEED + 1)
-    _, cache = bb.prefill(params, {"tokens": toks[:, :n32]}, ctx)
+    _, cache = bb.prefill(params, batch(toks[:, :n32]), ctx)
     got, _ = bb.decode_step(params, cache, toks[:, n32:])
-    want, _ = bb.prefill(params, {"tokens": toks}, ctx)
+    want, _ = bb.prefill(params, batch(toks), ctx)
     if got.shape != (2, 1, bb.Vp) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{arch} fp32 decode logits {tuple(got.shape)} "
                              "not finite")
@@ -858,8 +935,8 @@ def phase_model(arch):
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n16 + 4),
                                            dtype=np.int32)).to(DEVICE)
     errs = []
-    lk, ck = kern.prefill(params, {"tokens": prompt[:, :n16]}, ctx)
-    lp, cp = plain.prefill(params, {"tokens": prompt[:, :n16]}, ctx)
+    lk, ck = kern.prefill(params, batch(prompt[:, :n16]), ctx)
+    lp, cp = plain.prefill(params, batch(prompt[:, :n16]), ctx)
     errs.append(float((lk.float() - lp.float()).abs().max()))
     for i in range(4):
         t = prompt[:, n16 + i:n16 + i + 1]
@@ -1180,6 +1257,129 @@ def phase_serve(arch):
     return out
 
 
+def phase_serve_whisper():
+    """whisper-tiny at full width and full depth, bf16 weights and compute,
+    served as the reference serves it (Backbone.prefill, then decode_step:
+    its Server takes no frames): two waves of WHISPER["slots"] requests,
+    each request with its own frames from a seeded numpy generator. A wave
+    is one batched prefill and max_new - 1 greedy decode steps, each ending
+    in a read of its tokens. The counts are set to 0 just before each wave
+    and read just after: flash_fwd 12 a prefill (4 encoder, 4 decoder
+    self-attention, 4 cross), flash_decode 8 a decode step (4 + 4), nothing
+    else. Each request's first token must be the top logit, within
+    MODEL_BF16_TOL, of a batch-1 prefill of its own prompt and frames (the
+    wave's rows land in their slots); then a torch.profiler trace of a
+    wave's prefill and of a decode step."""
+    from repro_torch.models import Backbone, get_config
+
+    spec = WHISPER
+    cfg = get_config("whisper-tiny")
+    B, ctx, steps = spec["slots"], spec["ctx"], spec["max_new"] - 1
+    bb = Backbone(cfg, compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                  device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    params = bb.init(SEED)
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers "
+        f"{'+'.join(cfg.layer_kinds())}, d_model {cfg.d_model}, "
+        f"{cfg.param_count() / 1e6:.1f} M params in bf16, init peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab, (spec["requests"], spec["prompt_len"]),
+                           dtype=np.int32)
+    frames = rng.standard_normal((spec["requests"], cfg.enc_seq, cfg.d_model),
+                                 dtype=np.float32)
+
+    def wave(i):
+        """(tokens [B, max_new] on the host, prefill s, decode s)."""
+        sl = slice(i * B, (i + 1) * B)
+        batch = {"tokens": torch.from_numpy(prompts[sl]).to(DEVICE),
+                 "enc_frames": torch.from_numpy(frames[sl]).to(DEVICE)}
+        t0 = time.perf_counter()
+        logits, cache = bb.prefill(params, batch, ctx)
+        tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)
+        out = [tok.tolist()]
+        t1 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = bb.decode_step(params, cache, tok[:, None].int())
+            tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)
+            out.append(tok.tolist())
+        t2 = time.perf_counter()
+        return np.array(out).T, t1 - t0, t2 - t1
+
+    wave(0)  # warm-up: the kernels' first launches, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    waves = spec["requests"] // B
+    launches, tokens, prefill_s, decode_s = {}, [], 0.0, 0.0
+    t0 = time.perf_counter()
+    for i in range(waves):
+        _reset_counts()
+        toks, tp, td = wave(i)
+        counts = _counts()
+        want = {k: 0 for k in counts}
+        want.update({"flash_fwd": 3 * 4, "flash_decode": 2 * 4 * steps})
+        _check_counts(f"whisper-tiny serving wave {i}", counts, want)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        tokens.append(toks)
+        prefill_s += tp
+        decode_s += td
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    tokens = np.concatenate(tokens)
+    if tokens.shape != (spec["requests"], spec["max_new"]) or not (
+            (tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise AssertionError(f"whisper-tiny: served tokens {tokens.shape}, or "
+                             "a token outside the vocabulary")
+    gaps = []
+    for r in (0, B - 1, B):
+        logits, _ = bb.prefill(params, {
+            "tokens": torch.from_numpy(prompts[r:r + 1]).to(DEVICE),
+            "enc_frames": torch.from_numpy(frames[r:r + 1]).to(DEVICE)}, ctx)
+        row = logits[0, -1, :cfg.vocab].float()
+        if not bool(torch.isfinite(row).all()):
+            raise AssertionError("whisper-tiny: prefill logits not finite")
+        gaps.append(float(row.max() - row[int(tokens[r, 0])]))
+    if max(gaps) > MODEL_BF16_TOL:
+        raise AssertionError(f"whisper-tiny: a served first token is not the "
+                             f"top of its own batch-1 prefill: gaps {gaps}")
+    n_tok = int(tokens.size)
+    out = {
+        "arch": cfg.name, "requests": spec["requests"],
+        "prompt_len": spec["prompt_len"], "frames": cfg.enc_seq,
+        "decode_steps": waves * steps, "launches": launches,
+        "prefill_ms_per_wave": prefill_s / waves * 1e3,
+        "decode_ms_per_step": decode_s / (waves * steps) * 1e3,
+        "wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+        "first_token_logit_gaps": gaps,
+        "max_memory_allocated_gb": peak / 1e9,
+    }
+    log(f"[serve] whisper-tiny: {waves} waves of {B} requests ({cfg.enc_seq} "
+        f"frames, {spec['prompt_len']}-token prompts), {waves * steps} decode "
+        f"steps, {n_tok} tokens in {wall:.3f} s ({out['tokens_per_s']:.1f} "
+        f"tok/s); prefill {out['prefill_ms_per_wave']:.2f} ms/wave, decode "
+        f"{out['decode_ms_per_step']:.2f} ms/step; launches flash_fwd "
+        f"{launches['flash_fwd']} = 12 x {waves} prefills, flash_decode "
+        f"{launches['flash_decode']} = 8 x {waves * steps} decode steps; "
+        f"first-token logit gaps {gaps}; peak memory {peak / 1e9:.3f} GB")
+    log("[serve] " + json.dumps(out))
+    batch = {"tokens": torch.from_numpy(prompts[:B]).to(DEVICE),
+             "enc_frames": torch.from_numpy(frames[:B]).to(DEVICE)}
+    _, cache = bb.prefill(params, batch, ctx)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=DEVICE)
+    bb.decode_step(params, cache, tok)
+    torch.cuda.synchronize()
+    out["trace"] = {
+        "prefill": profile_calls("whisper-tiny prefill (one wave)",
+                                 lambda: bb.prefill(params, batch, ctx)),
+        "decode": profile_calls("whisper-tiny decode",
+                                lambda: bb.decode_step(params, cache, tok))}
+    del bb, params, cache
+    free_memory()
+    return out
+
+
 def profile_calls(label, fn, calls=3):
     """torch.profiler over ``calls`` calls of ``fn``: host ms and device busy
     ms per call, the device idle share and the top kernels. Device busy
@@ -1319,14 +1519,20 @@ def _train_want(bb, batch, seq, runs, fwd):
     backward once a pass."""
     from repro_torch.kernels import flash_bwd, rglru, rwkv6
     kinds = bb.cfg.layer_kinds()
-    attn = sum(k in ("attn", "local") for k in kinds) * runs
+    Se = bb.cfg.enc_seq
+    # (Sq, Skv) of each attention call of a pass: a dec layer attends to
+    # itself and across to the encoder's frames
+    calls = ([(seq, seq)] * sum(k in ("attn", "local", "dec") for k in kinds)
+             + [(Se, Se)] * kinds.count("enc") + [(seq, Se)] * kinds.count("dec"))
+    attn = len(calls) * runs
     rec, rwk = kinds.count("rec") * runs, kinds.count("rwkv") * runs
-    split = attn and flash_bwd.plan(batch, seq, seq, bb.H, bb.KV, bb.hd,
-                                    bb.compute_dtype,
-                                    sms=flash_bwd.device_sms(DEVICE)).splits > 1
+    split = sum(flash_bwd.plan(batch, sq, skv, bb.H, bb.KV, bb.hd,
+                               bb.compute_dtype,
+                               sms=flash_bwd.device_sms(DEVICE)).splits > 1
+                for sq, skv in calls) * runs
     want = {"flash_fwd": attn * fwd, "flash_decode": 0, "flash_bwd": attn,
             "flash_bwd.delta": attn, "flash_bwd.dkdv": attn,
-            "flash_bwd.dq": attn, "flash_bwd.reduce": attn if split else 0,
+            "flash_bwd.dq": attn, "flash_bwd.reduce": split,
             "rglru_scan": rec * fwd, "rglru_bwd": rec,
             "wkv6_scan": rwk * fwd, "wkv6_bwd": rwk}
     planned = {"rglru_scan": (rec * fwd, rglru.plan(batch, seq, bb.W,
@@ -1344,21 +1550,25 @@ def _check_counts(what, got, want):
         raise AssertionError(f"{what}: launches {got}, want {want}")
 
 
-def lse_case(name, B, S, Hq, Hkv, hd, window, cap, dtype):
-    """K1's LSE (flash_fwd with return_lse) against attention_lse_plain;
-    the out it returns must equal the serving call's. Timed beside the
-    plain version, SDPA's forward (KV repeated, causal cases without window
-    or cap) and the bound of attention_bound plus the LSE's bytes."""
+def lse_case(name, B, S, Hq, Hkv, hd, window, cap, dtype, Skv=None,
+             causal=True):
+    """K1's LSE (flash_fwd with return_lse) against attention_lse_plain, at
+    S queries against ``Skv`` keys (S by default); the out it returns must
+    equal the serving call's. Timed beside the plain version, SDPA's
+    forward (KV repeated, cases without window or cap) and the bound of
+    attention_bound plus the LSE's bytes."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
+    Skv = S if Skv is None else Skv
     g = _gen(300)
     q = torch.randn((B, S, Hq, hd), generator=g, device=DEVICE).to(dtype)
-    k, v = (torch.randn((B, S, Hkv, hd), generator=g, device=DEVICE).to(dtype)
-            for _ in range(2))
+    k, v = (torch.randn((B, Skv, Hkv, hd), generator=g,
+                        device=DEVICE).to(dtype) for _ in range(2))
     pos = torch.arange(S, dtype=torch.int32, device=DEVICE)
-    kw = dict(causal=True, window=window, logit_cap=cap, q_positions=pos,
-              kv_positions=pos)
+    kpos = torch.arange(Skv, dtype=torch.int32, device=DEVICE)
+    kw = dict(causal=causal, window=window, logit_cap=cap, q_positions=pos,
+              kv_positions=kpos)
     out, lse = fa.flash_fwd(q, k, v, return_lse=True, **kw)
     torch.cuda.synchronize()
     if not torch.equal(out, fa.flash_fwd(q, k, v, **kw)):
@@ -1379,9 +1589,9 @@ def lse_case(name, B, S, Hq, Hkv, hd, window, cap, dtype):
         ql, kl, vl = (t.transpose(1, 2) for t in (
             q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            ql, kl, vl, is_causal=True))
+            ql, kl, vl, is_causal=causal))
         del ql, kl, vl
-    bound_ms, bound_by = attention_bound(q, k, pos, pos, True, window,
+    bound_ms, bound_by = attention_bound(q, k, pos, kpos, causal, window,
                                          extra_bytes=4 * B * Hq * S)
     log(f"[kernel] flash_fwd lse {name:>18} {str(dtype)[6:]:>8} err "
         f"{max_err:.3e} (atol = rtol = {LSE_TOL}) kernel {ms:.4f} ms plain "
@@ -1389,8 +1599,9 @@ def lse_case(name, B, S, Hq, Hkv, hd, window, cap, dtype):
         f"{library_ms if library_ms is None else round(library_ms, 4)} ms "
         f"bound {bound_ms:.4f} ms ({bound_by})")
     return {"kernel": "flash_fwd", "case": f"{name}_lse",
-            "dtype": str(dtype)[6:], "shape": [B, S, S, Hq, Hkv, hd],
-            "max_abs_err": max_err, "atol": LSE_TOL, "rtol": LSE_TOL,
+            "dtype": str(dtype)[6:], "shape": [B, S, Skv, Hq, Hkv, hd],
+            "causal": causal, "max_abs_err": max_err, "atol": LSE_TOL,
+            "rtol": LSE_TOL,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -1399,30 +1610,32 @@ def lse_case(name, B, S, Hq, Hkv, hd, window, cap, dtype):
 BWD_TRACED = ("qwen3_train", "window_2048_hd256")
 
 
-def bwd_case(name, B, S, Hq, Hkv, hd, causal, window, cap, empty, dtype):
+def bwd_case(name, B, Sq, Skv, Hq, Hkv, hd, causal, window, cap, empty,
+             dtype):
     """K1b against flash_bwd_plain on the same out, lse and dout (the bf16
     limit with the rounding term of ref.flash_bwd_rounding_plain), a rerun
     bit for bit; timed beside the plain version, SDPA forward + backward
-    with KV repeated (never called by the port: is_causal for aligned causal
-    cases, an explicit boolean mask for a window; none for a softcap or
-    empty slots) and the bound: 10 hd operations per valid (query, key) pair
-    and query head over the dtype's peak; bytes of q, k, v, out, dout and
-    lse read and dq, dk, dv written."""
+    with KV repeated (never called by the port: is_causal for causal cases
+    without a window, an explicit boolean mask for a window, neither for
+    a case that is not causal; none for a softcap or empty slots) and the
+    bound: 10 hd operations per valid (query, key) pair and query head over
+    the dtype's peak; bytes of q, k, v, out, dout and lse read and dq, dk,
+    dv written."""
     from repro_torch.kernels import flash_bwd as fb
     from repro_torch.kernels import ref
 
     g = _gen(400)
     rnd = lambda *shape: torch.randn(shape, generator=g, device=DEVICE).to(dtype)
-    q, dout = rnd(B, S, Hq, hd), rnd(B, S, Hq, hd)
-    k, v = rnd(B, S, Hkv, hd), rnd(B, S, Hkv, hd)
-    qp = torch.arange(S, dtype=torch.int32, device=DEVICE)
-    kp = qp.clone()
+    q, dout = rnd(B, Sq, Hq, hd), rnd(B, Sq, Hq, hd)
+    k, v = rnd(B, Skv, Hkv, hd), rnd(B, Skv, Hkv, hd)
+    qp = torch.arange(Sq, dtype=torch.int32, device=DEVICE)
+    kp = torch.arange(Skv, dtype=torch.int32, device=DEVICE)
     if empty:  # every 7th slot empty, key 0 too: query 0 sees no key
         kp[::7] = -1
     kw = dict(causal=causal, window=window, logit_cap=cap, q_positions=qp,
               kv_positions=kp)
     out, lse = ref.attention_lse_plain(q, k, v, **kw)
-    plan = fb.plan(B, S, S, Hq, Hkv, hd, dtype, sms=fb.device_sms(DEVICE))
+    plan = fb.plan(B, Sq, Skv, Hq, Hkv, hd, dtype, sms=fb.device_sms(DEVICE))
     before = fb.kernel_launches["reduce"]
     got = fb.flash_bwd(q, k, v, out, lse, dout, **kw)
     torch.cuda.synchronize()
@@ -1463,13 +1676,12 @@ def bwd_case(name, B, S, Hq, Hkv, hd, causal, window, cap, empty, dtype):
         kl, vl = (t.repeat_interleave(G, 2).transpose(1, 2).detach()
                   .requires_grad_() for t in (k, v))
         dl = dout.transpose(1, 2)
-        mask = (None if causal and window is None
-                else _valid(qp, kp, causal, window))
+        mask = None if window is None else _valid(qp, kp, causal, window)
 
         def sdpa():
             ql.grad = kl.grad = vl.grad = None
             F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
-                                           is_causal=mask is None
+                                           is_causal=causal and mask is None
                                            ).backward(dl)
         library_ms = time_ms(sdpa, iters=10)
         del ql, kl, vl
@@ -1478,12 +1690,13 @@ def bwd_case(name, B, S, Hq, Hkv, hd, causal, window, cap, empty, dtype):
     pairs = int(ok.sum())
     flops = 10.0 * hd * Hq * B * pairs
     es = q.element_size()
-    nbytes = es * (4 * B * S * Hq * hd + 4 * B * S * Hkv * hd) + 4 * B * Hq * S
+    nbytes = (es * (4 * B * Sq * Hq * hd + 4 * B * Skv * Hkv * hd)
+              + 4 * B * Hq * Sq)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     bound_ms = max(t_ops, t_bytes) * 1e3
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     row = dict(kernel="flash_bwd", case=name, dtype=str(dtype)[6:],
-               shape=[B, S, S, Hq, Hkv, hd], causal=causal, window=window,
+               shape=[B, Sq, Skv, Hq, Hkv, hd], causal=causal, window=window,
                logit_cap=cap, empty_slots=empty, splits=plan.splits,
                dkdv_ctas=plan.dkdv_ctas * plan.splits, max_abs_err=max_err,
                atol=atol, rtol=rtol, ms=ms, plain_ms=plain_ms,
@@ -1577,6 +1790,9 @@ def phase_train_kernels():
                              dtype))
         rows.append(lse_case("qwen3_train", TRAIN["batch"], TRAIN["seq"], 32,
                              8, 128, None, None, dtype))
+        rows.append(lse_case("whisper_cross", WHISPER["batch"],
+                             WHISPER["seq"], 6, 6, 64, None, None, dtype,
+                             Skv=1500, causal=False))
         for case in BWD_CASES:
             rows.append(bwd_case(*case, dtype))
     free_memory()
@@ -1590,8 +1806,10 @@ def _config(arch, groups):
         LayerGroup(pattern, repeat) for pattern, repeat in groups))
 
 
-def train_grads_check(arch, cfg, seq, compute_dtype=torch.bfloat16):
-    """One microbatch [1, seq] through loss_fn and the backward, kernel path
+def train_grads_check(arch, cfg, seq, compute_dtype=torch.bfloat16,
+                      batch_size=1):
+    """One microbatch [batch_size, seq] (with an encoder-decoder model's
+    frames) through loss_fn and the backward, kernel path
     against plain path, from the same fp32 parameters, bf16 compute unless
     ``compute_dtype`` says otherwise; remat on, so each forward kernel runs
     twice a layer. An MoE arch's recomputed routes must equal its forward's,
@@ -1617,16 +1835,19 @@ def train_grads_check(arch, cfg, seq, compute_dtype=torch.bfloat16):
     moe = cfg.ffn_kind == "moe"
     torch.cuda.reset_peak_memory_stats()
     params = kern.init(SEED + 3)
-    toks = np.random.default_rng(SEED + 3).integers(
-        0, cfg.vocab, (1, seq + 1), dtype=np.int32)
+    rng = np.random.default_rng(SEED + 3)
+    toks = rng.integers(0, cfg.vocab, (batch_size, seq + 1), dtype=np.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.is_enc_dec:
+        batch["enc_frames"] = rng.standard_normal(
+            (batch_size, cfg.enc_seq, cfg.d_model), dtype=np.float32)
     _reset_counts()
     with Routes() as rk:
         lk, gk = value_and_grad(kern, params, batch)
     torch.cuda.synchronize()
     counts = _counts()
     _check_counts(f"{arch} loss_fn + backward (remat)", counts,
-                  _train_want(kern, 1, seq, 1, 2))
+                  _train_want(kern, batch_size, seq, 1, 2))
 
     def worst(grads):
         return max(float((a - b).norm() / b.norm())
@@ -1665,7 +1886,7 @@ def train_grads_check(arch, cfg, seq, compute_dtype=torch.bfloat16):
     finite = all(bool(torch.isfinite(a).all()) for a in tree_leaves(gk))
     launched = {k: n for k, n in counts.items() if n}
     log(f"[train] {arch} full width, {cfg.n_layers} layers "
-        f"{'+'.join(cfg.layer_kinds())}, [1, {seq}] "
+        f"{'+'.join(cfg.layer_kinds())}, [{batch_size}, {seq}] "
         f"{str(compute_dtype)[6:]} compute: kernel path vs plain path, loss "
         f"{float(lk):.6f} vs {float(lp):.6f} (err {loss_err:.3e}, tol "
         f"{loss_rtol} x loss), worst leaf gradient err {grad_err:.3e} of its "
@@ -1679,7 +1900,8 @@ def train_grads_check(arch, cfg, seq, compute_dtype=torch.bfloat16):
                              "gradients disagree with the plain path's")
     del kern, plain, params, gk, gp
     free_memory()
-    return {"seq": seq, "compute_dtype": str(compute_dtype)[6:],
+    return {"batch": batch_size, "seq": seq,
+            "compute_dtype": str(compute_dtype)[6:],
             "loss_kernel": float(lk), "loss_plain": float(lp),
             "loss_err": loss_err, "worst_grad_rel_err": grad_err,
             "launches": launched, "routes": routes, "unpinned": unpinned,
@@ -1751,7 +1973,8 @@ def train_run(arch, cfg, batch_size, seq, steps, remat):
                   remat=remat, device=DEVICE)
     opt_cfg = adamw.AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=steps)
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=seq,
-                          global_batch=batch_size, seed=SEED)
+                          global_batch=batch_size, seed=SEED,
+                          enc_seq=cfg.enc_seq, enc_dim=cfg.d_model)
     settings = StepSettings(remat=remat)
     with tempfile.TemporaryDirectory() as d:
         # ckpt_every above the run: the state (tens of GB) is not written
@@ -1903,6 +2126,13 @@ def phase_train():
         out[arch] = {f"grads_{str(dt)[6:]}": train_grads_check(
             arch, cfg, spec["grad_seq"], dt)
             for dt in (torch.float32, torch.bfloat16)}
+    # whisper-tiny at full depth: 1500 frames a sequence, remat off
+    cfg, w = _config("whisper-tiny", MODEL_CHECKS["whisper-tiny"][0]), WHISPER
+    out["whisper-tiny"] = {f"grads_{str(dt)[6:]}": train_grads_check(
+        "whisper-tiny", cfg, w["grad_seq"], dt, batch_size=w["grad_batch"])
+        for dt in (torch.float32, torch.bfloat16)}
+    out["whisper-tiny"]["trainer"] = train_run(
+        "whisper-tiny", cfg, w["batch"], w["seq"], w["steps"], remat=False)
     out["restart"] = train_restart_check()
     return out
 
@@ -2010,12 +2240,15 @@ def main() -> int:
     rows = phase_flash() + phase_rglru() + phase_wkv() + phase_scan_bwd()
     model = {arch: phase_model(arch) for arch in MODEL_CHECKS}
     serve = {arch: phase_serve(arch) for arch in SERVES}
+    serve_whisper = phase_serve_whisper()
     ep = phase_ep()
     rows += phase_train_kernels()
     train = phase_train()
     # the main path's runs, each read with the counts set to 0 just before
     paths = {arch: s["launches"] for arch, s in serve.items()}
     bodies = {arch: s["body_launches"] for arch, s in serve.items()}
+    paths["whisper-tiny serve"] = serve_whisper["launches"]
+    bodies["whisper-tiny serve"] = {}  # no scan
     for arch, t in train.items():
         if "trainer" in t:
             counts = t["trainer"]["launches"]
@@ -2051,6 +2284,7 @@ def main() -> int:
                 path: {k.split(".")[1]: n for k, n in paths[path].items()
                        if k.startswith("flash_bwd.")} for path in by_path}
     log("[summary] " + json.dumps({"model": model, "serve": serve,
+                                   "serve_whisper": serve_whisper,
                                    "ep": ep, "train": train,
                                    "hmma_sass": sass,
                                    "seconds": time.perf_counter() - t_start}))

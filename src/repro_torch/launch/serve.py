@@ -8,7 +8,10 @@
 The flags of ``repro.launch.serve``, plus ``--device`` (default ``cuda``;
 with no card it raises unless ``--device cpu`` is given) and ``--depth N``
 (full width, the first layer group's pattern repeated N times: the MoE
-archs do not fit one card at full depth).
+archs do not fit one card at full depth). whisper-tiny stops at its first
+prefill with ``KeyError: 'enc_frames'``, as the reference's launcher does:
+``Server`` prefills tokens only, and an encoder-decoder model is served by
+``Backbone.prefill`` with the frames and then ``decode_step``.
 """
 from __future__ import annotations
 

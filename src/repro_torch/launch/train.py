@@ -4,8 +4,9 @@
         --reduced --steps 50 --batch 8 --seq 128 [--device cpu]
 
 ``--arch`` takes any of the port's architectures (``ARCH_NAMES``): the
-dense ones and the recurrent recurrentgemma-9b and rwkv6-3b, whose scans
-train through their backward kernels (K2b, K3b). The flags of
+dense ones, the recurrent recurrentgemma-9b and rwkv6-3b, whose scans
+train through their backward kernels (K2b, K3b), and whisper-tiny, whose
+batches carry the stub frontend's frames. The flags of
 ``repro.launch.train``, plus ``--device`` (default ``cuda``;
 with no card it raises unless ``--device cpu`` is given). Compute is fp32,
 as the reference's launcher has it. ``--mesh`` takes only ``host`` (one

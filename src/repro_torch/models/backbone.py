@@ -1,15 +1,17 @@
-"""The decoder backbone for the layer kinds ``attn``, ``local``, ``rec`` and
-``rwkv``, with dense or MoE feed-forward layers.
+"""The backbone for the layer kinds ``attn``, ``local``, ``rec``, ``rwkv``,
+``enc`` and ``dec``, with dense or MoE feed-forward layers.
 
 The port of ``repro.models.backbone.Backbone`` for serving and training:
 the same parameter tree (``g{i}/s{j}/<leaf>``, each group's leaves stacked
 ``[R, ...]`` over its repeat axis, ``x @ W`` weights ``[in, out]``), the same
-cache (per attention layer ``[R,B,C,KV,hd]`` rings plus ``kpos [R,C]``; per
-``rec`` layer ``conv [R,B,K-1,W]`` and ``h [R,B,W]`` fp32; per ``rwkv`` layer
+cache (per attention layer ``[R,B,C,KV,hd]`` rings plus ``kpos [R,C]``, and
+per ``dec`` layer the cross keys and values ``ck``/``cv [R,B,enc_seq,KV,hd]``;
+per ``rec`` layer ``conv [R,B,K-1,W]`` and ``h [R,B,W]`` fp32; per ``rwkv`` layer
 ``shift1``/``shift2 [R,B,D]`` and ``wkv [R,B,H,hd,hd]`` fp32) and the same
 entry points:
 
-* ``loss_fn(params, batch)``             — training loss (causal LM)
+* ``loss_fn(params, batch)``             — training loss (causal LM; for an
+  encoder-decoder model the decoder's, over ``batch["enc_frames"]``)
 * ``prefill(params, batch, ctx)``        — run the context; last-token logits
   and a filled decode cache
 * ``decode_step(params, cache, tokens)`` — one token against the cache
@@ -29,8 +31,12 @@ The MoE layer (``ffn_kind="moe"``) is :func:`repro_torch.models.ffn.moe_mlp`
 or, with ``moe_impl="ep"``, its expert-parallel form
 :func:`repro_torch.models.moe_ep.moe_mlp_ep`; ``loss_fn`` adds ``AUX_COEF``
 times the layers' summed load-balancing loss, and serving drops it, as the
-reference does. The encoder-decoder kinds raise ``NotImplementedError``
-naming their slice in ROADMAP.md.
+reference does. An encoder-decoder model (whisper: ``enc`` groups, then
+``dec`` groups) runs its encoder over ``batch["enc_frames"]`` plus the
+learned ``embed/enc_pos``, without RoPE and without a causal mask; each
+``dec`` layer adds a cross-attention sublayer (``ln_cross``, ``c_*``
+leaves) over the encoder's output, non-causal. Its cache holds the decoder
+groups only, as the reference's does.
 """
 from __future__ import annotations
 
@@ -55,11 +61,7 @@ from .rglru import RGLRUScan, causal_conv1d
 
 Params = Dict[str, Any]
 
-_KINDS = ("attn", "local", "rec", "rwkv")
-_KIND_SLICE = {
-    "enc": "slice 7 (whisper-tiny)",
-    "dec": "slice 7 (whisper-tiny)",
-}
+_KINDS = ("attn", "local", "rec", "rwkv", "enc", "dec")
 _RWKV_LORA = 64       # rank of the decay LoRA
 _DDLERP_RANK = 32     # rank of the token-shift LoRA
 AUX_COEF = 0.01       # weight of the auxiliary (MoE) loss in loss_fn
@@ -80,9 +82,7 @@ class Backbone:
         plan.check(cfg)
         for kind in cfg.layer_kinds():
             if kind not in _KINDS:
-                raise NotImplementedError(
-                    f"layer kind {kind!r} is not ported yet: ROADMAP.md "
-                    f"queue 1, {_KIND_SLICE.get(kind, 'unknown kind')}")
+                raise ValueError(f"unknown layer kind {kind!r}")
         if kernel_impl not in ("kernel", "plain"):
             raise ValueError(f"kernel_impl {kernel_impl!r}: want 'kernel' or "
                              "'plain'")
@@ -111,7 +111,9 @@ class Backbone:
         self.Vp = plan.eff_vocab(cfg)
         self.rwkv_H = plan.eff_rwkv_heads(cfg)
         self.W = cfg.rglru_width or cfg.d_model
-        self._has_attn = any(k in ("attn", "local") for k in cfg.layer_kinds())
+        # RoPE on the decoder's self-attention; the encoder takes none
+        self._has_attn = any(k in ("attn", "local", "dec")
+                             for k in cfg.layer_kinds())
 
     # ------------------------------------------------------------------ #
     # Parameter construction                                             #
@@ -154,21 +156,13 @@ class Backbone:
             specs["gb_x"] = ((W,), "zero")
             specs["a_log"] = ((W,), "lru")
             specs["w_out"] = ((W, D), "dense")
-        else:  # attn, local
-            H, KV, hd = self.H, self.KV, self.hd
-            specs["wq"] = ((D, H * hd), "dense")
-            specs["wk"] = ((D, KV * hd), "dense")
-            specs["wv"] = ((D, KV * hd), "dense")
-            specs["wo"] = ((H * hd, D), "dense")
-            if cfg.qkv_bias:
-                specs["bq"] = ((H * hd,), "zero")
-                specs["bk"] = ((KV * hd,), "zero")
-                specs["bv"] = ((KV * hd,), "zero")
-            if cfg.qk_norm:
-                specs["q_norm"] = ((hd,), "zero")
-                specs["k_norm"] = ((hd,), "zero")
+        else:  # attn, local, enc, dec
+            self._attn_specs(specs, "")
+            if kind == "dec":
+                specs["ln_cross"] = ((D,), "zero")
+                self._attn_specs(specs, "c_")
         specs["ln2"] = ((D,), "zero")
-        if cfg.ffn_kind == "moe":
+        if cfg.ffn_kind == "moe" and kind != "dec":
             # the ep path stores virtualized experts [V, D, Fe/split] (an
             # exact column split, see moe_ep.py), as the reference does
             Fv = (cfg.moe_d_ff or F_) // self.moe_split
@@ -186,6 +180,21 @@ class Backbone:
             specs["w_down"] = ((F_, D), "dense")
             specs["b_down"] = ((D,), "zero")
         return specs
+
+    def _attn_specs(self, specs, prefix: str) -> None:
+        cfg = self.cfg
+        D, H, KV, hd = cfg.d_model, self.H, self.KV, self.hd
+        specs[f"{prefix}wq"] = ((D, H * hd), "dense")
+        specs[f"{prefix}wk"] = ((D, KV * hd), "dense")
+        specs[f"{prefix}wv"] = ((D, KV * hd), "dense")
+        specs[f"{prefix}wo"] = ((H * hd, D), "dense")
+        if cfg.qkv_bias:
+            specs[f"{prefix}bq"] = ((H * hd,), "zero")
+            specs[f"{prefix}bk"] = ((KV * hd,), "zero")
+            specs[f"{prefix}bv"] = ((KV * hd,), "zero")
+        if cfg.qk_norm:
+            specs[f"{prefix}q_norm"] = ((hd,), "zero")
+            specs[f"{prefix}k_norm"] = ((hd,), "zero")
 
     def _init_leaf(self, gen: torch.Generator, shape, init: str
                    ) -> torch.Tensor:
@@ -219,6 +228,9 @@ class Backbone:
                 return self._init_leaf(gen, shape, init)
         params: Params = {"embed": {"tok": leaf((self.Vp, cfg.d_model),
                                                 "embed")}}
+        if cfg.is_enc_dec:
+            params["embed"]["enc_pos"] = leaf((cfg.enc_seq, cfg.d_model),
+                                              "embed")
         if not cfg.tie_embeddings:
             params["lm_head"] = leaf((cfg.d_model, self.Vp), "dense")
         params["final_norm"] = leaf((cfg.d_model,), "zero")
@@ -263,7 +275,7 @@ class Backbone:
 
     def _attend(self, q, k, v, kind: str, q_positions, kv_positions):
         cfg = self.cfg
-        return flash_attention(q, k, v, causal=True,
+        return flash_attention(q, k, v, causal=kind != "enc",
                                window=cfg.attn_window if kind == "local" else None,
                                logit_cap=cfg.attn_logit_softcap,
                                q_positions=q_positions,
@@ -285,18 +297,50 @@ class Backbone:
         cfg = self.cfg
         return rope_table(positions, self.hd, cfg.rope_theta, cfg.rotary_pct)
 
-    def _layer_fwd(self, p, x, kind: str, positions, rope):
+    def _cross_kv(self, p, enc_out):
+        """A ``dec`` layer's cross keys and values [B, Se, KV, hd] from the
+        encoder's output: no bias, no norm, no RoPE, as the reference's."""
+        B, Se, _ = enc_out.shape
+        ck = (enc_out @ p["c_wk"]).reshape(B, Se, self.KV, self.hd)
+        cv = (enc_out @ p["c_wv"]).reshape(B, Se, self.KV, self.hd)
+        return ck, cv
+
+    def _cross_sublayer(self, p, x, ck, cv, q_positions, kv_positions,
+                        bias: bool = True):
+        """The cross-attention residual branch of a ``dec`` layer, non-causal
+        over the encoder's keys. ``bias``: add ``c_bq`` where the config has
+        it; the reference's decode step adds none (ROADMAP.md, section 3)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+        q = h @ p["c_wq"]
+        if cfg.qkv_bias and bias:
+            q = q + p["c_bq"]
+        q = q.reshape(B, S, self.H, self.hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, p["c_q_norm"], cfg.norm_eps)
+        o = flash_attention(q, ck, cv, causal=False, q_positions=q_positions,
+                            kv_positions=kv_positions, plain=self._plain)
+        return o.reshape(B, S, self.H * self.hd) @ p["c_wo"]
+
+    def _layer_fwd(self, p, x, kind: str, positions, rope, cross=None):
         """One attention layer over a sequence. Returns (x, k, v, aux): the
-        rotated keys and the values, which prefill keeps in the cache, and
-        the FFN's aux loss."""
+        keys (rotated, but for ``enc``) and the values, which prefill keeps
+        in the cache, and the FFN's aux loss. ``cross``: a ``dec`` layer's
+        (ck, cv, their positions)."""
         cfg = self.cfg
         B, S, _ = x.shape
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         q, k, v = self._qkv(p, h)
-        q = apply_rope_table(q, rope)
-        k = apply_rope_table(k, rope)
+        if kind != "enc":
+            q = apply_rope_table(q, rope)
+            k = apply_rope_table(k, rope)
         o = self._attend(q, k, v, kind, positions, positions)
         x = x + o.reshape(B, S, self.H * self.hd) @ p["wo"]
+        if kind == "dec":
+            ck, cv, cross_positions = cross
+            x = x + self._cross_sublayer(p, x, ck, cv, positions,
+                                         cross_positions)
         y, aux = self._ffn_sublayer(p, x)
         return x + y, k, v, aux
 
@@ -407,44 +451,82 @@ class Backbone:
     # ------------------------------------------------------------------ #
     # Training: loss                                                      #
     # ------------------------------------------------------------------ #
-    def _train_layer(self, gp, r: int, pattern, x, positions, rope):
-        """Layer ``r`` of a group in training: its parameters sliced and
-        cast inside, so that remat recomputes the cast (and the MoE layers'
-        routing) as the reference's scan body does. Returns (x, the layer's
-        aux loss)."""
+    def _train_layer(self, gp, r: int, pattern, x, positions, rope,
+                     enc_out=None):
+        """Layer ``r`` of a group in training (and in the encoder's pass of
+        prefill): its parameters sliced and cast inside, so that remat
+        recomputes the cast (and the MoE layers' routing, and a ``dec``
+        layer's cross keys and values from ``enc_out``) as the reference's
+        scan body does. Returns (x, the layer's aux loss)."""
         lp = self._layer_params(gp, r)
         aux = 0.0
         for si, kind in enumerate(pattern):
+            p = lp[f"s{si}"]
             if kind in ("rec", "rwkv"):
-                x, a = self._recurrent_train(lp[f"s{si}"], x, kind)
+                x, a = self._recurrent_train(p, x, kind)
             else:
-                x, _, _, a = self._layer_fwd(lp[f"s{si}"], x, kind,
-                                             positions, rope)
+                cross = None
+                if kind == "dec":
+                    cross = (*self._cross_kv(p, enc_out),
+                             self._enc_positions())
+                x, _, _, a = self._layer_fwd(p, x, kind, positions, rope,
+                                             cross)
             aux = aux + a
         return x, aux
+
+    def _groups(self, encoder: bool):
+        """(index, group) of the encoder's groups, or of the others (the
+        decoder's; every group of a decoder-only model)."""
+        return [(gi, g) for gi, g in enumerate(self.cfg.groups)
+                if ("enc" in g.pattern) == encoder]
+
+    def _run_layers(self, params, groups, x, positions, rope, enc_out,
+                    remat: bool):
+        """Every layer of ``groups`` over the sequence x; each under
+        ``torch.utils.checkpoint`` with ``remat``. Returns (x, summed aux)."""
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for gi, group in groups:
+            gp = params[f"g{gi}"]
+            for r in range(group.repeat):
+                args = (gp, r, group.pattern, x, positions, rope, enc_out)
+                if remat:
+                    x, a = checkpoint(self._train_layer, *args,
+                                      use_reentrant=False)
+                else:
+                    x, a = self._train_layer(*args)
+                aux = aux + a
+        return x, aux
+
+    def _enc_positions(self) -> torch.Tensor:
+        return torch.arange(self.cfg.enc_seq, dtype=torch.int32,
+                            device=self.device)
+
+    def _encode(self, params, frames, remat: bool) -> torch.Tensor:
+        """The encoder over the stub frontend's frames [B, enc_seq, D]: plus
+        ``embed/enc_pos``, then the ``enc`` groups (non-causal, no RoPE).
+        Their aux loss is dropped, as the reference drops it."""
+        cd = self.compute_dtype
+        x = (torch.as_tensor(frames, device=self.device).to(cd)
+             + params["embed"]["enc_pos"].to(cd))
+        return self._run_layers(params, self._groups(encoder=True), x,
+                                self._enc_positions(), None, None, remat)[0]
 
     def loss_fn(self, params: Params, batch: Dict[str, Any]) -> torch.Tensor:
         """Mean next-token cross-entropy (fp32) of ``batch["tokens"]``
         against ``batch["labels"]`` (both [B, S]), plus ``AUX_COEF`` times
-        the MoE layers' summed auxiliary loss (0 without MoE)."""
+        the MoE layers' summed auxiliary loss (0 without MoE). An
+        encoder-decoder model reads ``batch["enc_frames"]`` too."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         labels = torch.as_tensor(batch["labels"], device=self.device)
+        enc_out = (self._encode(params, batch["enc_frames"], self.remat)
+                   if cfg.is_enc_dec else None)
         x = self._embed_tokens(params, tokens)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=self.device)
         rope = self._rope(positions) if self._has_attn else None
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        for gi, group in enumerate(cfg.groups):
-            gp = params[f"g{gi}"]
-            for r in range(group.repeat):
-                if self.remat:
-                    x, a = checkpoint(self._train_layer, gp, r, group.pattern,
-                                      x, positions, rope, use_reentrant=False)
-                else:
-                    x, a = self._train_layer(gp, r, group.pattern, x,
-                                             positions, rope)
-                aux = aux + a
+        x, aux = self._run_layers(params, self._groups(encoder=False), x,
+                                  positions, rope, enc_out, self.remat)
         logits = self._logits(params, x)
         loss = stable_cross_entropy(logits, labels, cfg.final_logit_softcap)
         return loss + AUX_COEF * aux
@@ -462,7 +544,9 @@ class Backbone:
         per attention layer ``k``/``v`` rings [R,B,C,KV,hd] with their
         positions ``kpos`` [R,C], -1 for an empty slot; per ``rec`` layer
         ``conv`` [R,B,K-1,W] and ``h`` [R,B,W] fp32; per ``rwkv`` layer
-        ``shift1``/``shift2`` [R,B,D] and ``wkv`` [R,B,H,hd,hd] fp32."""
+        ``shift1``/``shift2`` [R,B,D] and ``wkv`` [R,B,H,hd,hd] fp32; per
+        ``dec`` layer also ``ck``/``cv`` [R,B,enc_seq,KV,hd]. The encoder's
+        groups hold no cache (whisper's is ``{"pos", "g1"}``)."""
         cfg = self.cfg
         dtype = dtype or self.compute_dtype
         dev = self.device
@@ -471,7 +555,7 @@ class Backbone:
             return torch.zeros(shape, dtype=dt, device=dev)
 
         cache: Params = {"pos": 0}
-        for gi, group in enumerate(cfg.groups):
+        for gi, group in self._groups(encoder=False):
             R = group.repeat
             gc: Dict[str, Any] = {}
             for si, kind in enumerate(group.pattern):
@@ -490,15 +574,20 @@ class Backbone:
                            "v": zeros((R, B, C, self.KV, self.hd)),
                            "kpos": torch.full((R, C), -1, dtype=torch.int32,
                                               device=dev)}
+                    if kind == "dec":
+                        Se = cfg.enc_seq
+                        sub["ck"] = zeros((R, B, Se, self.KV, self.hd))
+                        sub["cv"] = zeros((R, B, Se, self.KV, self.hd))
                 gc[f"s{si}"] = sub
             cache[f"g{gi}"] = gc
         return cache
 
     def _layer_decode(self, p, x, kind: str, sub, r: int, pos: int, posv,
-                      rope):
+                      rope, enc_positions=None):
         """One-token step of attention layer ``r`` of a group. x: [B,1,D].
         Writes the token's key and value into ring slot ``pos % C`` before
-        attending."""
+        attending; a ``dec`` layer then attends across to its cached
+        ``ck``/``cv``."""
         cfg = self.cfg
         B = x.shape[0]
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -512,6 +601,11 @@ class Backbone:
         kpos[slot] = pos
         o = self._attend(q, ck.to(x.dtype), cv.to(x.dtype), kind, posv, kpos)
         x = x + o.reshape(B, 1, self.H * self.hd) @ p["wo"]
+        if kind == "dec":
+            # as the reference's decode step: no c_bq on the query
+            x = x + self._cross_sublayer(
+                p, x, sub["ck"][r].to(x.dtype), sub["cv"][r].to(x.dtype),
+                posv, enc_positions, bias=False)
         y, _ = self._ffn_sublayer(p, x)
         return x + y
 
@@ -529,7 +623,8 @@ class Backbone:
         x = self._embed_tokens(params, tokens)
         posv = torch.full((1,), pos, dtype=torch.int32, device=self.device)
         rope = self._rope(posv) if self._has_attn else None
-        for gi, group in enumerate(self.cfg.groups):
+        epos = self._enc_positions() if self.cfg.is_enc_dec else None
+        for gi, group in self._groups(encoder=False):
             gp, gc = params[f"g{gi}"], cache[f"g{gi}"]
             for r in range(group.repeat):
                 lp = self._layer_params(gp, r)
@@ -539,7 +634,7 @@ class Backbone:
                         x = self._recurrent_layer(p, x, kind, sub, r)
                     else:
                         x = self._layer_decode(p, x, kind, sub, r, pos, posv,
-                                               rope)
+                                               rope, epos)
         cache["pos"] = pos + 1
         return self._logits(params, x), cache
 
@@ -551,16 +646,20 @@ class Backbone:
         forward (JAX recomputes them, with identical numbers); a ring of C
         slots keeps the last ``min(C, S)`` positions at slots
         ``position % C``. Each recurrent layer runs from the fresh cache's
-        zero state and leaves its final state there.
+        zero state and leaves its final state there. An encoder-decoder
+        model encodes ``batch["enc_frames"]`` once, and each ``dec`` layer
+        keeps its cross keys and values in ``ck``/``cv``.
         """
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         B, S = tokens.shape
+        enc_out = (self._encode(params, batch["enc_frames"], remat=False)
+                   if self.cfg.is_enc_dec else None)
         x = self._embed_tokens(params, tokens)
         positions = torch.arange(S, dtype=torch.int32, device=self.device)
         rope = self._rope(positions) if self._has_attn else None
         cache = self.init_cache(B, ctx, x.dtype)
         cache["pos"] = S
-        for gi, group in enumerate(self.cfg.groups):
+        for gi, group in self._groups(encoder=False):
             gp, gc = params[f"g{gi}"], cache[f"g{gi}"]
             for r in range(group.repeat):
                 lp = self._layer_params(gp, r)
@@ -569,7 +668,14 @@ class Backbone:
                     if kind in ("rec", "rwkv"):
                         x = self._recurrent_layer(p, x, kind, sub, r)
                         continue
-                    x, k, v, _ = self._layer_fwd(p, x, kind, positions, rope)
+                    cross = None
+                    if kind == "dec":
+                        ck, cv = self._cross_kv(p, enc_out)
+                        sub["ck"][r].copy_(ck)
+                        sub["cv"][r].copy_(cv)
+                        cross = (ck, cv, self._enc_positions())
+                    x, k, v, _ = self._layer_fwd(p, x, kind, positions, rope,
+                                                 cross)
                     C = sub["kpos"].shape[1]
                     n = min(C, S)
                     sel = positions[S - n:]

@@ -15,8 +15,7 @@ Layer kinds:
 
 FFN kinds: ``swiglu`` | ``geglu`` | ``gelu`` | ``moe`` | ``rwkv_cmix``.
 
-Only the architectures the port runs are registered (``ARCH_NAMES``); the
-others are queued in ROADMAP.md, and :func:`get_config` says so.
+All ten of the reference's architectures are registered (``ARCH_NAMES``).
 """
 from __future__ import annotations
 
@@ -165,11 +164,10 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 # ---------------------------------------------------------------------------
 _REGISTRY: Dict[str, ModelConfig] = {}
 
-# The architectures the port runs. The rest of the reference's ten wait in
-# ROADMAP.md, queue 1.
+# The architectures the port runs: all ten of the reference's.
 ARCH_NAMES = ["qwen3-4b", "gemma2-2b", "qwen2-7b", "phi4-mini-3.8b",
               "chameleon-34b", "recurrentgemma-9b", "rwkv6-3b",
-              "mixtral-8x22b", "qwen3-moe-235b-a22b"]
+              "mixtral-8x22b", "qwen3-moe-235b-a22b", "whisper-tiny"]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -177,16 +175,9 @@ def register(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
-# the reference's architectures still queued, and their slice in ROADMAP.md
-_QUEUED = {"whisper-tiny": "slice 7"}
-
-
 def get_config(name: str) -> ModelConfig:
     if name not in ARCH_NAMES:
-        raise KeyError(
-            f"{name!r} is not ported yet: the port runs {ARCH_NAMES}; the "
-            "other architectures are queued in ROADMAP.md, queue 1"
-            + (f", {_QUEUED[name]}" if name in _QUEUED else ""))
+        raise KeyError(f"unknown architecture {name!r}; known: {ARCH_NAMES}")
     load_all_configs()
     return _REGISTRY[name]
 

@@ -56,6 +56,17 @@ SHAPES = [
     # past the window; qwen3-moe-235b-a22b: 64/4 (G 16)
     (1, 4200, 4200, 48, 8, 128, True, 4096, None),
     (1, 512, 512, 64, 4, 128, True, None, None),
+    # whisper-tiny, MHA 6/6 at hd 64 (G 1): the encoder's non-causal
+    # self-attention over 1500 frames (1500 = 23 x 64 + 28: a ragged last
+    # key tile), cross-attention from the text positions to the frames (Sq
+    # != Skv, both ways), the decoder's causal self-attention at its 448
+    # text positions
+    (2, 1500, 1500, 6, 6, 64, False, None, None),
+    (8, 32, 1500, 6, 6, 64, False, None, None),
+    (1, 448, 1500, 6, 6, 64, False, None, None),
+    (1, 1500, 448, 6, 6, 64, False, None, None),
+    (2, 448, 448, 6, 6, 64, True, None, None),
+    (3, 70, 131, 4, 2, 32, False, None, 30.0),
 ]
 DTYPES = {"fp32": (torch.float32, (5e-5, 5e-5)),
           "bf16": (torch.bfloat16, (1e-4, 2.0 ** -6))}
@@ -170,6 +181,36 @@ def test_flash_decode_matches_plain(cuda, case, dtype):
     got = fd.flash_decode(q, k, v, **kw)
     torch.cuda.synchronize()
     _assert_attention_close(got, q, k, v, kw, dtype)
+
+
+# (B, Skv, Hq, Hkv, hd): one query against every key, not causal: whisper's
+# cross-attention in a decode step (8 slots over 1500 frames; 1500 keys
+# split over CTAs with a ragged last tile), and smaller splits
+CROSS_DECODE_CASES = [
+    (8, 1500, 6, 6, 64),
+    (1, 1500, 6, 6, 64),
+    (3, 77, 4, 2, 32),
+    (16, 1500, 6, 6, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", CROSS_DECODE_CASES, ids=str)
+def test_flash_decode_across_matches_plain(cuda, case, dtype):
+    B, Skv, Hq, Hkv, hd = case
+    dt = DTYPES[dtype][0]
+    q = _randn((B, 1, Hq, hd), dt, cuda, 33)
+    k = _randn((B, Skv, Hkv, hd), dt, cuda, 34)
+    v = _randn((B, Skv, Hkv, hd), dt, cuda, 35)
+    # the decoder's position: with no causal mask it plays no part
+    kw = dict(causal=False, window=None, logit_cap=None,
+              q_positions=torch.tensor([40], dtype=torch.int32, device=cuda),
+              kv_positions=torch.arange(Skv, dtype=torch.int32, device=cuda))
+    got = fd.flash_decode(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_attention_close(got, q, k, v, kw, dtype)
+    # the same function as the prefill kernel's at one query position
+    _assert_attention_close(fa.flash_fwd(q, k, v, **kw), q, k, v, kw, dtype)
 
 
 def test_fully_masked_rows_are_zero(cuda):
@@ -480,6 +521,18 @@ BWD_CASES = [
     # 512 dk/dv CTAs, two waves: the plan does not split (no reduce pass)
     (4, 1024, 1024, 32, 8, 128, True, None, None, False),
 ]
+# whisper-tiny (MHA 6/6, hd 64, G 1): the encoder [B, 1500] non-causal with
+# a ragged last tile, cross-attention Sq != Skv both ways (the dk/dv grid
+# over 1500 keys against rows over 448 queries), the decoder's causal
+# self-attention at 448, and a split cross case with empty slots
+WHISPER_BWD_CASES = [
+    (2, 1500, 1500, 6, 6, 64, False, None, None, False),
+    (2, 448, 1500, 6, 6, 64, False, None, None, False),
+    (1, 1500, 448, 6, 6, 64, False, None, None, False),
+    (2, 448, 448, 6, 6, 64, True, None, None, False),
+    (1, 90, 200, 4, 2, 32, False, None, 30.0, True),
+]
+BWD_CASES += WHISPER_BWD_CASES
 
 
 def _bwd_inputs(case, dt, dev, seed=50):
@@ -509,7 +562,7 @@ def _assert_close_elementwise(got, want, atol, rtol, what, extra=None):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("case", BWD_CASES[:9], ids=str)
+@pytest.mark.parametrize("case", BWD_CASES[:9] + WHISPER_BWD_CASES, ids=str)
 def test_flash_fwd_lse_matches_plain(cuda, case, dtype):
     dt = DTYPES[dtype][0]
     q, k, v, _, kw = _bwd_inputs(case, dt, cuda)
@@ -927,3 +980,88 @@ def test_moe_router_is_full_fp32_whatever_tf32_is_set_to(cuda):
         torch.backends.cuda.matmul.allow_tf32 = False
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------- #
+# whisper-tiny at full width and full depth (4 enc + 4 dec layers)            #
+# --------------------------------------------------------------------------- #
+def _whisper_frames(cfg, B, seed, device):
+    return _randn((B, cfg.enc_seq, cfg.d_model), torch.float32, device, seed)
+
+
+def test_whisper_prefill_and_decode_on_the_card(cuda):
+    """fp32: decode after a prefill of 32 tokens matches the prefill of 33
+    over the same 1500 frames (2e-3, as tests/test_models.py), with
+    flash_fwd launched 12 times a prefill (4 encoder, 4 self, 4 cross) and
+    flash_decode 8 times a decode step (4 self, 4 cross). bf16: the kernel
+    path against kernel_impl="plain" with the same weights, logits within
+    0.125 (a few bf16 ulps of a logit, chip_smoke.py's MODEL_BF16_TOL)."""
+    cfg = get_config("whisper-tiny")
+    frames = _whisper_frames(cfg, 2, 13, cuda)
+    toks = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab, (2, 37), dtype=np.int32)).to(cuda)
+    bb = Backbone(cfg, compute_dtype=torch.float32, device=cuda)
+    params = bb.init(0)
+    before = (fa.launches, fd.launches)
+    _, cache = bb.prefill(params, {"tokens": toks[:, :32],
+                                   "enc_frames": frames}, 448)
+    assert (fa.launches - before[0], fd.launches - before[1]) == (12, 0)
+    assert set(cache) == {"pos", "g1"}
+    assert cache["g1"]["s0"]["ck"].shape == (4, 2, 1500, 6, 64)
+    got, _ = bb.decode_step(params, cache, toks[:, 32:33])
+    assert (fa.launches - before[0], fd.launches - before[1]) == (12, 8)
+    want, _ = bb.prefill(params, {"tokens": toks[:, :33],
+                                  "enc_frames": frames}, 448)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+
+    kern = Backbone(cfg, compute_dtype=torch.bfloat16,
+                    param_dtype=torch.bfloat16, device=cuda)
+    plain = Backbone(cfg, compute_dtype=torch.bfloat16,
+                     param_dtype=torch.bfloat16, device=cuda,
+                     kernel_impl="plain")
+    params = kern.init(1)
+    batch = {"tokens": toks[:, :32], "enc_frames": frames}
+    lk, ck = kern.prefill(params, batch, 448)
+    lp, cp = plain.prefill(params, batch, 448)
+    errs = [float((lk.float() - lp.float()).abs().max())]
+    for i in range(4):
+        t = toks[:, 32 + i:33 + i]
+        lk, ck = kern.decode_step(params, ck, t)
+        lp, cp = plain.decode_step(params, cp, t)
+        errs.append(float((lk.float() - lp.float()).abs().max()))
+    assert max(errs) <= 0.125, errs
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_whisper_grads_kernel_path_match_plain_path(cuda, dtype):
+    """loss_fn and every leaf's gradient of the full whisper-tiny with fp32
+    params, [2, 64] tokens over 1500 frames, remat on: the kernel path (K1
+    with LSE and K1b at the encoder's, the decoder's and the cross shapes)
+    against kernel_impl="plain", with the limits of the qwen3 test above.
+    K1 runs twice a layer (remat) and K1b once: 12 attention calls a pass."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.steps import value_and_grad
+    dt = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    cfg = get_config("whisper-tiny")
+    kern = Backbone(cfg, compute_dtype=dt, remat=True, device=cuda)
+    plain = Backbone(cfg, compute_dtype=dt, remat=True, device=cuda,
+                     kernel_impl="plain")
+    params = kern.init(3)
+    toks = np.random.default_rng(14).integers(0, cfg.vocab, (2, 65),
+                                              dtype=np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "enc_frames": _whisper_frames(cfg, 2, 14, cuda)}
+    before = (fa.launches, fd.launches, fb.launches)
+    lk, gk = value_and_grad(kern, params, batch)
+    torch.cuda.synchronize()
+    assert (fa.launches - before[0], fd.launches - before[1],
+            fb.launches - before[2]) == (24, 0, 12)
+    lp, gp = value_and_grad(plain, params, batch)
+    if dt == torch.float32:
+        torch.testing.assert_close(lk, lp, atol=1e-5, rtol=1e-5)
+        for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    else:
+        assert abs(float(lk) - float(lp)) <= 2.0 ** -6 * abs(float(lp))
+        for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+            assert float((a - b).norm()) <= 2.0 ** -4 * float(b.norm())
