@@ -102,7 +102,18 @@ Phases; each one that fails raises, and the process exits non-zero:
    encoder, 4 self, 4 cross), a falling loss. Finally a crash at
    step 13 of the reduced qwen3-4b and its restart from the step-8
    checkpoint match an uninterrupted run.
-7. Print the kernels line (seven kernels: flash_fwd, flash_decode,
+7. Distribution (phase_dist): qwen3-4b as phase 6 trains it (8 layers,
+   [4, 2048]), 3 steps on plain tensors and 3 from the same seed on a
+   (data 1, model 1) DeviceMesh over a one-rank NCCL group, the state under
+   ZeRO-3 shardings with the per-layer gather: the losses and every
+   parameter bit for bit, K1 with its LSE and each K1b pass once a layer
+   and step (the path "qwen3-4b dist train" of the kernels line), step ms
+   and a profiled step of each. Then, in a subprocess that sees no card,
+   the fake-mesh dry run (launch/dryrun.py) of whisper-tiny x train_4k on
+   256 and 512 ranks and qwen3-4b x train_4k on 256, and the cost counter
+   over the step above on a fake (1, 1) mesh: its FLOPs beside
+   model_flops and the measured step.
+8. Print the kernels line (seven kernels: flash_fwd, flash_decode,
    rglru_scan, wkv6_scan, flash_bwd, rglru_bwd, wkv6_bwd), the card line
    and the result line.
 
@@ -204,10 +215,10 @@ OTHER_TRAIN = {
                      bf16_groups=((("rwkv",), 2),)),
 }
 # The MoE archs' gradient checks (phase 6), one layer, in fp32 and bf16
-# compute: mixtral past its 4096-token window. Their Trainer steps wait for
-# the distribution slice: fp32 parameters and AdamW state of one mixtral
-# layer with its embeddings (2.90 B parameters) take 46 GB, the update's
-# fresh state 35 GB more (ROADMAP.md).
+# compute: mixtral past its 4096-token window. Their Trainer steps need more
+# than one card: fp32 parameters and AdamW state of one mixtral layer with
+# its embeddings (2.90 B parameters) take 46 GB, the update's fresh state
+# 35 GB more (ROADMAP.md).
 MOE_TRAIN = {
     "mixtral-8x22b": dict(groups=((("local",), 1),), grad_seq=4200),
     "qwen3-moe-235b-a22b": dict(groups=((("attn",), 1),), grad_seq=512),
@@ -1616,8 +1627,8 @@ def bwd_case(name, B, Sq, Skv, Hq, Hkv, hd, causal, window, cap, empty,
     limit with the rounding term of ref.flash_bwd_rounding_plain), a rerun
     bit for bit; timed beside the plain version, SDPA forward + backward
     with KV repeated (never called by the port: is_causal for causal cases
-    without a window, an explicit boolean mask for a window, neither for
-    a case that is not causal; none for a softcap or empty slots) and the
+    without a window, an explicit boolean mask for a window or empty slots,
+    neither for a case that is not causal; none for a softcap) and the
     bound: 10 hd operations per valid (query, key) pair and query head over
     the dtype's peak; bytes of q, k, v, out, dout and lse read and dq, dk,
     dv written."""
@@ -1670,13 +1681,16 @@ def bwd_case(name, B, Sq, Skv, Hq, Hkv, hd, causal, window, cap, empty,
     plain_ms = time_ms(lambda: ref.flash_bwd_plain(q, k, v, out, lse, dout,
                                                    **kw), iters=2, warmup=1)
     library_ms = None
-    if cap is None and not empty:
+    if cap is None:
         G = Hq // Hkv
         ql = q.transpose(1, 2).detach().requires_grad_()
         kl, vl = (t.repeat_interleave(G, 2).transpose(1, 2).detach()
                   .requires_grad_() for t in (k, v))
         dl = dout.transpose(1, 2)
-        mask = None if window is None else _valid(qp, kp, causal, window)
+        # empty slots and windows as an explicit mask (a query that sees no
+        # key gives NaN there: the call is timed, not compared)
+        mask = (None if window is None and not empty
+                else _valid(qp, kp, causal, window))
 
         def sdpa():
             ql.grad = kl.grad = vl.grad = None
@@ -2137,6 +2151,190 @@ def phase_train():
     return out
 
 
+DIST = dict(steps=3, dryrun_timeout=900,
+            cells=(("whisper-tiny", "train_4k", "single"),
+                   ("whisper-tiny", "train_4k", "multi"),
+                   ("qwen3-4b", "train_4k", "single")))
+
+
+def _dist_steps(state, batches, step_fn, place=lambda b: b):
+    """``step_fn`` over ``batches`` from ``state``: (final state, losses,
+    host ms a step)."""
+    losses, ms = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, place(batch))
+        loss = metrics["loss"]
+        loss = float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                     else loss)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    return state, losses, ms
+
+
+def phase_dist():
+    """The distribution layer. (1) qwen3-4b at phase 6's width and depth
+    (TRAIN: 8 layers, [4, 2048], bf16 compute, fp32 parameters and AdamW,
+    no remat) trained for DIST["steps"] steps through make_train_step on
+    plain tensors, then from the same seed on a (1, 1) mesh over a one-rank
+    NCCL group (launch.mesh.make_host_mesh): the state placed by
+    param_shardings with ZeRO-3, the per-layer gather on, the batch placed
+    by batch_shardings; the losses and every leaf bit for bit, K1 with its
+    LSE and each K1b pass launched once a layer and step on the sharded
+    path, the step ms and a profiled step of each. (2) The fake-mesh dry
+    run of DIST["cells"] (launch.dryrun.run_cell) in a subprocess that sees
+    no card, and the same counter over the step of (1) on a fake (1, 1)
+    mesh: its FLOPs beside model_flops and the measured step."""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import roofline
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_host_mesh, tp_size
+    from repro_torch.models import Backbone, PartitionPlan, ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import (StepSettings, init_train_state,
+                                           make_train_step)
+    from repro_torch.runtime.train_loop import to_host
+
+    steps, B, S = DIST["steps"], TRAIN["batch"], TRAIN["seq"]
+    cfg = _config("qwen3-4b", ((("attn",), TRAIN["depth"]),))
+    settings = StepSettings(remat=False)        # zero3 and the gather on
+    opt_cfg = adamw.AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=steps)
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                          seed=SEED)
+    batches = [make_batch(data_cfg, i) for i in range(steps)]
+    kw = dict(compute_dtype=torch.bfloat16, param_dtype=torch.float32,
+              remat=False, device=DEVICE)
+    out = {"steps": steps, "batch": B, "seq": S, "layers": cfg.n_layers}
+
+    # (1a) the plain path: the parameters after the last step kept on the
+    # host (4.8 GB)
+    free_memory()
+    plain = Backbone(cfg, PartitionPlan(tp=1), **kw)
+    state, want_losses, plain_ms = _dist_steps(
+        init_train_state(plain, SEED), batches,
+        make_train_step(plain, opt_cfg, settings))
+    out["plain_trace"] = profile_calls(
+        "qwen3-4b train step, plain tensors", lambda: float(make_train_step(
+            plain, opt_cfg, settings)(state, batches[0])[1]["loss"]), calls=1)
+    want = to_host(state["params"])
+    del state, plain
+    free_memory()
+
+    # (1b) the sharded path at world size 1
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh()
+        dp = sh.effective_dp(cfg, mesh, B)
+        bb = Backbone(cfg, PartitionPlan(tp=tp_size(mesh)),
+                      sharder=sh.make_sharder(cfg, mesh, global_batch=B),
+                      param_gather=sh.make_param_gatherer(cfg, mesh),
+                      mesh=mesh, dp_axes=dp, **kw)
+        st_sh = sh.state_shardings(sh.param_shardings(bb, mesh, zero3=True),
+                                   mesh)
+        bsh = sh.batch_shardings(cfg, ShapeConfig("train", S, B, "train"),
+                                 mesh)
+
+        def place(batch):
+            return {k: sh.distribute(torch.as_tensor(v, device=DEVICE),
+                                     bsh[k]) for k, v in batch.items()}
+        step_fn = make_train_step(bb, opt_cfg, settings)
+        state = sh.tree_distribute(init_train_state(bb, SEED), st_sh)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        state, got_losses, dist_ms = _dist_steps(state, batches, step_fn,
+                                                 place)
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        _check_counts("qwen3-4b sharded train steps", counts,
+                      _train_want(bb, B, S, steps, fwd=1))
+        got = to_host(state["params"])
+        leaves = list(zip(adamw.tree_leaves(got), adamw.tree_leaves(want)))
+        same = sum(torch.equal(a, b) for a, b in leaves)
+        worst = max(float((a - b).abs().max()) for a, b in leaves)
+        log(f"[dist] qwen3-4b {cfg.n_layers} layers, {steps} steps of {B} x "
+            f"{S} tokens on a (data 1, model 1) mesh over one NCCL rank, "
+            f"ZeRO-3 + per-layer gather: losses {got_losses} vs plain "
+            f"{want_losses}; {same} of {len(leaves)} leaves bit for bit "
+            f"(max abs diff {worst:.3e}); step ms sharded {dist_ms} vs plain "
+            f"{plain_ms}; peak {peak / 1e9:.2f} GB; launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+        if got_losses != want_losses or same != len(leaves):
+            raise AssertionError("the sharded step at world size 1 differs "
+                                 "from the plain step")
+        out["dist_trace"] = profile_calls(
+            "qwen3-4b train step, (1, 1) mesh", lambda: float(step_fn(
+                state, place(batches[0]))[1]["loss"].full_tensor()), calls=1)
+        out.update(losses=got_losses, plain_ms=plain_ms, dist_ms=dist_ms,
+                   launches=counts, peak_gb=peak / 1e9, bitwise=True)
+        del state, got, want, leaves, bb
+    finally:
+        dist.destroy_process_group()
+    free_memory()
+
+    # (2) the dry run, in a process of its own (the fake group and the NCCL
+    # group cannot share one), without the card
+    code = f"""
+import dataclasses, json
+from repro_torch.launch import dryrun, mesh
+from repro_torch.models import LayerGroup, ShapeConfig, get_config
+from repro_torch.runtime.steps import StepSettings
+out = {{"cells": [dryrun.run_cell(a, s, m, settings=StepSettings())
+                 for a, s, m in {list(DIST["cells"])!r}]}}
+mesh.init_fake_world(1)
+cfg = dataclasses.replace(get_config("qwen3-4b"),
+                          groups=(LayerGroup(("attn",), {cfg.n_layers}),))
+out["step"] = dryrun.count_cell(cfg, ShapeConfig("train", {S}, {B}, "train"),
+                                mesh.make_host_mesh(), settings=StepSettings(
+                                    remat=False))
+print(json.dumps(out))
+"""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=DIST["dryrun_timeout"],
+                         env={**os.environ, "PYTHONPATH": src,
+                              "CUDA_VISIBLE_DEVICES": ""})
+    if run.returncode != 0:
+        raise AssertionError(f"the dry run failed:\n{run.stderr[-3000:]}")
+    dry = json.loads(run.stdout.strip().splitlines()[-1])
+    log(f"[dryrun] {len(dry['cells'])} cells and the step's count in "
+        f"{time.perf_counter() - t0:.1f} s (torch {torch.__version__})")
+    for c in dry["cells"]:
+        m, h, r = c["memory"], c["hlocost"], c["roofline"]
+        log(f"[dryrun] {c['arch']} x {c['shape']} x {c['mesh']}: chips "
+            f"{c['chips']}, run {c['run_s']} s, per rank: arguments "
+            f"{m['argument_bytes'] / 2**30:.3f} GiB, peak "
+            f"{m['peak_bytes'] / 2**30:.3f} GiB, FLOPs {h['flops']:.4e}, "
+            f"collective bytes {h['collective_bytes']:.4e} (in a layer "
+            f"{h['in_loop_bytes']:.4e}, {h['in_loop_count']:.0f} ops); "
+            f"dominant {r['dominant']}, roofline_fraction "
+            f"{r['roofline_fraction']:.4f}")
+        if not (h["flops"] > 0 and h["collective_bytes"] > 0
+                and h["in_loop_bytes"] > 0):
+            raise AssertionError(f"dry run {c['arch']} x {c['shape']} x "
+                                 f"{c['mesh']}: nothing counted: {h}")
+    step = dry["step"]
+    step_s = sum(dist_ms[1:]) / len(dist_ms[1:]) / 1e3
+    mflops = step["roofline"]["model_flops"]
+    line = dict(model_flops=mflops, counted_flops=step["hlocost"]["flops"],
+                compute_s=step["roofline"]["compute_s"], step_s=step_s,
+                mfu=mflops / (step_s * roofline.PEAK_FLOPS),
+                peak_flops=roofline.PEAK_FLOPS)
+    log(f"[dist] cost model beside the card, qwen3-4b {cfg.n_layers} layers "
+        f"[{B}, {S}] on the (1, 1) mesh: model_flops {mflops:.4e}, counted "
+        f"per-device FLOPs {line['counted_flops']:.4e}, compute_s at "
+        f"{roofline.PEAK_FLOPS:.3e} FLOP/s {line['compute_s']:.5f} s, "
+        f"measured step {step_s:.5f} s, model_flops / (step_s x peak) "
+        f"{line['mfu']:.4f} | {card_line()}")
+    out.update(dryrun=dry, cost_line=line)
+    return out
+
+
 def phase_ep():
     """moe_mlp_ep over a one-rank NCCL group (an in-memory store, no
     network) against moe_mlp: one full-width MoE layer of each MoE arch,
@@ -2244,6 +2442,7 @@ def main() -> int:
     ep = phase_ep()
     rows += phase_train_kernels()
     train = phase_train()
+    dist_out = phase_dist()
     # the main path's runs, each read with the counts set to 0 just before
     paths = {arch: s["launches"] for arch, s in serve.items()}
     bodies = {arch: s["body_launches"] for arch, s in serve.items()}
@@ -2256,6 +2455,8 @@ def main() -> int:
             bodies[f"{arch} train"] = {
                 scan: {b: counts[f"{scan}.{b}"] for b in BODIES}
                 for scan in ("rglru_scan", "wkv6_scan")}
+    paths["qwen3-4b dist train"] = dist_out["launches"]
+    bodies["qwen3-4b dist train"] = {}  # no scan
 
     kernels = []
     for name, (case, replaces) in HEADLINE.items():
@@ -2286,6 +2487,7 @@ def main() -> int:
     log("[summary] " + json.dumps({"model": model, "serve": serve,
                                    "serve_whisper": serve_whisper,
                                    "ep": ep, "train": train,
+                                   "dist": dist_out,
                                    "hmma_sass": sass,
                                    "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))

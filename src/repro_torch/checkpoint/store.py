@@ -34,6 +34,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.launch.shardings import tree_distribute
 
 Params = Any
 
@@ -52,7 +55,10 @@ def _leaf_key(path: Tuple[str, ...]) -> str:
 
 
 def _host_array(leaf) -> Tuple[np.ndarray, str]:
-    """(array to write, manifest dtype string) of one leaf."""
+    """(array to write, manifest dtype string) of one leaf; a DTensor's
+    full value."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -139,12 +145,13 @@ class CheckpointStore:
         return step
 
     def restore(self, template: Params, step: Optional[int] = None, *,
-                device: Union[str, torch.device] = "cpu"
-                ) -> Tuple[Params, int]:
+                device: Union[str, torch.device] = "cpu",
+                shardings: Optional[Params] = None) -> Tuple[Params, int]:
         """Load into the template's tree structure (its leaves are not read:
-        meta tensors will do), as tensors on ``device`` (the reference's
-        ``shardings`` argument places leaves on a mesh; here there is one
-        device)."""
+        meta tensors will do), as tensors on ``device``; with ``shardings``
+        (a tree like the template's of ``launch.shardings.NamedSharding``:
+        an elastic restore onto a mesh) each full tensor is then placed on
+        its mesh, every rank loading the same file."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -156,7 +163,10 @@ class CheckpointStore:
             key = _leaf_key(path)
             meta = manifest["leaves"][key]
             values[key] = _load_tensor(d / meta["file"], meta, device)
-        return _unflatten(template, values), step
+        tree = _unflatten(template, values)
+        if shardings is not None:
+            tree = tree_distribute(tree, shardings)
+        return tree, step
 
     def gc(self, keep: int = 3) -> None:
         steps = sorted(int(p.name.split("_")[1])

@@ -40,11 +40,16 @@ groups only, as the reference's does.
 """
 from __future__ import annotations
 
-import functools
-from typing import Any, Dict, Tuple
+import contextlib
+import threading
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import (implicit_replication,
+                                                   local_map)
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops, ref
@@ -67,18 +72,42 @@ _DDLERP_RANK = 32     # rank of the token-shift LoRA
 AUX_COEF = 0.01       # weight of the auxiliary (MoE) loss in loss_fn
 
 
+# per thread, whether Backbone.dist_context is entered
+_DIST = threading.local()
+
+
+def _no_shard(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x
+
+
 class Backbone:
     def __init__(self, cfg: ModelConfig, plan: PartitionPlan = IDENTITY_PLAN,
                  *, compute_dtype=torch.bfloat16, param_dtype=torch.float32,
                  remat: bool = True, device="cuda",
                  kernel_impl: str = "kernel", moe_impl: str = "gspmd",
-                 model_group=None, data_group=None):
+                 model_group=None, data_group=None,
+                 sharder: Callable[[torch.Tensor, str], torch.Tensor]
+                 = _no_shard,
+                 param_gather: Optional[Callable[[Params], Params]] = None,
+                 mesh=None, dp_axes: Sequence[str] = (),
+                 layer_scope: Callable[[], Any] = contextlib.nullcontext):
         """``moe_impl``: ``"gspmd"`` (the scatter path, ``ffn.moe_mlp``) or
         ``"ep"`` (``moe_ep.moe_mlp_ep`` over ``model_group``, a
         ``torch.distributed`` group of ``plan.tp`` ranks, or none at tp 1;
-        the expert leaves are stored virtualized for ``plan.tp``, as the
-        reference stores them; ``data_group`` averages the aux loss over
-        the data ranks)."""
+        on a ``mesh`` its "model" group; the expert leaves are stored
+        virtualized for ``plan.tp``, as the reference stores them;
+        ``data_group`` averages the aux loss over the data ranks).
+
+        Distribution enters as in the reference: ``sharder(x, tag)``
+        redistributes the activations tagged ``act_hidden``, ``act_heads``,
+        ``logits`` and ``moe_buf``; ``param_gather`` takes each layer's
+        sliced, cast leaves to their placements in the layer (the ZeRO-3
+        gather); ``mesh`` (a ``DeviceMesh``) and ``dp_axes`` (the axes that
+        shard the batch) place the kernels' calls, which take plain tensors:
+        each runs on every rank's local batch rows and heads (``local_map``).
+        With the defaults none of this does anything. ``layer_scope()`` is a
+        context entered around each layer (the dry run's cost counter reads
+        it)."""
         plan.check(cfg)
         for kind in cfg.layer_kinds():
             if kind not in _KINDS:
@@ -89,8 +118,18 @@ class Backbone:
         if moe_impl not in ("gspmd", "ep"):
             raise ValueError(f"moe_impl {moe_impl!r}: want 'gspmd' or 'ep'")
         self.moe_impl = moe_impl
+        if moe_impl == "ep" and mesh is not None and model_group is None:
+            model_group = mesh.get_group("model")
+            axes = [a for a in dp_axes if a != "model"]
+            if len(axes) == 1:
+                data_group = mesh.get_group(axes[0])
         self.model_group = model_group
         self.data_group = data_group
+        self.shard = sharder
+        self.param_gather = param_gather
+        self.mesh = mesh
+        self.dp_axes = tuple(dp_axes)
+        self.layer_scope = layer_scope
         if moe_impl == "ep" and cfg.ffn_kind == "moe":
             self.moe_V, self.moe_split = virtualization(cfg, plan.tp)
         else:
@@ -244,13 +283,99 @@ class Backbone:
 
     def _layer_params(self, gp: Params, r: int) -> Params:
         """Layer ``r`` of a group: views of the stacked leaves, cast to the
-        compute dtype (no copy when the dtypes agree)."""
+        compute dtype (no copy when the dtypes agree), then gathered by
+        ``param_gather`` where one is given."""
         cd = self.compute_dtype
-        return {s: {name: leaf[r].to(cd)
-                    if leaf.is_floating_point() and leaf.dtype != cd
-                    else leaf[r]
-                    for name, leaf in sub.items()}
-                for s, sub in gp.items()}
+        out = {s: {name: leaf[r].to(cd)
+                   if leaf.is_floating_point() and leaf.dtype != cd
+                   else leaf[r]
+                   for name, leaf in sub.items()}
+               for s, sub in gp.items()}
+        if self.param_gather is not None:
+            # per-layer weight all-gather (prefetch / early-release schedule)
+            out = self.param_gather(out)
+        return out
+
+    # ------------------------------------------------------------------ #
+    # Distribution                                                       #
+    # ------------------------------------------------------------------ #
+    @contextlib.contextmanager
+    def dist_context(self):
+        """On a mesh, plain tensors made inside the model (positions, masks,
+        zero states) act as replicated DTensors beside the distributed ones;
+        a train step runs its backward and update in it too. Nested entries
+        on one thread are one (``implicit_replication`` does not nest)."""
+        if self.mesh is None or getattr(_DIST, "depth", 0):
+            yield
+            return
+        _DIST.depth = 1
+        try:
+            with implicit_replication():
+                yield
+        finally:
+            _DIST.depth = 0
+
+    def _placements(self, layout):
+        """Placements of a tensor whose ``layout`` is (its batch dim, its
+        heads or width dim), each None where there is none: the batch over
+        ``dp_axes``, heads over "model" (unless the batch takes it). A None
+        layout: an argument that is not a tensor."""
+        if layout is None:
+            return None
+        batch, split = layout
+        heads = "model" not in self.dp_axes
+        return tuple(
+            Shard(batch) if batch is not None and axis in self.dp_axes
+            else Shard(split) if split is not None and axis == "model"
+            and heads else Replicate()
+            for axis in self.mesh.mesh_dim_names)
+
+    def _grad_placements(self, layout):
+        """Placements of the gradient of an argument of ``layout``: one
+        with no batch dim (a parameter: ``a_log``, ``u``) is read by every
+        rank's rows, so its local gradients are partial sums over the
+        axes that do not split it."""
+        places = self._placements(layout)
+        if places is None or layout[0] is not None:
+            return places
+        return tuple(p if isinstance(p, Shard) else Partial()
+                     for p in places)
+
+    def _local(self, fn, ins, outs):
+        """``fn`` on each rank's local shards where the model runs on a
+        mesh: ``ins``/``outs`` give the layout (see :meth:`_placements`) of
+        each tensor argument and result. The kernels take plain tensors."""
+        if self.mesh is None:
+            return fn
+        return local_map(fn, out_placements=tuple(self._placements(o)
+                                                  for o in outs),
+                         in_placements=tuple(self._placements(i)
+                                             for i in ins),
+                         in_grad_placements=tuple(self._grad_placements(i)
+                                                  for i in ins),
+                         device_mesh=self.mesh, redistribute_inputs=True)
+
+    def _whole(self, leaf: torch.Tensor, name: str) -> torch.Tensor:
+        """The embedding table or the LM head, gathered by ``param_gather``
+        (its ZeRO shards) where one is given."""
+        if self.param_gather is None:
+            return leaf
+        return self.param_gather({name: leaf}, stacked=False)[name]
+
+    def _replicated(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as a replicated DTensor on a mesh: a tensor that autograd
+        saves beside DTensors (a RoPE table, a mask) must be one, since the
+        backward runs outside ``dist_context``."""
+        if self.mesh is None:
+            return t
+        return DTensor.from_local(t, self.mesh,
+                                  (Replicate(),) * self.mesh.ndim,
+                                  run_check=False)
+
+    def _as_input(self, a) -> torch.Tensor:
+        if isinstance(a, DTensor):
+            return a
+        return torch.as_tensor(a, device=self.device)
 
     # ------------------------------------------------------------------ #
     # Sublayers                                                          #
@@ -265,7 +390,7 @@ class Backbone:
             q = q + p["bq"]
             k = k + p["bk"]
             v = v + p["bv"]
-        q = q.reshape(B, S, self.H, self.hd)
+        q = self.shard(q, "act_heads").reshape(B, S, self.H, self.hd)
         k = k.reshape(B, S, self.KV, self.hd)
         v = v.reshape(B, S, self.KV, self.hd)
         if cfg.qk_norm:
@@ -275,12 +400,20 @@ class Backbone:
 
     def _attend(self, q, k, v, kind: str, q_positions, kv_positions):
         cfg = self.cfg
-        return flash_attention(q, k, v, causal=kind != "enc",
-                               window=cfg.attn_window if kind == "local" else None,
-                               logit_cap=cfg.attn_logit_softcap,
-                               q_positions=q_positions,
-                               kv_positions=kv_positions,
-                               plain=self._plain)
+        return self._flash(q, k, v, q_positions, kv_positions,
+                           causal=kind != "enc",
+                           window=cfg.attn_window if kind == "local" else None,
+                           logit_cap=cfg.attn_logit_softcap)
+
+    def _flash(self, q, k, v, q_positions, kv_positions, **kw):
+        """``flash_attention`` on each rank's local batch rows and heads."""
+        heads, rep = (0, 2), (None, None)
+        return self._local(
+            lambda q, k, v, qp, kp: flash_attention(
+                q, k, v, q_positions=qp, kv_positions=kp, plain=self._plain,
+                **kw),
+            (heads, heads, heads, rep, rep), (heads,))(
+                q, k, v, q_positions, kv_positions)
 
     def _ffn_sublayer(self, p, x):
         """(y, aux): the MoE layer's load-balancing loss, or 0.0 for a dense
@@ -288,14 +421,50 @@ class Backbone:
         cfg = self.cfg
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         if cfg.ffn_kind != "moe":
-            return gated_mlp(p, h, cfg.ffn_kind), 0.0
-        if self.moe_impl == "ep":
-            return moe_mlp_ep(p, h, cfg, self.model_group, self.data_group)
-        return moe_mlp(p, h, cfg)
+            return self.shard(gated_mlp(p, h, cfg.ffn_kind), "act_hidden"), 0.0
+        if self.moe_impl == "ep" and self.mesh is not None:
+            y, aux = self._moe_ep_local(p, h)
+        elif self.moe_impl == "ep":
+            y, aux = moe_mlp_ep(p, h, cfg, self.model_group, self.data_group)
+        else:
+            y, aux = moe_mlp(p, h, cfg, self.shard)
+        return self.shard(y, "act_hidden"), aux
+
+    def _moe_ep_local(self, p, h):
+        """``moe_mlp_ep`` on each rank's local rows and experts: its
+        partial y a partial sum over "model" (the sharder's act_hidden
+        sums it). Every model rank computes its rows' whole aux, so each
+        gives 1 / (its ranks) of it, a partial sum over the mesh: the mean
+        over the data ranks, as the reference's pmean. The gradients of the
+        router and of h are partial sums over "model" too (each rank routes
+        to its own experts), and the router's and the experts' over the
+        data axes."""
+        names = ("router", "w_gate", "w_up", "w_down")
+        rows, experts, whole = (0, None), (None, 0), (None, None)
+        ins = (rows, whole) + (experts,) * 3
+        grads = tuple(tuple(q if isinstance(q, Shard) else Partial()
+                            for q in self._placements(layout))
+                      for layout in ins)
+        y_out = tuple(Partial() if axis == "model" else q for q, axis in zip(
+            self._placements(rows), self.mesh.mesh_dim_names))
+        share = 1.0 / self.mesh.size()
+
+        def part(h, *w):
+            y, aux = moe_mlp_ep(dict(zip(names, w)), h, self.cfg,
+                                self.model_group, reduce=False)
+            return y, aux * share
+        fn = local_map(
+            part, out_placements=(y_out, (Partial(),) * self.mesh.ndim),
+            in_placements=tuple(self._placements(i) for i in ins),
+            in_grad_placements=grads, device_mesh=self.mesh,
+            redistribute_inputs=True)
+        return fn(h, *(p[n] for n in names))
 
     def _rope(self, positions):
         cfg = self.cfg
-        return rope_table(positions, self.hd, cfg.rope_theta, cfg.rotary_pct)
+        rot, cos, sin = rope_table(positions, self.hd, cfg.rope_theta,
+                                   cfg.rotary_pct)
+        return rot, self._replicated(cos), self._replicated(sin)
 
     def _cross_kv(self, p, enc_out):
         """A ``dec`` layer's cross keys and values [B, Se, KV, hd] from the
@@ -319,8 +488,7 @@ class Backbone:
         q = q.reshape(B, S, self.H, self.hd)
         if cfg.qk_norm:
             q = rms_norm(q, p["c_q_norm"], cfg.norm_eps)
-        o = flash_attention(q, ck, cv, causal=False, q_positions=q_positions,
-                            kv_positions=kv_positions, plain=self._plain)
+        o = self._flash(q, ck, cv, q_positions, kv_positions, causal=False)
         return o.reshape(B, S, self.H * self.hd) @ p["c_wo"]
 
     def _layer_fwd(self, p, x, kind: str, positions, rope, cross=None):
@@ -336,7 +504,8 @@ class Backbone:
             q = apply_rope_table(q, rope)
             k = apply_rope_table(k, rope)
         o = self._attend(q, k, v, kind, positions, positions)
-        x = x + o.reshape(B, S, self.H * self.hd) @ p["wo"]
+        x = x + self.shard(o.reshape(B, S, self.H * self.hd) @ p["wo"],
+                           "act_hidden")
         if kind == "dec":
             ck, cv, cross_positions = cross
             x = x + self._cross_sublayer(p, x, ck, cv, positions,
@@ -393,15 +562,17 @@ class Backbone:
     def _recurrent_layer(self, p, x, kind: str, sub, r: int):
         """Serving: layer ``r`` of a group from and into the cache."""
         if kind == "rec":
-            x, conv, _ = self._rec_body(
-                p, x, sub["conv"][r],
-                functools.partial(self._rglru_scan, h0=sub["h"][r],
-                                  h_out=sub["h"][r]))
+            # the state is read and written in place: h_out is h0
+            scan = self._rglru_local(
+                lambda *a: self._rglru_scan(*a, h_out=a[-1]), (0, 1))
+            x, conv, _ = self._rec_body(p, x, sub["conv"][r],
+                                        lambda *a: scan(*a, sub["h"][r]))
             sub["conv"][r].copy_(conv)
             return x
         x, shift1, shift2 = self._rwkv_body(
             p, x, sub["shift1"][r], sub["wkv"][r], sub["shift2"][r],
-            functools.partial(self._wkv_scan, state_out=sub["wkv"][r]))
+            self._wkv_local(lambda *a: self._wkv_scan(*a, state_out=a[-1]),
+                            (0, 1)))
         sub["shift1"][r].copy_(shift1)
         sub["shift2"][r].copy_(shift2)
         return x
@@ -410,26 +581,50 @@ class Backbone:
         """Training: a recurrent layer from zero state (conv, h0, shifts and
         wkv), writing no state. Returns (x, aux)."""
         B = x.shape[0]
-        f32 = dict(dtype=torch.float32, device=x.device)
         if kind == "rec":
-            h0 = torch.zeros(B, self.W, **f32)
+            # h0 from each rank's local shapes, inside the local call
+            scan = self._rglru_local(
+                lambda x, a_log, gr, gi: RGLRUScan.apply(
+                    x, a_log, gr, gi, x.new_zeros(x.shape[0], x.shape[2],
+                                                  dtype=torch.float32),
+                    self._plain))
             conv0 = x.new_zeros(B, self.cfg.conv1d_width - 1, self.W)
-            x, _, aux = self._rec_body(
-                p, x, conv0,
-                lambda *a: RGLRUScan.apply(*a, h0, self._plain))
+            x, _, aux = self._rec_body(p, x, conv0, scan)
             return x, aux
         hd = self.cfg.rwkv_head_dim
         shift0 = x.new_zeros(B, self.cfg.d_model)
-        wkv0 = torch.zeros(B, self.rwkv_H, hd, hd, **f32)
-        return self._rwkv_body(
-            p, x, shift0, wkv0, shift0,
-            lambda *a: rwkv6.WKVScan.apply(*a, self._plain))[0], 0.0
+        scan = self._wkv_local(
+            lambda r, k, v, w, u, _: rwkv6.WKVScan.apply(
+                r, k, v, w, u, r.new_zeros(r.shape[0], r.shape[2], hd, hd,
+                                           dtype=torch.float32),
+                self._plain), None)
+        return self._rwkv_body(p, x, shift0, None, shift0, scan)[0], 0.0
+
+    def _rglru_local(self, fn, h_layout=None):
+        """The RG-LRU scan ``fn(x, a_log, gate_r, gate_i[, h])`` -> (y,
+        h_T) on each rank's local batch rows and width."""
+        seq = (0, 2)
+        ins = (seq, (None, 0), seq, seq) + ((h_layout,) if h_layout else ())
+        return self._local(fn, ins, (seq, (0, 1)))
+
+    def _wkv_local(self, fn, state_layout):
+        """The WKV scan ``fn(r, k, v, w, u, state)`` -> (y, S_T) on each
+        rank's local batch rows and heads; a None ``state_layout``: the
+        state argument is None (training starts from zero)."""
+        heads = (0, 2)
+        return self._local(fn, (heads,) * 4 + ((None, 0), state_layout),
+                           (heads, (0, 1)))
 
     def _embed_tokens(self, params, tokens) -> torch.Tensor:
         cfg = self.cfg
         tok = params["embed"]["tok"]
-        x = torch.index_select(tok, 0, tokens.reshape(-1))
-        x = x.reshape(*tokens.shape, cfg.d_model).to(self.compute_dtype)
+        if isinstance(tok, DTensor):
+            # the lookup over the whole vocabulary, D over "model" (the
+            # reference's untied layout): DTensor's lookup in a
+            # vocab-sharded table leaves partial rows whose backward it
+            # cannot add to the head's gradient
+            tok = tok.redistribute(self.mesh, self._placements((None, 1)))
+        x = F.embedding(tokens, tok).to(self.compute_dtype)
         if cfg.embed_scale:
             x = x * torch.sqrt(torch.tensor(cfg.d_model,
                                             dtype=self.compute_dtype))
@@ -439,11 +634,14 @@ class Backbone:
         cfg = self.cfg
         x = rms_norm(x, params["final_norm"].to(self.compute_dtype),
                      cfg.norm_eps)
-        head = (params["embed"]["tok"].T if cfg.tie_embeddings
-                else params["lm_head"]).to(self.compute_dtype)
-        logits = x @ head
+        head = (self._whole(params["embed"]["tok"], "tok").T
+                if cfg.tie_embeddings
+                else self._whole(params["lm_head"], "lm_head")
+                ).to(self.compute_dtype)
+        logits = self.shard(x @ head, "logits")
         if self.Vp != cfg.vocab:  # mask padded vocab columns
-            mask = torch.arange(self.Vp, device=logits.device) < cfg.vocab
+            mask = self._replicated(
+                torch.arange(self.Vp, device=self.device) < cfg.vocab)
             logits = torch.where(mask, logits,
                                  torch.full_like(logits, -1e30))
         return logits
@@ -457,7 +655,14 @@ class Backbone:
         prefill): its parameters sliced and cast inside, so that remat
         recomputes the cast (and the MoE layers' routing, and a ``dec``
         layer's cross keys and values from ``enc_out``) as the reference's
-        scan body does. Returns (x, the layer's aux loss)."""
+        scan body does. Returns (x, the layer's aux loss). Remat runs it
+        again in the backward, hence the distribution context here too."""
+        with self.dist_context(), self.layer_scope():
+            return self._train_layer_body(gp, r, pattern, x, positions, rope,
+                                          enc_out)
+
+    def _train_layer_body(self, gp, r: int, pattern, x, positions, rope,
+                          enc_out):
         lp = self._layer_params(gp, r)
         aux = 0.0
         for si, kind in enumerate(pattern):
@@ -506,7 +711,7 @@ class Backbone:
         ``embed/enc_pos``, then the ``enc`` groups (non-causal, no RoPE).
         Their aux loss is dropped, as the reference drops it."""
         cd = self.compute_dtype
-        x = (torch.as_tensor(frames, device=self.device).to(cd)
+        x = (self._as_input(frames).to(cd)
              + params["embed"]["enc_pos"].to(cd))
         return self._run_layers(params, self._groups(encoder=True), x,
                                 self._enc_positions(), None, None, remat)[0]
@@ -516,12 +721,16 @@ class Backbone:
         against ``batch["labels"]`` (both [B, S]), plus ``AUX_COEF`` times
         the MoE layers' summed auxiliary loss (0 without MoE). An
         encoder-decoder model reads ``batch["enc_frames"]`` too."""
+        with self.dist_context():
+            return self._loss(params, batch)
+
+    def _loss(self, params: Params, batch: Dict[str, Any]) -> torch.Tensor:
         cfg = self.cfg
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        labels = torch.as_tensor(batch["labels"], device=self.device)
+        tokens = self._as_input(batch["tokens"])
+        labels = self._as_input(batch["labels"])
         enc_out = (self._encode(params, batch["enc_frames"], self.remat)
                    if cfg.is_enc_dec else None)
-        x = self._embed_tokens(params, tokens)
+        x = self.shard(self._embed_tokens(params, tokens), "act_hidden")
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=self.device)
         rope = self._rope(positions) if self._has_attn else None
@@ -539,20 +748,32 @@ class Backbone:
             return min(self.cfg.attn_window or ctx, ctx)
         return ctx
 
-    def init_cache(self, B: int, ctx: int, dtype=None) -> Params:
+    def init_cache(self, B: int, ctx: int, dtype=None, *,
+                   device=None) -> Params:
         """An empty cache: ``pos`` (a Python int; JAX keeps an int32 scalar);
         per attention layer ``k``/``v`` rings [R,B,C,KV,hd] with their
         positions ``kpos`` [R,C], -1 for an empty slot; per ``rec`` layer
         ``conv`` [R,B,K-1,W] and ``h`` [R,B,W] fp32; per ``rwkv`` layer
         ``shift1``/``shift2`` [R,B,D] and ``wkv`` [R,B,H,hd,hd] fp32; per
         ``dec`` layer also ``ck``/``cv`` [R,B,enc_seq,KV,hd]. The encoder's
-        groups hold no cache (whisper's is ``{"pos", "g1"}``)."""
+        groups hold no cache (whisper's is ``{"pos", "g1"}``). ``device``
+        overrides the backbone's (``"meta"``: shapes only). On a mesh each
+        leaf is a DTensor: the batch over ``dp_axes``, heads or width over
+        "model"."""
         cfg = self.cfg
         dtype = dtype or self.compute_dtype
-        dev = self.device
+        dev = self.device if device is None else torch.device(device)
 
-        def zeros(shape, dt=dtype):
-            return torch.zeros(shape, dtype=dt, device=dev)
+        def zeros(shape, dt=dtype, layout=(None, None), fill=0):
+            if self.mesh is None:
+                return torch.full(shape, fill, dtype=dt, device=dev)
+            # each rank makes its own shard: a one-element view cut to it
+            d = distribute_tensor(
+                torch.full((), fill, dtype=dt, device=dev).expand(shape),
+                self.mesh, self._placements(layout), src_data_rank=None)
+            return DTensor.from_local(d.to_local().contiguous(), self.mesh,
+                                      d.placements, run_check=False,
+                                      shape=d.shape, stride=d.stride())
 
         cache: Params = {"pos": 0}
         for gi, group in self._groups(encoder=False):
@@ -560,24 +781,27 @@ class Backbone:
             gc: Dict[str, Any] = {}
             for si, kind in enumerate(group.pattern):
                 if kind == "rec":
-                    sub = {"conv": zeros((R, B, cfg.conv1d_width - 1, self.W)),
-                           "h": zeros((R, B, self.W), torch.float32)}
+                    sub = {"conv": zeros((R, B, cfg.conv1d_width - 1, self.W),
+                                         layout=(1, 3)),
+                           "h": zeros((R, B, self.W), torch.float32, (1, 2))}
                 elif kind == "rwkv":
                     hdr = cfg.rwkv_head_dim
-                    sub = {"shift1": zeros((R, B, cfg.d_model)),
+                    sub = {"shift1": zeros((R, B, cfg.d_model), layout=(1, None)),
                            "wkv": zeros((R, B, self.rwkv_H, hdr, hdr),
-                                        torch.float32),
-                           "shift2": zeros((R, B, cfg.d_model))}
+                                        torch.float32, (1, 2)),
+                           "shift2": zeros((R, B, cfg.d_model), layout=(1, None))}
                 else:
                     C = self.cache_len(kind, ctx)
-                    sub = {"k": zeros((R, B, C, self.KV, self.hd)),
-                           "v": zeros((R, B, C, self.KV, self.hd)),
-                           "kpos": torch.full((R, C), -1, dtype=torch.int32,
-                                              device=dev)}
+                    heads = (1, 3)
+                    sub = {"k": zeros((R, B, C, self.KV, self.hd), layout=heads),
+                           "v": zeros((R, B, C, self.KV, self.hd), layout=heads),
+                           "kpos": zeros((R, C), torch.int32, fill=-1)}
                     if kind == "dec":
                         Se = cfg.enc_seq
-                        sub["ck"] = zeros((R, B, Se, self.KV, self.hd))
-                        sub["cv"] = zeros((R, B, Se, self.KV, self.hd))
+                        sub["ck"] = zeros((R, B, Se, self.KV, self.hd),
+                                          layout=heads)
+                        sub["cv"] = zeros((R, B, Se, self.KV, self.hd),
+                                          layout=heads)
                 gc[f"s{si}"] = sub
             cache[f"g{gi}"] = gc
         return cache
@@ -600,7 +824,8 @@ class Backbone:
         cv[:, slot] = v[:, 0]
         kpos[slot] = pos
         o = self._attend(q, ck.to(x.dtype), cv.to(x.dtype), kind, posv, kpos)
-        x = x + o.reshape(B, 1, self.H * self.hd) @ p["wo"]
+        x = x + self.shard(o.reshape(B, 1, self.H * self.hd) @ p["wo"],
+                           "act_hidden")
         if kind == "dec":
             # as the reference's decode step: no c_bq on the query
             x = x + self._cross_sublayer(
@@ -608,6 +833,13 @@ class Backbone:
                 posv, enc_positions, bias=False)
         y, _ = self._ffn_sublayer(p, x)
         return x + y
+
+    def _serve_layers(self, gp, group):
+        """(r, layer r's parameters) of a group, each layer's step run
+        inside ``layer_scope``."""
+        for r in range(group.repeat):
+            with self.layer_scope():
+                yield r, self._layer_params(gp, r)
 
     def decode_step(self, params: Params, cache: Params, tokens
                     ) -> Tuple[torch.Tensor, Params]:
@@ -618,16 +850,20 @@ class Backbone:
         slot ``pos % C`` and ``kpos``, each recurrent layer's state, then
         ``pos + 1``.
         """
+        with self.dist_context():
+            return self._decode_step(params, cache, tokens)
+
+    def _decode_step(self, params: Params, cache: Params, tokens
+                     ) -> Tuple[torch.Tensor, Params]:
         pos = int(cache["pos"])
-        tokens = torch.as_tensor(tokens, device=self.device)
+        tokens = self._as_input(tokens)
         x = self._embed_tokens(params, tokens)
         posv = torch.full((1,), pos, dtype=torch.int32, device=self.device)
         rope = self._rope(posv) if self._has_attn else None
         epos = self._enc_positions() if self.cfg.is_enc_dec else None
         for gi, group in self._groups(encoder=False):
             gp, gc = params[f"g{gi}"], cache[f"g{gi}"]
-            for r in range(group.repeat):
-                lp = self._layer_params(gp, r)
+            for r, lp in self._serve_layers(gp, group):
                 for si, kind in enumerate(group.pattern):
                     p, sub = lp[f"s{si}"], gc[f"s{si}"]
                     if kind in ("rec", "rwkv"):
@@ -650,7 +886,12 @@ class Backbone:
         model encodes ``batch["enc_frames"]`` once, and each ``dec`` layer
         keeps its cross keys and values in ``ck``/``cv``.
         """
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        with self.dist_context():
+            return self._prefill(params, batch, ctx)
+
+    def _prefill(self, params: Params, batch: Dict[str, Any], ctx: int
+                 ) -> Tuple[torch.Tensor, Params]:
+        tokens = self._as_input(batch["tokens"])
         B, S = tokens.shape
         enc_out = (self._encode(params, batch["enc_frames"], remat=False)
                    if self.cfg.is_enc_dec else None)
@@ -661,8 +902,7 @@ class Backbone:
         cache["pos"] = S
         for gi, group in self._groups(encoder=False):
             gp, gc = params[f"g{gi}"], cache[f"g{gi}"]
-            for r in range(group.repeat):
-                lp = self._layer_params(gp, r)
+            for r, lp in self._serve_layers(gp, group):
                 for si, kind in enumerate(group.pattern):
                     p, sub = lp[f"s{si}"], gc[f"s{si}"]
                     if kind in ("rec", "rwkv"):

@@ -4,6 +4,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 
 
 def resolve_device(device) -> torch.device:
@@ -36,10 +38,30 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 def stable_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                          final_cap: Optional[float] = None) -> torch.Tensor:
     """Mean token cross-entropy: fp32 logits, optional final softcap, mean
-    of logsumexp - gold logit (``repro.models.common.stable_cross_entropy``)."""
+    of logsumexp - gold logit (``repro.models.common.stable_cross_entropy``).
+
+    DTensor logits (vocab-sharded on a mesh) take the vocab-parallel form:
+    each rank's logsumexp over its own shard, then the shards' log-sum-exp,
+    and the gold logit as a masked sum (exact: one term is not 0); on one
+    rank both equal the plain form bit for bit. DTensor would gather the
+    whole vocabulary for ``torch.logsumexp``, and the backward of a gather
+    makes a replicated buffer of the global logits' shape."""
     logits = softcap(logits.float(), final_cap)
+    labels = labels.long()[..., None]
+    if isinstance(logits, DTensor):
+        places = logits.placements
+        part = local_map(lambda t: torch.logsumexp(t, dim=-1, keepdim=True),
+                         out_placements=(places,), in_placements=(places,),
+                         device_mesh=logits.device_mesh)(logits)
+        top = torch.amax(part, dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.sum(torch.exp(part - top), dim=-1,
+                                  keepdim=True)) + top
+        vocab = torch.arange(logits.shape[-1], device=labels.device)
+        gold = torch.sum(torch.where(vocab == labels, logits, 0.0), dim=-1,
+                         keepdim=True)
+        return torch.mean((lse - gold)[..., 0])
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    gold = torch.gather(logits, -1, labels)[..., 0]
     return torch.mean(lse - gold)
 
 

@@ -130,6 +130,24 @@ class ModelConfig:
         return int(total)
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell: what gets run and with which step fn."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     """A small same-family config for CPU smoke tests."""
     groups = []
@@ -180,6 +198,11 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown architecture {name!r}; known: {ARCH_NAMES}")
     load_all_configs()
     return _REGISTRY[name]
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    load_all_configs()
+    return dict(_REGISTRY)
 
 
 def load_all_configs() -> None:

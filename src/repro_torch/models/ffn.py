@@ -141,10 +141,12 @@ def aux_loss(probs: torch.Tensor, gate_idx: torch.Tensor, n_experts: int
     return torch.sum(density * probs.mean(0)) * n_experts
 
 
-def moe_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
+            shard=lambda a, name: a) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed MoE. x: [B, S, D] -> (y [B, S, D], aux loss fp32).
-    ``params``: router [D, E], w_gate / w_up [E, D, Fe], w_down [E, Fe, D]."""
+    ``params``: router [D, E], w_gate / w_up [E, D, Fe], w_down [E, Fe, D].
+    ``shard(buf, "moe_buf")`` places the capacity buffers (the backbone's
+    sharder: experts over "model" on a mesh)."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
@@ -155,8 +157,8 @@ def moe_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg
     pos = slot_positions(flat_idx, E)
     keep = pos < C
     safe_pos = torch.where(keep, pos, 0)
-    buf = dispatch(xt, keep, flat_idx, safe_pos, (E, C, D))
-    out_buf = expert_ffn(buf, params["w_gate"], params["w_up"],
-                         params["w_down"])
+    buf = shard(dispatch(xt, keep, flat_idx, safe_pos, (E, C, D)), "moe_buf")
+    out_buf = shard(expert_ffn(buf, params["w_gate"], params["w_up"],
+                               params["w_down"]), "moe_buf")
     y = combine(out_buf, keep, flat_idx, safe_pos, gate_vals.reshape(-1), T)
     return y.reshape(B, S, D), aux_loss(probs, gate_idx, E)

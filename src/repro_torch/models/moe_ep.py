@@ -7,7 +7,8 @@ tokens (the router is replicated, so every rank computes the same routes and
 positions), keeps the assignments to its own experts, runs them and combines
 its partial output. One ``all_reduce`` over the model group sums the
 partials; its backward is an ``all_reduce`` of the gradient
-(``torch.distributed.nn.functional``). No capacity buffer crosses ranks.
+(:class:`AllReduce`, over ``torch.distributed._functional_collectives``).
+No capacity buffer crosses ranks.
 
 When there are fewer experts than ranks, each expert is split column-wise
 into ``split`` virtual experts (tensor parallelism inside the expert), an
@@ -24,10 +25,25 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.nn.functional import all_reduce
+import torch.distributed._functional_collectives as funcol
 
 from .ffn import (aux_loss, combine, dispatch, expert_ffn, moe_capacity,
                   route, slot_positions)
+
+
+class AllReduce(torch.autograd.Function):
+    """Sum over ``group``; the gradient is summed over it too (every rank's
+    partial output feeds the same sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return funcol.all_reduce(x, "sum", group).wait()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return funcol.all_reduce(grad.contiguous(), "sum",
+                                 ctx.group).wait(), None
 
 
 def virtualization(cfg, tp: int) -> Tuple[int, int]:
@@ -74,31 +90,35 @@ def _local_moe(xt: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
 
 def moe_mlp_ep(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
                group: Optional[dist.ProcessGroup] = None,
-               data_group: Optional[dist.ProcessGroup] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               data_group: Optional[dist.ProcessGroup] = None, *,
+               reduce: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel MoE. x: [B, S, D] -> (y, aux).
 
     ``params``: router [D, E]; w_gate / w_up [V, D, Fe_v], w_down [V, Fe_v,
     D], all V virtual experts (this rank takes its own V / tp of them, a
-    view). ``group`` is the model group (tp = its size; None: tp = 1, no
-    collective); ``data_group``, where given, averages aux over the data
-    ranks, whose tokens differ."""
+    view) or this rank's own V / tp. ``group`` is the model group (tp = its
+    size; None: tp = 1, no collective); ``data_group``, where given,
+    averages aux over the data ranks, whose tokens differ. ``reduce=False``
+    returns this rank's partial y, unsummed (on a DeviceMesh the backbone
+    declares it a partial sum and DTensor sums it)."""
     B, S, D = x.shape
     tp = dist.get_world_size(group) if group is not None else 1
     rank = dist.get_rank(group) if group is not None else 0
     V, split = virtualization(cfg, tp)
-    if params["w_gate"].shape[0] != V:
-        raise ValueError(f"expert leaves hold {params['w_gate'].shape[0]} "
-                         f"virtual experts, want {V} for tp {tp}")
+    held = params["w_gate"].shape[0]
+    if held not in (V, V // tp):
+        raise ValueError(f"expert leaves hold {held} virtual experts, want "
+                         f"{V} (or this rank's {V // tp}) for tp {tp}")
     V_loc = V // tp
-    own = slice(rank * V_loc, (rank + 1) * V_loc)
+    own = (slice(rank * V_loc, (rank + 1) * V_loc) if held == V
+           else slice(None))
     y, aux = _local_moe(x.reshape(B * S, D), params["router"],
                         params["w_gate"][own], params["w_up"][own],
                         params["w_down"][own], cfg=cfg, V=V, split=split,
                         tp=tp, rank=rank)
-    if group is not None:
-        y = all_reduce(y, group=group)
+    if group is not None and reduce:
+        y = AllReduce.apply(y, group)
     if data_group is not None:
-        aux = all_reduce(aux, group=data_group) / dist.get_world_size(
+        aux = AllReduce.apply(aux, data_group) / dist.get_world_size(
             data_group)
     return y.reshape(B, S, D), aux

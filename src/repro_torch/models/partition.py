@@ -3,8 +3,9 @@
 Query heads are zero-padded up to a multiple of TP, KV heads replicated up
 to TP when fewer, and the vocab zero-padded to ``vocab_align`` and masked in
 the logits. Each padding is exact: the padded model computes the same
-function. The port runs on one card, so it uses ``IDENTITY_PLAN``; the plan
-is kept so that the backbone derives its head and vocab sizes exactly as the
+function. A single-card model uses ``IDENTITY_PLAN``; on a mesh the plan
+takes the "model" axis' size (``launch/dryrun.py``, ``launch/train.py``), so
+that the backbone derives its head and vocab sizes exactly as the
 reference does.
 """
 from __future__ import annotations

@@ -82,8 +82,9 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def init_state(params: Params) -> Dict[str, Any]:
     def zeros(p):
-        return tree_map(lambda a: torch.zeros(a.shape, dtype=torch.float32,
-                                              device=a.device), p)
+        # zeros_like: a DTensor's moments take its placements
+        return tree_map(lambda a: torch.zeros_like(a, dtype=torch.float32),
+                        p)
     device = tree_leaves(params)[0].device
     return {
         "step": torch.zeros((), dtype=torch.int32, device=device),

@@ -24,10 +24,13 @@ class StepSettings:
     """Schedule/memory knobs — the §Perf hillclimb levers.
 
     The reference's fields and defaults. ``zero3``, ``gather_weights`` and
-    ``moe_ep`` act on a device mesh, and at world size 1 they have no effect
-    here until slice 8 (distribution, ROADMAP.md). ``remat`` and
-    ``remat_policy`` are read by the ``Backbone`` (its ``remat`` argument),
-    as in the reference."""
+    ``moe_ep`` act through the mesh, as the callers that build the
+    ``Backbone`` and place the state read them (``launch/dryrun.py``,
+    ``launch/train.py``): ZeRO-3 parameter shardings
+    (``launch.shardings.param_shardings``), the per-layer gather
+    (``make_param_gatherer``, the Backbone's ``param_gather``) and
+    ``moe_impl="ep"``. ``remat`` and ``remat_policy`` are read by the
+    ``Backbone`` (its ``remat`` argument), as in the reference."""
 
     zero3: bool = True          # ZeRO-3 "data"-sharded parameters
     gather_weights: bool = True  # per-layer weight all-gather in the scan body
@@ -45,8 +48,9 @@ def value_and_grad(bb: Backbone, params: Params, batch: Dict[str, Any]
     tree, in their dtype. The params are not touched: autograd runs on
     detached aliases of them."""
     tracked = adamw.tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss = bb.loss_fn(tracked, batch)
-    grads = torch.autograd.grad(loss, adamw.tree_leaves(tracked))
+    with bb.dist_context():
+        loss = bb.loss_fn(tracked, batch)
+        grads = torch.autograd.grad(loss, adamw.tree_leaves(tracked))
     return loss.detach(), adamw.tree_unflatten(params, grads)
 
 
@@ -74,10 +78,12 @@ def make_train_step(bb: Backbone, opt_cfg: adamw.AdamWConfig,
             loss = loss / k
         else:
             loss, grads = value_and_grad(bb, state["params"], batch)
-        if settings.compress_grads:
-            grads, err = adamw.compress_with_feedback(grads, state["error"])
-        new_params, new_opt, metrics = adamw.apply_updates(
-            opt_cfg, state["params"], state["opt"], grads)
+        with bb.dist_context():
+            if settings.compress_grads:
+                grads, err = adamw.compress_with_feedback(grads,
+                                                          state["error"])
+            new_params, new_opt, metrics = adamw.apply_updates(
+                opt_cfg, state["params"], state["opt"], grads)
         new_state = {"params": new_params, "opt": new_opt}
         if settings.compress_grads:
             new_state["error"] = err

@@ -13,8 +13,14 @@ transactional store (``repro_torch.txstore``):
 * stragglers are detected by a step-time EWMA z-test; mitigation is a
   pluggable policy (on a real cluster: re-slice the batch / evict the
   slow host — here: recorded + surfaced);
-* elastic rescale moves the state to another device (one card: there is no
-  mesh to re-shard over until slice 8, ROADMAP.md).
+* elastic rescale re-places the state under a new mesh's shardings
+  (``rescale_state``), or moves it to one device.
+
+On a mesh (``Trainer(mesh=, state_shardings=)``) the state's leaves are
+DTensors placed by ``state_shardings`` (``launch.shardings``: the
+parameters' and the moments' specs, the step replicated); a checkpoint is
+written from their full values, by rank 0, and restored onto the same
+placements.
 
 A step returns fresh tensors and the store publishes them by reference; a
 checkpoint's snapshot is copied to the host before the next step, so the
@@ -32,10 +38,15 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint.store import AsyncCheckpointer, CheckpointStore
 from repro_torch.data.pipeline import DataConfig, Pipeline
+from repro_torch.launch.shardings import (batch_shardings, distribute,
+                                          tree_distribute)
 from repro_torch.models.backbone import Backbone
+from repro_torch.models.config import ShapeConfig
 from repro_torch.optim import adamw
 from repro_torch.runtime.steps import (StepSettings, init_train_state,
                                        make_train_step)
@@ -84,20 +95,34 @@ class StragglerStats:
 
 
 def to_host(tree: Any) -> Any:
-    """A copy of nested dicts of tensors in host memory."""
-    return adamw.tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+    """A copy of nested dicts of tensors in host memory; a DTensor's full
+    value (a collective: every rank calls it)."""
+    return adamw.tree_map(lambda t: _full(t).detach().to("cpu", copy=True),
+                          tree)
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _is_writer() -> bool:
+    """Rank 0 writes the checkpoints (every rank when there is no group)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class Trainer:
     def __init__(self, bb: Backbone, opt_cfg: adamw.AdamWConfig,
                  data_cfg: DataConfig, tcfg: TrainerConfig,
                  settings: StepSettings = StepSettings(),
-                 *, straggler_hook: Optional[Callable[[Dict], None]] = None):
+                 *, mesh=None, state_shardings=None,
+                 straggler_hook: Optional[Callable[[Dict], None]] = None):
         self.bb = bb
         self.opt_cfg = opt_cfg
         self.data_cfg = data_cfg
         self.tcfg = tcfg
         self.settings = settings
+        self.mesh = mesh
+        self.state_shardings = state_shardings
         self.straggler_hook = straggler_hook
 
         self.store = VersionedStateStore()
@@ -115,17 +140,21 @@ class Trainer:
 
     def init_or_restore(self, seed: int = 0) -> Dict[str, Any]:
         """Fresh init, or resume from the newest checkpoint (crash restart)
-        onto the backbone's device."""
+        onto the backbone's device, placed by ``state_shardings`` where the
+        trainer has them."""
         latest = self.ckpt.latest_step()
         if latest is not None:
             template = init_train_state(self.bb, seed, self.settings,
                                         device="meta")
             state, step = self.ckpt.restore(template, latest,
-                                            device=self.bb.device)
+                                            device=self.bb.device,
+                                            shardings=self.state_shardings)
             self.start_step = step
             print(f"[trainer] resumed from checkpoint step {step}")
         else:
             state = init_train_state(self.bb, seed, self.settings)
+            if self.state_shardings is not None:
+                state = tree_distribute(state, self.state_shardings)
             self.start_step = 0
         self.store.commit_step(None, None, self.start_step)  # cursor only
         return state
@@ -140,12 +169,12 @@ class Trainer:
         ``init_or_restore()``'s result straight in."""
         pipe = Pipeline(self.data_cfg, start_step=self.start_step)
         for step in range(self.start_step, self.tcfg.total_steps):
-            batch = next(pipe)
+            batch = self._place(next(pipe))
             t0 = time.monotonic()
             if crash_at is not None and step == crash_at:
                 raise RuntimeError(f"injected crash at step {step}")
             state, metrics = self._step(state, batch)
-            loss = float(metrics["loss"])
+            loss = float(_full(metrics["loss"]))
             dt = time.monotonic() - t0
             if self.straggler.observe(step=step, dt=dt,
                                       z_thresh=self.tcfg.straggler_zscore,
@@ -156,7 +185,8 @@ class Trainer:
                 if self.straggler_hook:
                     self.straggler_hook(ev)
             self.metrics_log.append({"step": step, "loss": loss, "dt": dt,
-                                     "grad_norm": float(metrics["grad_norm"])})
+                                     "grad_norm": float(_full(
+                                         metrics["grad_norm"]))})
             # control-plane commit: one write txn over (params, opt, cursor)
             self.store.commit_step(state["params"], state["opt"], step + 1)
             if (step + 1) % self.tcfg.ckpt_every == 0:
@@ -165,12 +195,24 @@ class Trainer:
                 # card holds one state while the file is written
                 snap = self.store.snapshot(("params", "opt", "data_cursor"))
                 host = to_host({"params": snap["params"], "opt": snap["opt"]})
-                self.async_ckpt.submit(host, snap["data_cursor"])
+                if _is_writer():
+                    self.async_ckpt.submit(host, snap["data_cursor"])
             if (step + 1) % self.tcfg.log_every == 0:
                 print(f"[train] step {step+1}: loss={loss:.4f} "
                       f"({dt*1e3:.0f}ms/step)")
         self.async_ckpt.drain()
         return state
+
+    def _place(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """On a mesh, the batch as DTensors: its rows over the data axes."""
+        if self.mesh is None:
+            return batch
+        d = self.data_cfg
+        shape = ShapeConfig("train", d.seq_len, d.global_batch, "train")
+        sh = batch_shardings(self.bb.cfg, shape, self.mesh,
+                             batch_sharded=d.global_batch > 1)
+        return {k: distribute(torch.as_tensor(v, device=self.bb.device),
+                              sh[k]) for k, v in batch.items()}
 
     def shutdown(self) -> None:
         self.async_ckpt.stop()
@@ -180,9 +222,15 @@ class Trainer:
 # --------------------------------------------------------------------------- #
 # Elastic rescale                                                              #
 # --------------------------------------------------------------------------- #
-def rescale_state(state: Any, device: Any) -> Any:
-    """Move every leaf to ``device`` (the elastic event on one host: the
-    reference re-places leaves under a new mesh's shardings, which waits for
-    slice 8). The transactional store serializes it against readers so
-    nobody observes a half-moved tree."""
-    return adamw.tree_map(lambda t: t.to(device), state)
+def rescale_state(state: Any, new_shardings: Any) -> Any:
+    """Re-place every leaf under the new mesh's shardings (elastic event):
+    ``new_shardings`` is a tree of ``launch.shardings.NamedSharding`` like
+    ``state``, or one device, to which every leaf moves whole.
+
+    On a real cluster this runs after re-forming the mesh with the surviving
+    hosts; the transactional store serializes it against readers so nobody
+    observes a half-resharded tree.
+    """
+    if isinstance(new_shardings, dict):
+        return tree_distribute(state, new_shardings)
+    return adamw.tree_map(lambda t: _full(t).to(new_shardings), state)

@@ -57,6 +57,7 @@ import time
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import (Mode, Registry, SharedObject, Transaction,
                               TransactionMonitor, access)
@@ -77,7 +78,11 @@ class TornSnapshotError(RuntimeError):
 
 
 def _tensor_versions(value: Any) -> List[tuple]:
-    """(tensor, version counter) of every tensor in nested dicts/lists."""
+    """(tensor, version counter) of every tensor in nested dicts/lists; of a
+    DTensor, its local shard's (an in-place write reaches the shard)."""
+    if isinstance(value, DTensor):
+        with torch.no_grad():
+            value = value.to_local()
     if isinstance(value, torch.Tensor):
         return [(value, value._version)]
     if isinstance(value, dict):
