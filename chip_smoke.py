@@ -113,7 +113,15 @@ Phases; each one that fails raises, and the process exits non-zero:
    256 and 512 ranks and qwen3-4b x train_4k on 256, and the cost counter
    over the step above on a fake (1, 1) mesh: its FLOPs beside
    model_flops and the measured step.
-8. Print the kernels line (seven kernels: flash_fwd, flash_decode,
+8. The OptSVA-CF wire (phase_net): two node servers spawned with
+   repro_torch.dtm.spawn_server and reached with dtm.connect; the
+   transport-equivalence schedule in-process, over TCP and under simnet
+   with equal traces; qwen3-4b's parameters at full width and 2 layers
+   (fp32, initialised on the card, 2.36 GB) bound as StateCells on node 0,
+   published by a write transaction and read back by an irrevocable
+   read-only one, bit for bit, with the commit and snapshot seconds and
+   GB/s; neither server among the card's compute apps. No kernel runs.
+9. Print the kernels line (seven kernels: flash_fwd, flash_decode,
    rglru_scan, wkv6_scan, flash_bwd, rglru_bwd, wkv6_bwd), the card line
    and the result line.
 
@@ -2389,6 +2397,303 @@ def phase_ep():
     return out
 
 
+# phase_net: qwen3-4b's parameters at full width and NET["depth"] layers,
+# homed on a node server in pieces of at most chunk_bytes (the wire's frames
+# are capped at 256 MiB, wire.MAX_FRAME); the servers' monitor timeout
+# outlasts a transaction that moves 2.4 GB
+NET = dict(depth=2, chunk_bytes=128 * 2**20, monitor_timeout=300.0,
+           startup_timeout=60.0)
+
+
+def net_schedule(reg):
+    """tests/test_net_equivalence.py's ``_run_schedule`` on the port: nine
+    transactions over the accounts A, B and C (read-only, transfer, write
+    log, manual abort, supremum violation, mixed, trailing reads, a
+    read-only sweep, fused runs). Returns the trace (tag, outcome, value,
+    waits) and the final balances."""
+    from repro_torch.core import AbortError, SupremumViolation, Transaction
+    trace = []
+
+    def record(tag, declare, body):
+        t = Transaction(reg)
+        proxies = declare(t)
+        try:
+            out = t.start(lambda tt: body(tt, *proxies))
+            trace.append((tag, "commit", out, t.stats.waits))
+        except SupremumViolation:
+            trace.append((tag, "supremum-abort", None, t.stats.waits))
+        except AbortError as e:
+            kind = "forced-abort" if e.forced else "manual-abort"
+            trace.append((tag, kind, None, t.stats.waits))
+
+    A, B, C = (lambda n=n: reg.locate(n) for n in "ABC")
+    record("ro", lambda t: (t.reads(A(), 2),),
+           lambda t, a: (a.balance(), a.balance()))
+
+    def transfer(t, a, b):
+        a.withdraw(100)
+        b.deposit(100)
+        return a.balance()
+    record("transfer", lambda t: (t.accesses(A(), 1, 0, 1),
+                                  t.updates(B(), 1)), transfer)
+    record("write-log", lambda t: (t.writes(C(), 1),),
+           lambda t, c: c.reset())
+
+    def doomed(t, a, b):
+        a.withdraw(10_000)
+        b.deposit(10_000)
+        if a.balance() < 0:
+            t.abort()
+    record("doomed", lambda t: (t.accesses(A(), 1, 0, 1),
+                                t.updates(B(), 1)), doomed)
+    record("violate", lambda t: (t.updates(B(), 1),),
+           lambda t, b: (b.deposit(1), b.deposit(1)))
+
+    def final(t, a):
+        a.deposit(7)
+        return a.balance()
+    record("final", lambda t: (t.accesses(A(), 1, 0, 1),), final)
+
+    def trailing(t, a, b):
+        a.deposit(3)
+        return a.balance(), a.balance(), b.balance()
+    record("trailing", lambda t: (t.accesses(A(), 2, 0, 1),
+                                  t.reads(B(), 1)), trailing)
+    record("ro-sweep", lambda t: (t.reads(A(), 1), t.reads(B(), 1),
+                                  t.reads(C(), 1)),
+           lambda t, a, b, c: a.balance() + b.balance() + c.balance())
+
+    def fused(t, a, b):
+        va = t.invoke_many(a, [("balance", (), {}), ("deposit", (11,), {}),
+                               ("balance", (), {})])
+        vb = t.invoke_many(b, [("deposit", (1,), {}), ("withdraw", (1,), {}),
+                               ("balance", (), {}), ("reset", (), {})])
+        return tuple(va), tuple(vb)
+    record("fused", lambda t: (t.accesses(A(), 2, 0, 1),
+                               t.accesses(B(), 1, 1, 2)), fused)
+    return trace, tuple(reg.locate(n).raw_call("balance") for n in "ABC")
+
+
+def net_schedules(addresses, seed=42):
+    """``net_schedule`` in-process, over TCP on the node servers at
+    ``addresses`` (A and C on the first, B on the second) and under the
+    deterministic simulation; returns {transport: (trace, state)}."""
+    from repro_torch import dtm
+    from repro_torch.net.demo import Account
+    from repro_torch.net.simnet import build_simnet
+
+    def bind_all(nodes):
+        for name, node, balance in (("A", nodes[0], 1000), ("B", nodes[1], 500),
+                                    ("C", nodes[0], 0)):
+            dtm.bind(node, name, Account(balance))
+
+    out = {}
+    reg = dtm.Registry()
+    bind_all([reg.add_node("n0"), reg.add_node("n1")])
+    try:
+        out["inproc"] = net_schedule(reg)
+    finally:
+        reg.shutdown()
+    reg = dtm.connect(*addresses)
+    try:
+        bind_all([next(n for n in reg.nodes if n.address == a)
+                  for a in addresses])
+        dtm.connect(*addresses, registry=reg)
+        out["tcp"] = net_schedule(reg)
+    finally:
+        reg.shutdown()
+    net = build_simnet(seed, 2)
+    try:
+        setup = net.client_registry("setup")
+        bind_all(sorted(setup.nodes, key=lambda n: n.name))
+        net.spawn(lambda: out.update(sim=net_schedule(
+            net.client_registry("c0"))), "c0")
+        net.run()
+    finally:
+        net.shutdown()
+    return out
+
+
+def net_pieces(params, chunk_bytes):
+    """The leaves of ``params`` cut along their first dimension into pieces
+    of at most ``chunk_bytes``: [(name, piece)], named by leaf path and
+    piece index."""
+    from torch.utils import _pytree
+    leaves, _ = _pytree.tree_flatten_with_path(params)
+    out = []
+    for path, leaf in leaves:
+        row = leaf[0].numel() * leaf.element_size() if leaf.dim() else 1
+        rows = max(1, chunk_bytes // row) if leaf.dim() else 1
+        parts = leaf.split(rows) if leaf.dim() else (leaf,)
+        out += [(f"{_pytree.keystr(path)}#{i}", p) for i, p in enumerate(parts)]
+    return out
+
+
+def net_round_trip(reg, node, old, new, device):
+    """Bind a ``StateCell`` per piece of ``old`` on ``node`` (each cell
+    pickles its tensors as host bytes), publish ``new`` with one write
+    transaction (``set``'s value is pickled by torch's own reducer, which
+    keeps the device, so the client hands over host copies: ``.cpu()``),
+    read every cell back with one irrevocable read-only transaction and
+    move it to ``device``. Every piece must come back bit for bit, on the
+    CPU, at version 1. Returns the seconds and GB/s of each, and the first
+    bind's seconds apart (the node server imports torch when it unpickles
+    its first tensor)."""
+    from repro_torch import dtm
+    from repro_torch.core import Transaction
+    from repro_torch.txstore.store import StateCell
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    nbytes = sum(p.numel() * p.element_size() for _, p in new)
+    sync()
+    binds = []
+    for name, piece in old:
+        t0 = time.perf_counter()
+        dtm.bind(node, name, StateCell(piece, 0))
+        binds.append(time.perf_counter() - t0)
+    bind_s = sum(binds)
+    dtm.connect(node.address, registry=reg)
+    cells = [reg.locate(name) for name, _ in new]
+
+    sync()
+    t0 = time.perf_counter()
+    host = [piece.cpu() for _, piece in new]
+    t = Transaction(reg)
+    writes = [t.writes(c, 1) for c in cells]
+    t.start(lambda _t: [w.set(h, 1) for w, h in zip(writes, host)])
+    commit_s = time.perf_counter() - t0
+    del host
+
+    t0 = time.perf_counter()
+    t = Transaction(reg, irrevocable=True)
+    reads = [t.reads(c, 2) for c in cells]
+    got = {}
+    t.start(lambda _t: got.update(
+        (i, (r.get(), r.get_version())) for i, r in enumerate(reads)))
+    on_host = all(got[i][0].device.type == "cpu" for i in got)
+    back = [got[i][0].to(device) for i in range(len(cells))]
+    sync()
+    snapshot_s = time.perf_counter() - t0
+    versions = {got[i][1] for i in got}
+    same = [b.dtype == p.dtype and b.shape == p.shape and torch.equal(b, p)
+            for b, (_, p) in zip(back, new)]
+    if not (on_host and versions == {1} and all(same)):
+        raise AssertionError(
+            f"net round trip: on the host {on_host}, versions {versions}, "
+            f"{sum(same)} of {len(same)} pieces bit for bit")
+    gb = nbytes / 1e9
+    first = old[0][1].numel() * old[0][1].element_size() / 1e9
+    return {"bytes": nbytes, "cells": len(cells), "bind_s": bind_s,
+            "bind_gbps": gb / bind_s, "first_bind_s": binds[0],
+            "rest_bind_gbps": (gb - first) / max(sum(binds[1:]), 1e-9),
+            "commit_s": commit_s,
+            "commit_gbps": gb / commit_s, "snapshot_s": snapshot_s,
+            "snapshot_gbps": gb / snapshot_s, "bitwise": True}
+
+
+def net_card_users(pids):
+    """Which of ``pids`` use the card: listed by nvidia-smi's compute apps,
+    or holding an open /dev/nvidia* file (a CUDA context opens them). In a
+    container nvidia-smi may list the host's pids, so the caller also
+    holds the number of compute apps to one: this process."""
+    listed = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()
+    users = {}
+    for pid in pids:
+        fds = []
+        fd_dir = f"/proc/{pid}/fd"
+        for fd in os.listdir(fd_dir):
+            with contextlib.suppress(OSError):
+                if os.readlink(f"{fd_dir}/{fd}").startswith("/dev/nvidia"):
+                    fds.append(fd)
+        users[pid] = {"nvidia_smi": str(pid) in listed, "dev_fds": len(fds)}
+    return listed, users
+
+
+def phase_net():
+    """The OptSVA-CF wire (repro_torch.net, repro_torch.dtm). Two node
+    servers spawned with dtm.spawn_server and reached with dtm.connect;
+    net_schedule in-process, over TCP and under simnet: outcomes, values and
+    final balances equal, the waits equal in-process and under simnet (over
+    TCP they depend on when the home node processes the previous
+    transaction's release one-ways, so they are printed, not held). Then
+    net_round_trip of qwen3-4b's parameters (full width, NET["depth"]
+    layers, fp32, initialised on the card, 2.36 GB) on node 0, and neither
+    server may use the card."""
+    from repro_torch import dtm
+    from repro_torch.models import Backbone
+
+    servers = []
+    try:
+        for i in range(2):
+            servers.append(dtm.spawn_server(
+                f"node{i}", monitor_timeout=NET["monitor_timeout"],
+                startup_timeout=NET["startup_timeout"]))
+        addresses = [s.address for s in servers]
+        log(f"[net] node servers {addresses} (pids "
+            f"{[s.proc.pid for s in servers]})")
+        runs = net_schedules(addresses)
+        (ti, si), (tt, st), (ts, ss) = (runs[k] for k in ("inproc", "tcp",
+                                                          "sim"))
+        outcomes = [e[:3] for e in ti]
+        ok = (ti == ts and [e[:3] for e in tt] == outcomes
+              and si == st == ss == (921, 0, 0))
+        log(f"[net] equivalence schedule, {len(ti)} transactions: inproc, "
+            f"tcp and sim traces equal: {ok} (waits inproc "
+            f"{[e[3] for e in ti]}, sim {[e[3] for e in ts]}, tcp "
+            f"{[e[3] for e in tt]}); balances {si}")
+        if not ok:
+            raise AssertionError(f"net schedules differ: {runs}")
+
+        free_memory()
+        cfg = _config("qwen3-4b", ((("attn",), NET["depth"]),))
+        bb = Backbone(cfg, param_dtype=torch.float32, device=DEVICE)
+        old = net_pieces(bb.init(SEED), NET["chunk_bytes"])
+        new = net_pieces(bb.init(SEED + 1), NET["chunk_bytes"])
+        reg = dtm.connect(addresses[0])
+        try:
+            node, = reg.nodes
+            rt = net_round_trip(reg, node, old, new, DEVICE)
+        finally:
+            reg.shutdown()
+        n_params = sum(p.numel() for _, p in new)
+        log(f"[net] qwen3-4b {cfg.n_layers} layers, {n_params} fp32 "
+            f"parameters ({rt['bytes'] / 1e9:.3f} GB) in {rt['cells']} "
+            f"StateCells on node 0 over localhost TCP | {card_line()}")
+        log(f"[net] bind (the cells' host bytes): {rt['bind_s']:.3f} s, "
+            f"{rt['bind_gbps']:.3f} GB/s; the first cell {rt['first_bind_s']:.3f}"
+            f" s (the server imports torch), the rest "
+            f"{rt['rest_bind_gbps']:.3f} GB/s")
+        log(f"[net] commit (write transaction, host copies included): "
+            f"{rt['commit_s']:.3f} s, {rt['commit_gbps']:.3f} GB/s")
+        log(f"[net] snapshot (irrevocable read-only transaction, moved back "
+            f"to cuda): {rt['snapshot_s']:.3f} s, {rt['snapshot_gbps']:.3f} "
+            f"GB/s; every piece bit for bit: {rt['bitwise']}")
+        del old, new, bb
+        free_memory()
+
+        pids = [s.proc.pid for s in servers]
+        listed, users = net_card_users(pids)
+        on_card = [p for p, u in users.items()
+                   if u["nvidia_smi"] or u["dev_fds"]]
+        log(f"[net] compute apps on the card {listed} (this process "
+            f"{os.getpid()}); node servers {users}: none on the card: "
+            f"{not on_card and len(listed) <= 1}")
+        if on_card or len(listed) > 1:
+            raise AssertionError(f"node servers {on_card} use the card "
+                                 f"(compute apps {listed})")
+        return {"schedule": {k: v for k, v in runs.items()},
+                "round_trip": rt, "compute_apps": listed,
+                "servers": users}
+    finally:
+        for s in servers:
+            s.stop()
+
+
 # The row of each kernel that stands for it in the kernels line, and the TPU
 # kernel it replaces (for the backwards, which the reference writes in jnp
 # or leaves to jax.grad, the function whose gradient they compute)
@@ -2443,6 +2748,7 @@ def main() -> int:
     rows += phase_train_kernels()
     train = phase_train()
     dist_out = phase_dist()
+    net = phase_net()
     # the main path's runs, each read with the counts set to 0 just before
     paths = {arch: s["launches"] for arch, s in serve.items()}
     bodies = {arch: s["body_launches"] for arch, s in serve.items()}
@@ -2487,7 +2793,7 @@ def main() -> int:
     log("[summary] " + json.dumps({"model": model, "serve": serve,
                                    "serve_whisper": serve_whisper,
                                    "ep": ep, "train": train,
-                                   "dist": dist_out,
+                                   "dist": dist_out, "net": net,
                                    "hmma_sass": sass,
                                    "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))

@@ -1,13 +1,10 @@
-"""The OptSVA-CF transactional memory that the training state store
-(``repro_torch.txstore``) runs on: line-for-line copies of the plain-Python
-modules of ``repro.core`` that it needs (the port imports nothing of
-``repro``). ``sva``, ``tfa`` and ``locks`` (the baselines) are not copied,
-and ``Registry.connect`` (the TCP transport, ``repro.net``) raises.
+"""OptSVA-CF pessimistic distributed transactional memory (the paper's core).
 
 Public surface::
 
     from repro_torch.core import (
         Mode, access, Suprema, Registry, Transaction,
+        SvaTransaction, LockTransaction, TfaTransaction,
         AbortError, RetrySignal, TransactionMonitor,
     )
 """
@@ -18,7 +15,10 @@ from .api import (
 from .buffers import CopyBuffer, LogBuffer, StateHolder
 from .executor import Executor, Task
 from .faults import TransactionMonitor
+from .locks import GLOBAL_LOCK, LockTransaction, RWLock
 from .registry import Node, Registry, SharedObject
+from .sva import SvaTransaction
+from .tfa import TfaTransaction
 from .transaction import CommuteAccess, ObjectAccess, Transaction, TxProxy
 from .versioning import VersionHeader, dispense_versions
 
@@ -26,7 +26,8 @@ __all__ = [
     "INF", "AbortError", "IllegalState", "Mode", "OpStats",
     "RemoteObjectFailure", "RetrySignal", "Suprema", "SupremumViolation",
     "TransactionError", "access", "CopyBuffer", "LogBuffer", "StateHolder",
-    "Executor", "Task", "TransactionMonitor", "Node", "Registry",
-    "SharedObject", "CommuteAccess", "ObjectAccess", "Transaction", "TxProxy",
-    "VersionHeader", "dispense_versions",
+    "Executor", "Task", "TransactionMonitor", "GLOBAL_LOCK",
+    "LockTransaction", "RWLock", "Node", "Registry", "SharedObject",
+    "SvaTransaction", "TfaTransaction", "CommuteAccess", "ObjectAccess",
+    "Transaction", "TxProxy", "VersionHeader", "dispense_versions",
 ]

@@ -227,7 +227,7 @@ class Registry:
         remote node. Re-connecting the same address refreshes the binding
         set (new remote bindings since the last call are merged in).
         """
-        raise NotImplementedError("no net layer in the port: ROADMAP.md slice 8")
+        from repro_torch.net.remote import RemoteNode  # lazy: net imports core
         # Network I/O happens outside the registry lock (a hung server must
         # not stall bind/locate); concurrent connects serialize on their own.
         with self._connect_lock:

@@ -1,8 +1,24 @@
-"""Copies of ``repro.obs.txtrace`` and ``repro.obs.metrics``, which the
-copied OptSVA-CF core (``repro_torch.core``) instruments itself with. Both
-are plain Python; the port keeps its own copies because it imports nothing
-of ``repro``. Tracing is off unless ``txtrace.enabled`` is set (or the
-``REPRO_TRACE`` environment variable)."""
-from . import metrics, txtrace  # noqa: F401
+"""repro.obs — structured tracing + metrics for the OptSVA-CF stack.
 
-__all__ = ["txtrace", "metrics"]
+Three pieces (DESIGN.md §9):
+
+* :mod:`repro.obs.txtrace` — per-thread ring buffers of binary span
+  events covering the full transaction lifecycle, correlated cross-node
+  by ``(txn_uid, incarnation, pv)``;
+* :mod:`repro.obs.metrics` — counters + HDR-style histograms (gate wait,
+  version wait, version-handoff latency), exposed via the ``stats`` RPC
+  and a SIGUSR2 dump;
+* :mod:`repro.obs.export` — merges per-site rings into Chrome-trace /
+  Perfetto JSON (one track per node, one flow per transaction).
+
+Everything is gated on the single module flag ``txtrace.enabled``
+(default off, or the ``REPRO_TRACE`` environment variable): every
+instrumentation site in the hot path is ``if txtrace.enabled: ...`` —
+one attribute read when tracing is off, no allocation, no locks, no
+messages. Enabling tracing never adds protocol messages either (rings
+are in-process; export pulls them explicitly), so the simnet exact
+message-plan gate holds with tracing on or off.
+"""
+from . import txtrace, metrics, export  # noqa: F401
+
+__all__ = ["txtrace", "metrics", "export"]

@@ -49,6 +49,20 @@ state before it alive (the reference's donated jax buffers hold no memory
 there; torch tensors would keep whole training states on the card). So
 every transaction of the store drops those buffers once it has finished
 (:func:`_run`).
+
+A cell bound on a node server (``repro_torch.net``) crosses the wire as a
+pickle, and torch's own tensor pickling would keep a tensor's device: a
+node server that unpickled a CUDA tensor would open a CUDA context or fail.
+So a cell pickles itself (:meth:`StateCell.__reduce__`): every tensor leaf
+goes over as its dtype, its shape and its contiguous host bytes (a
+``uint8`` numpy view, which keeps bf16 exact and leaves the pickle stream
+under protocol 5), and is rebuilt on the CPU. The recorded version counters
+are rebuilt from the rebuilt leaves, so ``get`` on the far side raises
+nothing spurious. A DTensor leaf raises ``TypeError``: sharded state is not
+homed remotely. A client that reads a remote cell back gets CPU tensors and
+moves them with an explicit ``.to(device)``; method arguments and results
+(``set``'s value, ``get``'s) are pickled by torch's own reducer, so a client
+passes host tensors to a remote cell's ``set`` the same way.
 """
 from __future__ import annotations
 
@@ -90,6 +104,48 @@ def _tensor_versions(value: Any) -> List[tuple]:
     if isinstance(value, (list, tuple)):
         return [tv for item in value for tv in _tensor_versions(item)]
     return []
+
+
+def _to_host(value: Any, path: str) -> Any:
+    """``value`` with every tensor leaf replaced by a :class:`_HostTensor`
+    (nested dicts/lists/tuples, as :func:`_tensor_versions` walks them)."""
+    if isinstance(value, DTensor):
+        raise TypeError(f"StateCell leaf {path} is a DTensor: sharded state "
+                        "is not homed remotely")
+    if isinstance(value, torch.Tensor):
+        return _HostTensor(value)
+    if isinstance(value, dict):
+        return {k: _to_host(v, f"{path}[{k!r}]") for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        items = [_to_host(v, f"{path}[{i}]") for i, v in enumerate(value)]
+        return items if isinstance(value, list) else type(value)(items)
+    return value
+
+
+class _HostTensor:
+    """A tensor leaf on its way over the wire: it pickles as its dtype, its
+    shape and its contiguous host bytes, and unpickles as a CPU tensor."""
+
+    __slots__ = ("tensor",)
+
+    def __init__(self, tensor: torch.Tensor):
+        self.tensor = tensor
+
+    def __reduce__(self):
+        t = self.tensor.detach()
+        data = t.cpu().contiguous().reshape(-1).view(torch.uint8).numpy()
+        return (_host_tensor, (str(t.dtype).removeprefix("torch."),
+                               tuple(t.shape), data))
+
+
+def _host_tensor(dtype: str, shape: tuple, data) -> torch.Tensor:
+    """The CPU tensor of a :class:`_HostTensor`'s pickled form."""
+    dt = getattr(torch, dtype)
+    if data.size == 0:                  # numpy gives it stride 0: no view
+        return torch.empty(shape, dtype=dt)
+    if not data.flags.writeable:        # an out-of-band frame's bytes
+        data = data.copy()
+    return torch.from_numpy(data).view(dt).reshape(shape)
 
 
 class StateCell:
@@ -138,6 +194,11 @@ class StateCell:
                     f"a tensor {tuple(t.shape)} published at version "
                     f"{self.version} was modified in place since: a snapshot "
                     "of it would be torn (steps must return fresh tensors)")
+
+    def __reduce__(self):
+        # Host bytes, rebuilt on the CPU; __init__ records the rebuilt
+        # leaves' version counters (see the module docstring).
+        return (StateCell, (_to_host(self.value, "value"), self.version))
 
     def __deepcopy__(self, memo):
         # published tensors are never written again (get checks): snapshot =

@@ -1065,3 +1065,32 @@ def test_whisper_grads_kernel_path_match_plain_path(cuda, dtype):
         assert abs(float(lk) - float(lp)) <= 2.0 ** -6 * abs(float(lp))
         for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
             assert float((a - b).norm()) <= 2.0 ** -4 * float(b.norm())
+
+
+def test_state_cell_carries_cuda_bf16_leaves_as_host_bytes(cuda):
+    """A StateCell of CUDA bf16 leaves pickles them as host bytes (the
+    wire's protocol 5, out of band): the copy's leaves lie on the CPU, move
+    back to the card with an explicit .to(), and equal the originals bit for
+    bit; get raises no torn-snapshot error on the copy."""
+    import pickle
+
+    from repro_torch.txstore.store import StateCell
+    g = torch.Generator(device=cuda).manual_seed(21)
+    tree = {"w": torch.randn((256, 384), generator=g, device=cuda).to(
+                torch.bfloat16),
+            "layers": [torch.empty(4, 8, device=cuda, dtype=torch.bfloat16
+                                   ).normal_(generator=g),
+                       torch.tensor(1.5, device=cuda, dtype=torch.bfloat16)]}
+    bufs = []
+    data = pickle.dumps(StateCell(tree, 2), protocol=5,
+                        buffer_callback=bufs.append)
+    copy = pickle.loads(data, buffers=[bytes(b.raw()) for b in bufs])
+    got = copy.get()
+    flat = [got["w"], *got["layers"]]
+    want = [tree["w"], *tree["layers"]]
+    assert all(t.device.type == "cpu" for t in flat)
+    for a, b in zip(flat, want):
+        back = a.to(cuda)
+        assert back.dtype == torch.bfloat16 and back.shape == b.shape
+        assert torch.equal(back.view(torch.int16), b.view(torch.int16))
+    assert copy.get_version() == 2
