@@ -95,15 +95,24 @@ Phases; each one that fails raises, and the process exits non-zero:
    step ms, tokens/s, peak memory, a profiled step. The MoE archs' gradient
    check at one layer (see MOE_TRAIN), fp32 and bf16 compute, remat's
    recomputed routes equal to the forward's, the route flips counted, the
-   bf16 plain path pinned to the kernel path's routes. whisper-tiny at full
+   bf16 plain path pinned to the kernel path's routes; then each MoE arch's
+   ``Trainer`` at full width and one layer, 6 steps with remat (mixtral
+   [1, 4200], qwen3-moe [1, 512]; K1 with its LSE twice and each K1b pass
+   once a step), a falling loss, its peak beside the card's name and power
+   limit. Every ``Trainer`` step, and the profiled step after it, donates
+   its state (the reference jits its step with donate_argnums=(0,)): each
+   cell's peak is printed beside its peak when the step was functional
+   (FUNCTIONAL_PEAK_GB). whisper-tiny at full
    depth: the gradient check at [2, 448] tokens over 1500 frames in fp32
    and bf16 compute, then 6 ``Trainer`` steps of 16 x 448 tokens and 16 x
    1500 frames, remat off (flash_fwd and each K1b pass 12 a step: 4
-   encoder, 4 self, 4 cross), a falling loss. Finally a crash at
+   encoder, 4 self, 4 cross), a falling loss. Then a crash at
    step 13 of the reduced qwen3-4b and its restart from the step-8
-   checkpoint match an uninterrupted run.
+   checkpoint match an uninterrupted run. Finally the donating step
+   against the functional step at the reduced qwen3-4b, 3 steps, bit for
+   bit (donate_check).
 7. Distribution (phase_dist): qwen3-4b as phase 6 trains it (8 layers,
-   [4, 2048]), 3 steps on plain tensors and 3 from the same seed on a
+   [4, 2048]), 3 donating steps on plain tensors and 3 from the same seed on a
    (data 1, model 1) DeviceMesh over a one-rank NCCL group, the state under
    ZeRO-3 shardings with the per-layer gather: the losses and every
    parameter bit for bit, K1 with its LSE and each K1b pass once a layer
@@ -223,14 +232,26 @@ OTHER_TRAIN = {
                      bf16_groups=((("rwkv",), 2),)),
 }
 # The MoE archs' gradient checks (phase 6), one layer, in fp32 and bf16
-# compute: mixtral past its 4096-token window. Their Trainer steps need more
-# than one card: fp32 parameters and AdamW state of one mixtral layer with
-# its embeddings (2.90 B parameters) take 46 GB, the update's fresh state
-# 35 GB more (ROADMAP.md).
+# compute: mixtral past its 4096-token window. Each arch's Trainer then
+# takes 6 steps at full width and one layer, bf16 compute, fp32 parameters
+# and AdamW state, remat on: mixtral [1, 4200], 2.907 B parameters, 46.5 GB
+# of state and gradients; qwen3-moe [1, 512], 3.732 B, 59.7 GB. Both fit
+# the card because the step donates its state: a functional step's second
+# params, m and v would add 34.9 and 44.8 GB (PERF.md, section 4).
 MOE_TRAIN = {
-    "mixtral-8x22b": dict(groups=((("local",), 1),), grad_seq=4200),
-    "qwen3-moe-235b-a22b": dict(groups=((("attn",), 1),), grad_seq=512),
+    "mixtral-8x22b": dict(groups=((("local",), 1),), grad_seq=4200,
+                          trainer=dict(batch=1, seq=4200, steps=6,
+                                       remat=True)),
+    "qwen3-moe-235b-a22b": dict(groups=((("attn",), 1),), grad_seq=512,
+                                trainer=dict(batch=1, seq=512, steps=6,
+                                             remat=True)),
 }
+# The peak of each Trainer cell, GB, measured on an H100 80GB HBM3 at 700 W
+# when its step was functional (it held a second params, m and v while the
+# update ran; PERF.md, section 4); printed beside the donating step's peak.
+FUNCTIONAL_PEAK_GB = {"qwen3-4b": 54.4, "recurrentgemma-9b": 48.34,
+                      "rwkv6-3b": 29.58, "whisper-tiny": 10.48,
+                      "qwen3-4b dist train": 68.78}
 # K2b and K3b against their plain versions: both compute in fp32 from the
 # same inputs, so each gradient is held within SCAN_BWD_TOL of itself plus
 # SCAN_BWD_TOL of its tensor's largest entry (an entry is a sum of terms up
@@ -1574,8 +1595,8 @@ def lse_case(name, B, S, Hq, Hkv, hd, window, cap, dtype, Skv=None,
     """K1's LSE (flash_fwd with return_lse) against attention_lse_plain, at
     S queries against ``Skv`` keys (S by default); the out it returns must
     equal the serving call's. Timed beside the plain version, SDPA's
-    forward (KV repeated, cases without window or cap) and the bound of
-    attention_bound plus the LSE's bytes."""
+    forward (KV repeated; a window as an explicit boolean mask; none for a
+    softcap) and the bound of attention_bound plus the LSE's bytes."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -1603,13 +1624,15 @@ def lse_case(name, B, S, Hq, Hkv, hd, window, cap, dtype, Skv=None,
     plain_ms = time_ms(lambda: ref.attention_lse_plain(q, k, v, **kw),
                        iters=2, warmup=1)
     library_ms = None
-    if window is None and cap is None:
+    if cap is None:
         G = Hq // Hkv
         ql, kl, vl = (t.transpose(1, 2) for t in (
             q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
+        mask = None if window is None else _valid(pos, kpos, causal, window)
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            ql, kl, vl, is_causal=causal))
-        del ql, kl, vl
+            ql, kl, vl, attn_mask=mask,
+            is_causal=causal and mask is None))
+        del ql, kl, vl, mask
     bound_ms, bound_by = attention_bound(q, k, pos, kpos, causal, window,
                                          extra_bytes=4 * B * Hq * S)
     log(f"[kernel] flash_fwd lse {name:>18} {str(dtype)[6:]:>8} err "
@@ -1815,6 +1838,10 @@ def phase_train_kernels():
         rows.append(lse_case("whisper_cross", WHISPER["batch"],
                              WHISPER["seq"], 6, 6, 64, None, None, dtype,
                              Skv=1500, causal=False))
+        # mixtral-8x22b's Trainer: 48/8 (G 6), window 4096, past it
+        t = MOE_TRAIN["mixtral-8x22b"]["trainer"]
+        rows.append(lse_case("mixtral_train", t["batch"], t["seq"], 48, 8,
+                             128, 4096, None, dtype))
         for case in BWD_CASES:
             rows.append(bwd_case(*case, dtype))
     free_memory()
@@ -2049,10 +2076,13 @@ def train_run(arch, cfg, batch_size, seq, steps, remat):
         f"remat {remat}: {steps} Trainer steps of {batch_size} x {seq} tokens "
         f"in {wall:.3f} s; after the first, "
         f"{out['tokens_per_s_after_first']:.0f} tokens/s; launches {launched}; "
-        f"peak memory {out['max_memory_allocated_gb']:.2f} GB "
-        f"({out['allocated_before_gb']:.2f} GB allocated before the run)")
-    # one more step of the same function under the profiler
-    step_fn = make_train_step(bb, opt_cfg, settings)
+        f"peak memory {out['max_memory_allocated_gb']:.2f} GB, the step "
+        f"donating its state{functional_peak(arch)} "
+        f"({out['allocated_before_gb']:.2f} GB allocated before the run) | "
+        f"{card_line()}")
+    # one more step of the same function under the profiler: it donates, as
+    # the Trainer's does (a functional step would hold a second state)
+    step_fn = make_train_step(bb, opt_cfg, settings, donate=True)
     batch = make_batch(data_cfg, steps)
     out["trace"] = profile_calls(
         f"{arch} train step ({depth} layers, {tokens} tokens)",
@@ -2060,6 +2090,59 @@ def train_run(arch, cfg, batch_size, seq, steps, remat):
     del state, bb, tr
     free_memory()
     return out
+
+
+def functional_peak(cell):
+    """" (functional step: x GB)" where FUNCTIONAL_PEAK_GB has the cell,
+    else ""."""
+    if cell not in FUNCTIONAL_PEAK_GB:
+        return ""
+    return f" (functional step: {FUNCTIONAL_PEAK_GB[cell]} GB)"
+
+
+def donate_check(steps=3):
+    """make_train_step(donate=True) against the functional step at the
+    reduced qwen3-4b on the card (bf16 compute on the kernel path, fp32
+    parameters and AdamW state), ``steps`` steps from clones of one init:
+    every leaf, the loss and grad_norm bit for bit, and every donated leaf
+    keeps its storage."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import Backbone, get_config, reduced
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import (StepSettings, init_train_state,
+                                           make_train_step)
+
+    cfg = reduced(get_config("qwen3-4b"))
+    bb = Backbone(cfg, compute_dtype=torch.bfloat16, param_dtype=torch.float32,
+                  remat=False, device=DEVICE)
+    settings = StepSettings(remat=False)
+    opt_cfg = adamw.AdamWConfig(lr=5e-3, warmup_steps=1, total_steps=10)
+    data = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=SEED)
+    functional = make_train_step(bb, opt_cfg, settings)
+    donating = make_train_step(bb, opt_cfg, settings, donate=True)
+    state = init_train_state(bb, SEED, settings)
+    d_state = adamw.tree_map(torch.clone, state)
+    ptrs = [t.data_ptr() for t in adamw.tree_leaves(d_state)]
+    same_metrics = True
+    for i in range(steps):
+        batch = make_batch(data, i)
+        state, m = functional(state, batch)
+        out, dm = donating(d_state, batch)
+        same_metrics &= all(torch.equal(m[k], dm[k]) for k in m)
+    torch.cuda.synchronize()
+    leaves = list(zip(adamw.tree_leaves(state), adamw.tree_leaves(out)))
+    same = sum(torch.equal(a, b) for a, b in leaves)
+    kept = [t.data_ptr() for t in adamw.tree_leaves(out)] == ptrs
+    log(f"[train] donate check, reduced qwen3-4b on the card, {steps} steps of "
+        f"4 x 64, bf16 compute: the donating step against the functional "
+        f"step: {same} of {len(leaves)} leaves bit for bit, loss and "
+        f"grad_norm equal {same_metrics}, donated storages kept {kept}")
+    if same != len(leaves) or not same_metrics or not kept:
+        raise AssertionError("train: the donating step differs from the "
+                             "functional step")
+    del state, d_state, out
+    free_memory()
+    return {"steps": steps, "leaves": len(leaves), "bitwise": True}
 
 
 def train_restart_check():
@@ -2119,8 +2202,9 @@ def train_restart_check():
 
 def phase_train():
     """Train qwen3-4b (depth 8), the gemma2-2b gradient check, then
-    recurrentgemma-9b and rwkv6-3b, then the MoE archs' gradient checks;
-    each model is freed before the next."""
+    recurrentgemma-9b and rwkv6-3b, then the MoE archs' gradient checks and
+    Trainers, whisper-tiny, the crash restart and the donating step's
+    check; each model is freed before the next."""
     out = {}
     cfg = _config("qwen3-4b", ((("attn",), TRAIN["depth"]),))
     out["qwen3-4b"] = {
@@ -2148,6 +2232,10 @@ def phase_train():
         out[arch] = {f"grads_{str(dt)[6:]}": train_grads_check(
             arch, cfg, spec["grad_seq"], dt)
             for dt in (torch.float32, torch.bfloat16)}
+        if "trainer" in spec:
+            t = spec["trainer"]
+            out[arch]["trainer"] = train_run(arch, cfg, t["batch"], t["seq"],
+                                             t["steps"], t["remat"])
     # whisper-tiny at full depth: 1500 frames a sequence, remat off
     cfg, w = _config("whisper-tiny", MODEL_CHECKS["whisper-tiny"][0]), WHISPER
     out["whisper-tiny"] = {f"grads_{str(dt)[6:]}": train_grads_check(
@@ -2156,6 +2244,7 @@ def phase_train():
     out["whisper-tiny"]["trainer"] = train_run(
         "whisper-tiny", cfg, w["batch"], w["seq"], w["steps"], remat=False)
     out["restart"] = train_restart_check()
+    out["donate"] = donate_check()
     return out
 
 
@@ -2185,8 +2274,9 @@ def _dist_steps(state, batches, step_fn, place=lambda b: b):
 def phase_dist():
     """The distribution layer. (1) qwen3-4b at phase 6's width and depth
     (TRAIN: 8 layers, [4, 2048], bf16 compute, fp32 parameters and AdamW,
-    no remat) trained for DIST["steps"] steps through make_train_step on
-    plain tensors, then from the same seed on a (1, 1) mesh over a one-rank
+    no remat) trained for DIST["steps"] steps through make_train_step
+    (donating, as the Trainer's) on plain tensors, then from the same seed
+    (each path its own state) on a (1, 1) mesh over a one-rank
     NCCL group (launch.mesh.make_host_mesh): the state placed by
     param_shardings with ZeRO-3, the per-layer gather on, the batch placed
     by batch_shardings; the losses and every leaf bit for bit, K1 with its
@@ -2219,16 +2309,18 @@ def phase_dist():
     out = {"steps": steps, "batch": B, "seq": S, "layers": cfg.n_layers}
 
     # (1a) the plain path: the parameters after the last step kept on the
-    # host (4.8 GB)
+    # host (4.8 GB) before the profiled step writes into them. Both paths
+    # donate their state, as the Trainer does, and each owns the state it
+    # made from the seed.
     free_memory()
     plain = Backbone(cfg, PartitionPlan(tp=1), **kw)
+    plain_step = make_train_step(plain, opt_cfg, settings, donate=True)
     state, want_losses, plain_ms = _dist_steps(
-        init_train_state(plain, SEED), batches,
-        make_train_step(plain, opt_cfg, settings))
-    out["plain_trace"] = profile_calls(
-        "qwen3-4b train step, plain tensors", lambda: float(make_train_step(
-            plain, opt_cfg, settings)(state, batches[0])[1]["loss"]), calls=1)
+        init_train_state(plain, SEED), batches, plain_step)
     want = to_host(state["params"])
+    out["plain_trace"] = profile_calls(
+        "qwen3-4b train step, plain tensors",
+        lambda: float(plain_step(state, batches[0])[1]["loss"]), calls=1)
     del state, plain
     free_memory()
 
@@ -2250,7 +2342,7 @@ def phase_dist():
         def place(batch):
             return {k: sh.distribute(torch.as_tensor(v, device=DEVICE),
                                      bsh[k]) for k, v in batch.items()}
-        step_fn = make_train_step(bb, opt_cfg, settings)
+        step_fn = make_train_step(bb, opt_cfg, settings, donate=True)
         state = sh.tree_distribute(init_train_state(bb, SEED), st_sh)
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
@@ -2269,8 +2361,9 @@ def phase_dist():
             f"ZeRO-3 + per-layer gather: losses {got_losses} vs plain "
             f"{want_losses}; {same} of {len(leaves)} leaves bit for bit "
             f"(max abs diff {worst:.3e}); step ms sharded {dist_ms} vs plain "
-            f"{plain_ms}; peak {peak / 1e9:.2f} GB; launches "
-            f"{ {k: n for k, n in counts.items() if n} }")
+            f"{plain_ms}; peak {peak / 1e9:.2f} GB, the step donating its "
+            f"state{functional_peak('qwen3-4b dist train')}; launches "
+            f"{ {k: n for k, n in counts.items() if n} } | {card_line()}")
         if got_losses != want_losses or same != len(leaves):
             raise AssertionError("the sharded step at world size 1 differs "
                                  "from the plain step")
@@ -2332,13 +2425,17 @@ print(json.dumps(out))
     line = dict(model_flops=mflops, counted_flops=step["hlocost"]["flops"],
                 compute_s=step["roofline"]["compute_s"], step_s=step_s,
                 mfu=mflops / (step_s * roofline.PEAK_FLOPS),
-                peak_flops=roofline.PEAK_FLOPS)
+                peak_flops=roofline.PEAK_FLOPS,
+                counted_peak_bytes=step["memory"]["peak_bytes"],
+                measured_peak_bytes=peak)
     log(f"[dist] cost model beside the card, qwen3-4b {cfg.n_layers} layers "
         f"[{B}, {S}] on the (1, 1) mesh: model_flops {mflops:.4e}, counted "
         f"per-device FLOPs {line['counted_flops']:.4e}, compute_s at "
         f"{roofline.PEAK_FLOPS:.3e} FLOP/s {line['compute_s']:.5f} s, "
         f"measured step {step_s:.5f} s, model_flops / (step_s x peak) "
-        f"{line['mfu']:.4f} | {card_line()}")
+        f"{line['mfu']:.4f}; the donating step's peak counted "
+        f"{line['counted_peak_bytes'] / 1e9:.2f} GB, measured "
+        f"{peak / 1e9:.2f} GB | {card_line()}")
     out.update(dryrun=dry, cost_line=line)
     return out
 

@@ -24,7 +24,8 @@ the dry run's fake mesh (``launch.dryrun``), where every tensor is ``meta``:
   backward collective is inside a layer when the autograd node that issues
   it was made inside one.
 * **Memory** — the bytes of the local storages made under the counter and
-  still alive, and their peak.
+  still alive, and their peak. An op's output on an input's storage (an
+  in-place op, a donated argument written) allocates nothing.
 
 ``CostTotals`` keeps the reference's fields and ``to_json`` keys, so the
 results read the same.
@@ -197,7 +198,9 @@ class CostCounter(TorchDispatchMode):
             tot.flops += flop_registry[packet](*args, **kwargs, out_val=out)
         if not func.is_view and name not in _NO_TRAFFIC:
             tot.bytes += float(sum(_nbytes(t) for t in ins + outs))
-        for t in outs:
-            if not func.is_view:
-                self._track(t)
+        if not func.is_view:
+            held = {id(t.untyped_storage()) for t in ins}
+            for t in outs:
+                if id(t.untyped_storage()) not in held:
+                    self._track(t)
         return out

@@ -19,7 +19,9 @@ this:
   3. runs one train step, prefill or decode step under
      ``launch.cost.CostCounter``, which counts one rank's FLOPs, bytes,
      collectives (and those inside a layer) and live memory; the kernels
-     take their shape functions (``kernels.ops``),
+     take their shape functions (``kernels.ops``); a train step donates its
+     state, as the reference's jit of it does (its update writes into the
+     arguments, so the peak counts one state),
   4. records the rank's argument bytes (its local shards), its peak (the
      arguments plus the peak of what the step allocates), the cost totals
      and the roofline terms at the H100's rates into
@@ -131,8 +133,10 @@ def build_cell(arch: str, shape: ShapeConfig, mesh, *,
             state["error"] = adamw.tree_map(torch.zeros_like, params)
         batch = frames({name: _meta((B, S), torch.int32, bsh[name])
                         for name in ("tokens", "labels")})
-        return make_train_step(bb, adamw.AdamWConfig(), settings), (state,
-                                                                     batch)
+        # donated, as the reference jits it (donate_argnums=(0,)): the
+        # update writes into the arguments, so the peak holds one state
+        return make_train_step(bb, adamw.AdamWConfig(), settings,
+                               donate=True), (state, batch)
     if shape.kind == "prefill":
         batch = frames({"tokens": _meta((B, S), torch.int32, bsh["tokens"])})
         return make_prefill_step(bb, ctx=S), (params, batch)

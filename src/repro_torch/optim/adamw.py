@@ -8,11 +8,21 @@ leaves in the reference's order. ``step`` is an int32 scalar tensor, and
 the schedule and bias corrections are fp32 tensor arithmetic as in the
 reference.
 
-The update is functional: :func:`apply_updates` returns fresh parameter and
-moment tensors and never writes into its inputs. The training state store
-(``repro_torch.txstore``) publishes every step's tensors by reference, as the
-reference publishes immutable jax arrays, so an update in place would change
-a snapshot already taken (see ``repro_torch.txstore.store``).
+Two forms of the update. :func:`apply_updates` is functional, as the
+reference's is: it returns fresh parameter and moment tensors and writes
+into none of its inputs. :func:`apply_updates_` (and
+:func:`compress_with_feedback_` for the error-feedback state) writes the new
+values into the tensors it is given, the counterpart of the reference's
+train step jitted with ``donate_argnums=(0,)``: XLA writes the new params,
+m and v into the donated buffers of the old ones, so a step holds one
+training state, not two (12 bytes a parameter less). The two forms do the
+same operations in the same order and agree bit for bit.
+
+An in-place function first bumps the version counter of every tensor it
+will write (:func:`mark_donated`), before it issues any write, as jax marks
+a donated array deleted before the computation runs. The training state
+store (``repro_torch.txstore.store``) reads those counters to refuse a
+snapshot of a state that a later step has begun to overwrite.
 """
 from __future__ import annotations
 
@@ -21,8 +31,12 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 Params = Any
+
+# elements of a leaf's slice in the in-place update (64 MiB in fp32)
+UPDATE_CHUNK = 1 << 24
 
 
 @dataclass(frozen=True)
@@ -120,6 +134,60 @@ def _unzip(tree, i: int) -> Params:
     return {key: _unzip(sub, i) for key, sub in tree.items()}
 
 
+def compress_with_feedback_(grads: Params, error: Params) -> Params:
+    """:func:`compress_with_feedback` with the new residuals written into
+    ``error``'s tensors; returns the dequantized grads (fresh tensors)."""
+    mark_donated(error)
+
+    def one(g, e):
+        g = g + e
+        q, scale = _quantize_int8(g.float())
+        deq = q.float() * scale
+        e.copy_(g - deq)            # (g - deq).to(g.dtype), g.dtype == e's
+        return deq.to(g.dtype)
+
+    return tree_map(one, grads, error)
+
+
+def mark_donated(tree: Params) -> None:
+    """Bump the version counter of every tensor of ``tree`` (of a DTensor,
+    its local shard's, which an in-place op writes). An in-place update
+    calls it before its first write: a reader that checks the counters after
+    copying a tensor (``txstore.store.StateCell.get_host``) then sees every
+    write that may have reached its copy, however soon after the write the
+    op itself would bump the counter."""
+    with torch.no_grad():
+        torch.autograd.graph.increment_version(
+            [t.to_local() if isinstance(t, DTensor) else t
+             for t in tree_leaves(tree)])
+
+
+def _shard_locals(ts):
+    """Plain tensors as they are; DTensors of one mesh and placements as
+    their local shards (a pointwise op on them is the DTensor op); else
+    None."""
+    if not any(isinstance(t, DTensor) for t in ts):
+        return ts
+    first = ts[0]
+    if all(isinstance(t, DTensor) and t.device_mesh == first.device_mesh
+           and t.placements == first.placements for t in ts):
+        return tuple(t.to_local() for t in ts)
+    return None
+
+
+def _replicated_locals(ts):
+    """Scalars (None, plain tensors, replicated DTensors) as plain values;
+    None where a DTensor is not replicated."""
+    out = []
+    for t in ts:
+        if isinstance(t, DTensor):
+            if not all(p.is_replicate() for p in t.placements):
+                return None
+            t = t.to_local()
+        out.append(t)
+    return tuple(out)
+
+
 def global_norm(tree: Params) -> torch.Tensor:
     leaves = tree_leaves(tree)
     return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
@@ -154,3 +222,53 @@ def apply_updates(cfg: AdamWConfig, params: Params, opt_state: Dict[str, Any],
     new_state = {"step": step, "m": _unzip(out, 1), "v": _unzip(out, 2)}
     metrics = {"grad_norm": gnorm, "lr": lr}
     return _unzip(out, 0), new_state, metrics
+
+
+@torch.no_grad()
+def apply_updates_(cfg: AdamWConfig, params: Params,
+                   opt_state: Dict[str, Any], grads: Params
+                   ) -> Dict[str, torch.Tensor]:
+    """:func:`apply_updates` written into ``params``, ``opt_state["m"]``,
+    ``opt_state["v"]`` and ``opt_state["step"]``; returns the metrics. Bit
+    for bit the functional update: the same operations in the same order
+    (no fused op that rounds once where it rounds twice), a bf16 parameter
+    cast back from fp32 by ``copy_`` as by ``.to``. Every operation after
+    the norm is elementwise, so each leaf is updated in slices of
+    :data:`UPDATE_CHUNK` elements (of a DTensor leaf, its local shard's,
+    where the grads and moments share its placements): the update holds two
+    fp32 temporaries of a slice at a time, however large the leaf."""
+    mark_donated({"params": params, "opt": opt_state})
+    step = opt_state["step"].add_(1)
+    gnorm = global_norm(grads)
+    scale = (torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+             if cfg.clip_norm is not None else None)
+    lr = cosine_lr(cfg, step)
+    b1c = 1 - cfg.b1 ** step.float()
+    b2c = 1 - cfg.b2 ** step.float()
+
+    def upd(p, g, m, v, scale, lr, b1c, b2c):
+        g = (g if scale is None else g * scale).float()
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        v.mul_(cfg.b2).add_(torch.square(g).mul_(1 - cfg.b2))
+        del g
+        delta = (m / b1c).div_((v / b2c).sqrt_().add_(cfg.eps))
+        delta.add_(cfg.weight_decay * p.float())
+        if p.dtype == torch.float32:
+            p.sub_(delta.mul_(lr))
+        else:
+            p.copy_(p.float() - delta.mul_(lr))
+
+    consts = (scale, lr, b1c, b2c)
+    local_consts = _replicated_locals(consts)
+    for leaf in zip(tree_leaves(params), tree_leaves(grads),
+                    tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"])):
+        local = _shard_locals(leaf)
+        if local is None or local_consts is None or not all(
+                local[i].is_contiguous() for i in (0, 2, 3)):
+            upd(*leaf, *consts)
+            continue
+        p, g, m, v = local
+        flat = (p.view(-1), g.reshape(-1), m.view(-1), v.view(-1))
+        for i in range(0, p.numel(), UPDATE_CHUNK):
+            upd(*(t[i:i + UPDATE_CHUNK] for t in flat), *local_consts)
+    return {"grad_norm": gnorm, "lr": lr}

@@ -2,9 +2,12 @@
 
 The port of ``repro.runtime.steps``: the train loop executes these. A step
 takes the state ``{params, opt: {step, m, v}, error?}`` and a batch of numpy
-arrays (or tensors) and returns a fresh state; it writes into none of its
-inputs (see ``repro_torch.txstore.store`` for why). There is no ``jit``:
-PyTorch runs eagerly.
+arrays (or tensors) and returns the state after it. There is no ``jit``:
+PyTorch runs eagerly. The reference's step is pure, and its callers choose
+donation when they jit it (``donate_argnums=(0,)``: the Trainer and the dry
+run's train cells); the port's ``make_train_step`` takes that choice as
+``donate``: a functional step returns fresh tensors, a donating one writes
+the new state into the tensors it was given (``adamw.apply_updates_``).
 """
 from __future__ import annotations
 
@@ -55,9 +58,16 @@ def value_and_grad(bb: Backbone, params: Params, batch: Dict[str, Any]
 
 
 def make_train_step(bb: Backbone, opt_cfg: adamw.AdamWConfig,
-                    settings: StepSettings = StepSettings()
-                    ) -> Callable:
-    """(state, batch) -> (state, metrics); state = {params, opt, error?}."""
+                    settings: StepSettings = StepSettings(),
+                    donate: bool = False) -> Callable:
+    """(state, batch) -> (state, metrics); state = {params, opt, error?}.
+
+    ``donate=False``: the returned state is fresh tensors, and the given
+    state is left as it was. ``donate=True``, the counterpart of
+    ``jax.jit(step, donate_argnums=(0,))``: the new params, m, v, step (and
+    error) are written into the given state's tensors, which the step
+    returns (the same dicts), bit for bit the functional step's values; the
+    state before the step is gone, and the card holds one state."""
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
         k = settings.microbatches
@@ -79,6 +89,13 @@ def make_train_step(bb: Backbone, opt_cfg: adamw.AdamWConfig,
         else:
             loss, grads = value_and_grad(bb, state["params"], batch)
         with bb.dist_context():
+            if donate:
+                if settings.compress_grads:
+                    grads = adamw.compress_with_feedback_(grads,
+                                                          state["error"])
+                metrics = adamw.apply_updates_(opt_cfg, state["params"],
+                                               state["opt"], grads)
+                return state, dict(metrics, loss=loss)
             if settings.compress_grads:
                 grads, err = adamw.compress_with_feedback(grads,
                                                           state["error"])

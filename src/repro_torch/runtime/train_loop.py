@@ -22,9 +22,15 @@ parameters' and the moments' specs, the step replicated); a checkpoint is
 written from their full values, by rank 0, and restored onto the same
 placements.
 
-A step returns fresh tensors and the store publishes them by reference; a
-checkpoint's snapshot is copied to the host before the next step, so the
-card does not hold a second state while the file is written. Each entry of
+The step donates its state, as the reference's ``jax.jit(step_fn,
+donate_argnums=(0,))`` does: it writes the new params, m and v into the
+tensors of the old ones (``make_train_step(..., donate=True)``), so the
+card holds one training state. The store publishes those tensors by
+reference, and the next step overwrites them; so a checkpoint's snapshot is
+copied to the host before the next step (the order carries correctness:
+the copy is the only committed state left once the step runs), and a
+reader in another thread copies through ``snapshot(..., host=True)``, which
+refuses a state the next step has begun to overwrite. Each entry of
 ``metrics_log`` also holds the step's ``grad_norm`` (the reference logs
 step, loss and dt).
 """
@@ -131,7 +137,7 @@ class Trainer:
             self.ckpt, on_done=self._on_ckpt_done)
         self.straggler = StragglerStats()
         self.metrics_log: List[Dict[str, float]] = []
-        self._step = make_train_step(bb, opt_cfg, settings)
+        self._step = make_train_step(bb, opt_cfg, settings, donate=True)
 
     # ------------------------------------------------------------------ #
     def _on_ckpt_done(self, step: int, path: str) -> None:
@@ -163,10 +169,11 @@ class Trainer:
     def run(self, state: Dict[str, Any], *, crash_at: Optional[int] = None
             ) -> Dict[str, Any]:
         """Train from ``state`` to ``total_steps``; returns the last state.
-        Each step replaces the state with fresh tensors, so a caller that
-        keeps a reference to the state it passed keeps that state on the
-        card for the whole run (the reference donates it): pass
-        ``init_or_restore()``'s result straight in."""
+        ``state`` is consumed, as a donated jax array is deleted: each step
+        writes the new state into its tensors, so a reference the caller
+        keeps to them reads the last step's values, never the ones it
+        passed in. A copy of the initial state must be taken before the
+        call (``to_host``)."""
         pipe = Pipeline(self.data_cfg, start_step=self.start_step)
         for step in range(self.start_step, self.tcfg.total_steps):
             batch = self._place(next(pipe))
@@ -191,8 +198,8 @@ class Trainer:
             self.store.commit_step(state["params"], state["opt"], step + 1)
             if (step + 1) % self.tcfg.ckpt_every == 0:
                 # irrevocable read-only txn -> consistent async snapshot;
-                # copied to the host NOW (the copy-buffer copy), so the
-                # card holds one state while the file is written
+                # copied to the host NOW (the copy-buffer copy): the next
+                # step writes into the published tensors
                 snap = self.store.snapshot(("params", "opt", "data_cursor"))
                 host = to_host({"params": snap["params"], "opt": snap["opt"]})
                 if _is_writer():

@@ -22,25 +22,38 @@ writer starvation, deadlock freedom, and crashed actors roll back via the
 transaction monitor (§3.4).
 
 The port of ``repro.txstore.store`` on the port's copy of the OptSVA-CF core
-(``repro_torch.core``). One decision differs, because torch tensors are
-mutable and jax arrays are not. The reference snapshots a cell by reference;
-a torch step that updated the published parameters in place would change a
-snapshot already taken, a torn checkpoint the reference cannot produce. Two
-ways out were weighed:
+(``repro_torch.core``). One thing differs, because torch tensors are mutable
+and jax arrays are not. The reference snapshots a cell by reference, and
+its trainer donates the state to the next step: XLA writes the new state
+into the old buffers and deletes the old arrays, so a reader of a snapshot
+taken before that step either read it in time or meets a deleted array.
+The port's trainer donates too (``make_train_step(..., donate=True)``: the
+step writes into the published tensors, and the card holds one state), and
+snapshots stay reference copies: copying every tensor leaf at each commit
+would move the whole state (19 GB at qwen3-4b's depth 8) to the host twice
+a step, since a write access takes two snapshots of its cell (the abort
+checkpoint and the read buffer, ``ObjectAccess._lw_apply_body``).
 
-* snapshots copy tensor leaves to the host. Every commit's write access
-  takes two snapshots of each cell (the abort checkpoint and the read
-  buffer, ``ObjectAccess._lw_apply_body``), so at qwen3-4b's depth 8 each
-  step would copy 19 GB (fp32 params, m and v) to the host twice;
-* the step returns fresh tensors (``repro_torch.optim.adamw.apply_updates``
-  is functional), and a published tensor is never written again. That costs
-  a second set of params, m and v on the card while the step runs: 14.4 GB
-  at depth 8, which the 80 GB card holds.
+So a published tensor may be overwritten by a later step, and
+:class:`TornSnapshotError` is the counterpart of reading a donated (deleted)
+jax array. The cell guarantees every reader one of two outcomes: a value
+equal bit for bit to one committed step, or that error. ``set`` records
+each tensor leaf's version counter; an in-place update bumps the counter of
+every tensor it will write before it issues its first write
+(``repro_torch.optim.adamw.mark_donated``), and each op bumps it again.
 
-The port takes the second, and snapshots stay reference copies. The cell
-enforces it: ``set`` records each tensor leaf's version counter, and ``get``
-raises :class:`TornSnapshotError` when a tensor of the value it would hand
-out was since modified in place, so a torn snapshot is never handed out.
+* ``get`` hands out references after checking that no counter moved since
+  ``set``. That is enough for a reader that finishes with the tensors
+  before the writer's next step, such as the trainer's own checkpoint path,
+  which copies its snapshot to the host before the next step runs.
+* ``get_host`` (``snapshot(..., host=True)``), for a reader in another
+  thread, such as an evaluator: it checks the counters, copies every tensor
+  leaf to the host and waits for the copy (``.cpu()`` synchronizes with
+  the card), then checks the counters again. A write that reached the copy
+  was issued before the copy ended, so its bump came before the second
+  check, which then raises. The card runs a stream in order, and a copy
+  may run on another stream than the writer's: the check does not rely on
+  either.
 
 A finished ``Transaction`` and its per-object records reference each other,
 and the records' abort checkpoints and read buffers hold the cells' values:
@@ -88,7 +101,9 @@ def _run(t: Transaction, body: Callable[[Transaction], Any]) -> Any:
 
 
 class TornSnapshotError(RuntimeError):
-    """A published tensor was modified in place after it was committed."""
+    """A published tensor was written in place after it was committed: a
+    later step has begun to overwrite that state (the counterpart of
+    reading a donated, deleted jax array)."""
 
 
 def _tensor_versions(value: Any) -> List[tuple]:
@@ -106,18 +121,21 @@ def _tensor_versions(value: Any) -> List[tuple]:
     return []
 
 
-def _to_host(value: Any, path: str) -> Any:
-    """``value`` with every tensor leaf replaced by a :class:`_HostTensor`
-    (nested dicts/lists/tuples, as :func:`_tensor_versions` walks them)."""
+def _map_tensors(value: Any, path: str, fn: Callable[[torch.Tensor], Any],
+                 why: str) -> Any:
+    """``value`` with ``fn`` of every tensor leaf (nested dicts/lists/tuples,
+    as :func:`_tensor_versions` walks them); a DTensor leaf raises
+    ``TypeError`` for the reason ``why``."""
     if isinstance(value, DTensor):
-        raise TypeError(f"StateCell leaf {path} is a DTensor: sharded state "
-                        "is not homed remotely")
+        raise TypeError(f"StateCell leaf {path} is a DTensor: {why}")
     if isinstance(value, torch.Tensor):
-        return _HostTensor(value)
+        return fn(value)
     if isinstance(value, dict):
-        return {k: _to_host(v, f"{path}[{k!r}]") for k, v in value.items()}
+        return {k: _map_tensors(v, f"{path}[{k!r}]", fn, why)
+                for k, v in value.items()}
     if isinstance(value, (list, tuple)):
-        items = [_to_host(v, f"{path}[{i}]") for i, v in enumerate(value)]
+        items = [_map_tensors(v, f"{path}[{i}]", fn, why)
+                 for i, v in enumerate(value)]
         return items if isinstance(value, list) else type(value)(items)
     return value
 
@@ -153,9 +171,9 @@ class StateCell:
 
     ``set`` is a pure WRITE (never reads), so trainer commits go through the
     log buffer without synchronizing with concurrent snapshot readers until
-    apply time (§2.6). Published tensors are never written again (see the
-    module docstring), so snapshot copies are reference copies — cheap —
-    checked against the version counters recorded at ``set``.
+    apply time (§2.6). Snapshot copies are reference copies — cheap —
+    checked against the version counters recorded at ``set``; a published
+    tensor may be overwritten by a later step (see the module docstring).
     """
 
     def __init__(self, value: Any = None, version: int = 0,
@@ -169,6 +187,19 @@ class StateCell:
     def get(self):
         self._check_unmodified()
         return self.value
+
+    @access(Mode.READ)
+    def get_host(self):
+        """The value with every tensor leaf copied to the host, equal bit
+        for bit to the committed one, or :class:`TornSnapshotError` (see the
+        module docstring). A DTensor leaf raises ``TypeError``: its host copy
+        is a collective (``runtime.train_loop.to_host``)."""
+        self._check_unmodified()
+        host = _map_tensors(self.value, "value",
+                            lambda t: t.detach().to("cpu", copy=True),
+                            "its host copy is a collective")
+        self._check_unmodified()
+        return host
 
     @access(Mode.READ)
     def get_version(self) -> int:
@@ -192,17 +223,20 @@ class StateCell:
             if t._version != seen:
                 raise TornSnapshotError(
                     f"a tensor {tuple(t.shape)} published at version "
-                    f"{self.version} was modified in place since: a snapshot "
-                    "of it would be torn (steps must return fresh tensors)")
+                    f"{self.version} was written in place since: a later "
+                    "step has begun to overwrite it (donated), so a "
+                    "snapshot of it would be torn")
 
     def __reduce__(self):
         # Host bytes, rebuilt on the CPU; __init__ records the rebuilt
         # leaves' version counters (see the module docstring).
-        return (StateCell, (_to_host(self.value, "value"), self.version))
+        return (StateCell, (_map_tensors(self.value, "value", _HostTensor,
+                                         "sharded state is not homed "
+                                         "remotely"), self.version))
 
     def __deepcopy__(self, memo):
-        # published tensors are never written again (get checks): snapshot =
-        # reference copy of the tree
+        # snapshot = reference copy of the tree, with the version counters
+        # recorded at set (get and get_host check them)
         return StateCell(self.value, self.version, self._versions)
 
     def __tx_snapshot__(self) -> "StateCell":
@@ -249,11 +283,16 @@ class VersionedStateStore:
         _run(t, body)
 
     def snapshot(self, cells: Iterable[str] = ("params", "opt", "data_cursor"),
-                 *, irrevocable: bool = True) -> Dict[str, Any]:
+                 *, irrevocable: bool = True, host: bool = False
+                 ) -> Dict[str, Any]:
         """Checkpointer/evaluator: consistent read-only snapshot.
 
         Uses the §2.7 asynchronous buffering path: each cell is snapshotted
         and released by the executor as soon as its access condition passes.
+        ``host=False`` hands out references to the published tensors, valid
+        until the trainer's next step writes into them; ``host=True`` gives
+        host copies, each bit for bit a committed value, or raises
+        :class:`TornSnapshotError` (``StateCell.get_host``).
         """
         t = Transaction(self.registry, irrevocable=irrevocable)
         proxies = {name: t.reads(self.cells[name], 2) for name in cells}
@@ -261,7 +300,7 @@ class VersionedStateStore:
 
         def body(t):
             for name, proxy in proxies.items():
-                out[name] = proxy.get()
+                out[name] = proxy.get_host() if host else proxy.get()
                 out[f"{name}_version"] = proxy.get_version()
 
         _run(t, body)

@@ -1094,3 +1094,59 @@ def test_state_cell_carries_cuda_bf16_leaves_as_host_bytes(cuda):
         assert back.dtype == torch.bfloat16 and back.shape == b.shape
         assert torch.equal(back.view(torch.int16), b.view(torch.int16))
     assert copy.get_version() == 2
+
+
+def test_donating_step_matches_the_functional_step_on_the_card(cuda):
+    """make_train_step(donate=True) against the functional step on the card
+    (2 layers of qwen3-4b's kind at d_model 1024, vocab 4096, 35.7 M fp32
+    parameters, bf16 compute on the kernel path, [2, 128] tokens): 2 steps
+    from clones of one init, every leaf, the loss and grad_norm bit for
+    bit, each donated leaf on its own storage. The first step's peak above
+    what was allocated before it (max_memory_allocated) is lower for the
+    donating step by at least 12 bytes a parameter (the functional step's
+    second params, m and v) less a slack of 4 x the largest leaf's fp32
+    bytes: the backward's transients beside the grads (the tied embedding's
+    two gradient halves) and the update's slices, which the functional
+    step's peak need not hold."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import (StepSettings, init_train_state,
+                                           make_train_step)
+    cfg = reduced(get_config("qwen3-4b"), d_model=1024, n_heads=8,
+                  n_kv_heads=4, head_dim=128, d_ff=4096, vocab=4096,
+                  groups=(LayerGroup(("attn",), 2),))
+    bb = Backbone(cfg, compute_dtype=torch.bfloat16,
+                  param_dtype=torch.float32, remat=False, device=cuda)
+    settings = StepSettings(remat=False)
+    opt = adamw.AdamWConfig(lr=5e-3, warmup_steps=1, total_steps=10)
+    data = DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=2)
+    batches = [make_batch(data, i) for i in range(2)]
+
+    def first_step_peak(step, state):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = step(state, batches[0])
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - before
+
+    init = init_train_state(bb, 0, settings)
+    d_state = adamw.tree_map(torch.clone, init)
+    ptrs = [t.data_ptr() for t in adamw.tree_leaves(d_state)]
+    (state, m0), f_peak = first_step_peak(make_train_step(bb, opt, settings),
+                                          init)
+    del init
+    donating = make_train_step(bb, opt, settings, donate=True)
+    (out, d0), d_peak = first_step_peak(donating, d_state)
+    assert out is d_state
+    state, m1 = make_train_step(bb, opt, settings)(state, batches[1])
+    out, d1 = donating(out, batches[1])
+    for a, b in ((m0, d0), (m1, d1)):
+        assert all(torch.equal(a[k], b[k]) for k in ("loss", "grad_norm"))
+    for a, b in zip(adamw.tree_leaves(state), adamw.tree_leaves(out)):
+        assert torch.equal(a, b)
+    assert [t.data_ptr() for t in adamw.tree_leaves(out)] == ptrs
+    leaves = adamw.tree_leaves(out["params"])
+    n = sum(int(t.numel()) for t in leaves)
+    slack = 4 * 4 * max(int(t.numel()) for t in leaves)
+    assert f_peak - d_peak >= 12 * n - slack, (f_peak, d_peak, n, slack)
