@@ -121,7 +121,16 @@ Phases; each one that fails raises, and the process exits non-zero:
    the fake-mesh dry run (launch/dryrun.py) of whisper-tiny x train_4k on
    256 and 512 ranks and qwen3-4b x train_4k on 256, and the cost counter
    over the step above on a fake (1, 1) mesh: its FLOPs beside
-   model_flops and the measured step.
+   model_flops and the measured step. Then the reference's remat_policy
+   (phase_remat, see REMAT): qwen3-4b at phase 6's cell with remat off,
+   "full" and "dots", rwkv6-3b at its cell with "full" and "dots", each
+   from the same seed: the first batch's gradients bit for bit against the
+   first configuration's, equal losses over 3 donating steps, peak
+   memory, device (CUDA events) and host ms a step, a profiled step, exact
+   launches (K1 and the scans' forwards twice a layer and step under
+   either policy: "dots" saves products, not kernels' outputs); and the
+   dry run of qwen3-4b x train_4k x single under both policies ("dots"
+   counts "full"'s FLOPs less the saved products' forward FLOPs).
 8. The OptSVA-CF wire (phase_net): two node servers spawned with
    repro_torch.dtm.spawn_server and reached with dtm.connect; the
    transport-equivalence schedule in-process, over TCP and under simnet
@@ -2440,6 +2449,182 @@ print(json.dumps(out))
     return out
 
 
+
+# phase_remat: the reference's remat_policy at phase 6's cells, each
+# configuration from the same seeded parameters and batches: qwen3-4b
+# (TRAIN: 8 layers, [4, 2048]) with remat off, "full" and "dots", rwkv6-3b
+# (OTHER_TRAIN: 8 layers, [4, 2048], remat on) with "full" and "dots"; then
+# the dry run of REMAT["dryrun"] under both policies.
+REMAT = dict(steps=3, cells={"qwen3-4b": ("off", "full", "dots"),
+                             "rwkv6-3b": ("full", "dots")},
+             dryrun=("qwen3-4b", "train_4k", "single"))
+
+
+def remat_run(arch, cfg, batch_size, seq, policy, batches):
+    """One configuration of phase_remat: the gradient of ``batches[0]``
+    (kept on the host), then one donating train step a batch, each timed
+    on the host's clock and between CUDA events, the launches of those
+    steps exact (K1 twice an attention layer and step under remat, either
+    policy), their peak memory; then a profiled step."""
+    from repro_torch.models import Backbone
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import (StepSettings, init_train_state,
+                                           make_train_step, value_and_grad)
+    from repro_torch.runtime.train_loop import to_host
+
+    remat = policy != "off"
+    kw = dict(remat=remat, remat_policy=policy if remat else "full")
+    bb = Backbone(cfg, compute_dtype=torch.bfloat16,
+                  param_dtype=torch.float32, device=DEVICE, **kw)
+    steps = len(batches)
+    opt_cfg = adamw.AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=steps)
+    step_fn = make_train_step(bb, opt_cfg, StepSettings(**kw), donate=True)
+    free_memory()
+    state = init_train_state(bb, SEED)
+    loss, grads = value_and_grad(bb, state["params"], batches[0])
+    grads = to_host(grads)
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    losses, host_ms, device_ms = [], [], []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        state, metrics = step_fn(state, batch)
+        end.record()
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        device_ms.append(start.elapsed_time(end))
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    _check_counts(f"{arch} remat {policy}, {steps} steps", counts,
+                  _train_want(bb, batch_size, seq, steps, 2 if remat else 1))
+    out = {"policy": policy, "loss": float(loss), "grads": grads,
+           "losses": losses, "host_ms": host_ms, "device_ms": device_ms,
+           "peak_gb": peak / 1e9, "launches": counts}
+    out["trace"] = profile_calls(
+        f"{arch} train step, remat {policy}",
+        lambda: float(step_fn(state, batches[0])[1]["loss"]), calls=1)
+    del state, bb
+    free_memory()
+    return out
+
+
+def remat_dryrun():
+    """REMAT["dryrun"] under "full" and "dots" on the fake mesh, in a process
+    that sees no card: the saved products' forward FLOPs (2 M K N, each
+    rank's shards) and bytes, recorded from the "dots" policy's decisions,
+    and "dots"' FLOPs equal to "full"'s less them."""
+    arch, shape, mesh_kind = REMAT["dryrun"]
+    code = f"""
+import json, torch
+from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import CheckpointPolicy
+from repro_torch.launch import dryrun
+from repro_torch.models import remat
+from repro_torch.runtime.steps import StepSettings
+saved, policy = [], remat._dots
+def recording(ctx, op, *args, **kwargs):
+    decision = policy(ctx, op, *args, **kwargs)
+    if decision == CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+        a, b = (args[1], args[2]) if op == torch.ops.aten.addmm.default \\
+            else args[:2]
+        a, b = [t.to_local() if isinstance(t, DTensor) else t for t in (a, b)]
+        saved.append((a.shape[0], a.shape[1], b.shape[1], a.element_size()))
+    return decision
+remat._dots = recording
+out = {{p: dryrun.run_cell({arch!r}, {shape!r}, {mesh_kind!r}, verbose=False,
+                           settings=StepSettings(remat_policy=p))
+        for p in ("full", "dots")}}
+out["saved_flops"] = sum(2 * m * k * n for m, k, n, _ in saved)
+out["saved_bytes"] = sum(m * n * e for m, _, n, e in saved)
+out["saved_products"] = len(saved)
+print(json.dumps(out))
+"""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=DIST["dryrun_timeout"],
+                         env={**os.environ, "PYTHONPATH": src,
+                              "CUDA_VISIBLE_DEVICES": ""})
+    if run.returncode != 0:
+        raise AssertionError(f"the remat dry run failed:\n{run.stderr[-3000:]}")
+    dry = json.loads(run.stdout.strip().splitlines()[-1])
+    full, dots = dry["full"], dry["dots"]
+    ff, fd = full["hlocost"]["flops"], dots["hlocost"]["flops"]
+    pf, pd = full["memory"]["peak_bytes"], dots["memory"]["peak_bytes"]
+    log(f"[remat] dry run {arch} x {shape} x {mesh_kind} in "
+        f"{time.perf_counter() - t0:.1f} s (torch {torch.__version__}), per "
+        f"rank: FLOPs full {ff:.6e}, dots {fd:.6e} (less {ff - fd:.6e}; the "
+        f"{dry['saved_products']} saved products' forward FLOPs "
+        f"{dry['saved_flops']:.6e}); peak full {pf / 1e9:.3f} GB, dots "
+        f"{pd / 1e9:.3f} GB (more {(pd - pf) / 1e9:.3f}; saved bytes "
+        f"{dry['saved_bytes'] / 1e9:.3f} GB)")
+    if not (ff - fd == dry["saved_flops"] > 0 and pd > pf):
+        raise AssertionError("the dry run's dots count is not full's less "
+                             "the saved products")
+    return {"flops": {"full": ff, "dots": fd}, "peak_bytes": {
+        "full": pf, "dots": pd}, "saved_flops": dry["saved_flops"],
+        "saved_bytes": dry["saved_bytes"],
+        "saved_products": dry["saved_products"]}
+
+
+def phase_remat():
+    """The reference's remat_policy on the card (see REMAT): per cell and
+    configuration the losses of REMAT["steps"] donating steps, the
+    gradients of the first batch against the first configuration's bit for
+    bit (remat recomputes the same values, and "dots" hands the recompute
+    the forward's own products), peak memory, device and host ms a step,
+    the launches (equal between "full" and "dots"); then the dry run."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.optim import adamw
+
+    out = {}
+    for arch, policies in REMAT["cells"].items():
+        if arch == "qwen3-4b":
+            cfg = _config(arch, ((("attn",), TRAIN["depth"]),))
+            B, S = TRAIN["batch"], TRAIN["seq"]
+        else:
+            spec = OTHER_TRAIN[arch]
+            cfg, B, S = _config(arch, spec["groups"]), spec["batch"], spec["seq"]
+        data_cfg = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                              seed=SEED)
+        batches = [make_batch(data_cfg, i) for i in range(REMAT["steps"])]
+        runs = [remat_run(arch, cfg, B, S, p, batches) for p in policies]
+        want = adamw.tree_leaves(runs[0]["grads"])
+        for r in runs:
+            got = adamw.tree_leaves(r.pop("grads"))
+            same = sum(torch.equal(a, b) for a, b in zip(got, want))
+            worst = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            r.update(bitwise_leaves=same, leaves=len(want),
+                     max_abs_grad_diff=worst)
+            launched = {k: n for k, n in r["launches"].items() if n}
+            busy = r["trace"]["device_busy_ms_per_call"] \
+                if isinstance(r["trace"], dict) else r["trace"]
+            log(f"[remat] {arch} {cfg.n_layers} layers, {B} x {S} tokens, "
+                f"remat {r['policy']}: losses {r['losses']}; first batch's "
+                f"gradients {same} of {len(want)} leaves bit for bit against "
+                f"remat {runs[0]['policy']} (max abs diff {worst:.3e}); peak "
+                f"{r['peak_gb']:.2f} GB; device ms a step {r['device_ms']}, "
+                f"host ms {r['host_ms']}, profiled step device busy {busy}; "
+                f"launches {launched} | {card_line()}")
+            if same != len(want) or r["losses"] != runs[0]["losses"]:
+                raise AssertionError(f"{arch} remat {r['policy']}: the "
+                                     "gradients or losses differ from remat "
+                                     f"{runs[0]['policy']}'s")
+        by = {r["policy"]: r for r in runs}
+        if by["dots"]["launches"] != by["full"]["launches"]:
+            raise AssertionError(f"{arch}: launches under dots "
+                                 f"{by['dots']['launches']} differ from full's "
+                                 f"{by['full']['launches']}")
+        out[arch] = by
+    out["dryrun"] = remat_dryrun()
+    return out
+
 def phase_ep():
     """moe_mlp_ep over a one-rank NCCL group (an in-memory store, no
     network) against moe_mlp: one full-width MoE layer of each MoE arch,
@@ -2845,6 +3030,7 @@ def main() -> int:
     rows += phase_train_kernels()
     train = phase_train()
     dist_out = phase_dist()
+    remat_out = phase_remat()
     net = phase_net()
     # the main path's runs, each read with the counts set to 0 just before
     paths = {arch: s["launches"] for arch, s in serve.items()}
@@ -2860,6 +3046,12 @@ def main() -> int:
                 for scan in ("rglru_scan", "wkv6_scan")}
     paths["qwen3-4b dist train"] = dist_out["launches"]
     bodies["qwen3-4b dist train"] = {}  # no scan
+    for arch in REMAT["cells"]:
+        counts = remat_out[arch]["dots"]["launches"]
+        paths[f"{arch} train, remat dots"] = counts
+        bodies[f"{arch} train, remat dots"] = {
+            scan: {b: counts[f"{scan}.{b}"] for b in BODIES}
+            for scan in ("rglru_scan", "wkv6_scan")}
 
     kernels = []
     for name, (case, replaces) in HEADLINE.items():
@@ -2890,7 +3082,8 @@ def main() -> int:
     log("[summary] " + json.dumps({"model": model, "serve": serve,
                                    "serve_whisper": serve_whisper,
                                    "ep": ep, "train": train,
-                                   "dist": dist_out, "net": net,
+                                   "dist": dist_out, "remat": remat_out,
+                                   "net": net,
                                    "hmma_sass": sass,
                                    "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))

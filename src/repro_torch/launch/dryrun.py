@@ -14,6 +14,7 @@ this:
 
   1. builds the arch's Backbone with ``PartitionPlan(tp=tp_size(mesh))``
      (tp 1 for a full-DP arch), its sharder, per-layer gather and mesh,
+     and the settings' ``remat`` and ``remat_policy``,
   2. places the step's arguments on the mesh (nothing is allocated: their
      local shards are meta tensors),
   3. runs one train step, prefill or decode step under
@@ -110,6 +111,7 @@ def build_cell(arch: str, shape: ShapeConfig, mesh, *,
                   compute_dtype=torch.bfloat16,
                   param_dtype=torch.bfloat16 if serve else torch.float32,
                   remat=settings.remat and not serve,
+                  remat_policy=settings.remat_policy,
                   device="meta",
                   sharder=make_sharder(cfg, mesh, batch_sharded=B > 1,
                                        global_batch=B),
@@ -233,7 +235,10 @@ def main() -> None:
     ap.add_argument("--remat", type=int, default=1)
     ap.add_argument("--compress-grads", type=int, default=0)
     ap.add_argument("--moe-ep", type=int, default=1)
-    ap.add_argument("--remat-policy", default="full", choices=["full", "dots"])
+    ap.add_argument("--remat-policy", default="full", choices=["full", "dots"],
+                    help="with --remat 1, what the backward recomputes: the "
+                    "whole layer (full) or all but the products without "
+                    "batch dims (dots); the Backbone's remat_policy")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--tag", default="", help="suffix for result files")
     args = ap.parse_args()

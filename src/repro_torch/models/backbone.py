@@ -18,7 +18,10 @@ entry points:
 
 The repeat axis is a Python loop; with ``remat`` each layer of ``loss_fn``
 runs under ``torch.utils.checkpoint`` (non-reentrant), where the reference
-wraps its scan body in ``jax.checkpoint``. Attention and the two scans go
+wraps its scan body in ``jax.checkpoint``: ``remat_policy="full"``
+recomputes the whole layer in the backward, ``"dots"`` saves the products
+without batch dimensions and recomputes the rest
+(:mod:`repro_torch.models.remat`). Attention and the two scans go
 through :mod:`repro_torch.kernels.ops` (the Hopper kernels on the card, the
 plain versions on the CPU), or straight to the plain versions with
 ``kernel_impl="plain"``, which exists to hold the kernel path against them.
@@ -54,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops, ref
 
+from . import remat as remat_mod
 from . import rwkv6
 from .attention import flash_attention
 from .common import (apply_rope_table, dense_init, embed_init, resolve_device,
@@ -83,7 +87,8 @@ def _no_shard(x: torch.Tensor, name: str) -> torch.Tensor:
 class Backbone:
     def __init__(self, cfg: ModelConfig, plan: PartitionPlan = IDENTITY_PLAN,
                  *, compute_dtype=torch.bfloat16, param_dtype=torch.float32,
-                 remat: bool = True, device="cuda",
+                 remat: bool = True, remat_policy: str = "full",
+                 device="cuda",
                  kernel_impl: str = "kernel", moe_impl: str = "gspmd",
                  model_group=None, data_group=None,
                  sharder: Callable[[torch.Tensor, str], torch.Tensor]
@@ -107,7 +112,11 @@ class Backbone:
         each runs on every rank's local batch rows and heads (``local_map``).
         With the defaults none of this does anything. ``layer_scope()`` is a
         context entered around each layer (the dry run's cost counter reads
-        it)."""
+        it).
+
+        ``remat_policy``: ``"full"`` (each layer recomputed whole in the
+        backward) or ``"dots"`` (its products without batch dimensions
+        saved, the rest recomputed); read only with ``remat``."""
         plan.check(cfg)
         for kind in cfg.layer_kinds():
             if kind not in _KINDS:
@@ -117,6 +126,9 @@ class Backbone:
                              "'plain'")
         if moe_impl not in ("gspmd", "ep"):
             raise ValueError(f"moe_impl {moe_impl!r}: want 'gspmd' or 'ep'")
+        if remat_policy not in remat_mod.POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r}: want 'full' or "
+                             "'dots'")
         self.moe_impl = moe_impl
         if moe_impl == "ep" and mesh is not None and model_group is None:
             model_group = mesh.get_group("model")
@@ -140,6 +152,7 @@ class Backbone:
         self.compute_dtype = compute_dtype
         self.param_dtype = param_dtype
         self.remat = remat
+        self.remat_policy = remat_policy
         plain = kernel_impl == "plain"
         self._plain = plain
         self._rglru_scan = ref.rglru_scan_plain if plain else ops.rglru_scan
@@ -665,19 +678,23 @@ class Backbone:
                           enc_out):
         lp = self._layer_params(gp, r)
         aux = 0.0
+        last = len(pattern) - 1
         for si, kind in enumerate(pattern):
-            p = lp[f"s{si}"]
-            if kind in ("rec", "rwkv"):
-                x, a = self._recurrent_train(p, x, kind)
-            else:
-                cross = None
-                if kind == "dec":
-                    cross = (*self._cross_kv(p, enc_out),
-                             self._enc_positions())
-                x, _, _, a = self._layer_fwd(p, x, kind, positions, rope,
-                                             cross)
+            with (remat_mod.last_sublayer() if si == last
+                  else contextlib.nullcontext()):
+                x, a = self._train_sublayer(lp[f"s{si}"], x, kind, positions,
+                                            rope, enc_out)
             aux = aux + a
         return x, aux
+
+    def _train_sublayer(self, p, x, kind: str, positions, rope, enc_out):
+        if kind in ("rec", "rwkv"):
+            return self._recurrent_train(p, x, kind)
+        cross = None
+        if kind == "dec":
+            cross = (*self._cross_kv(p, enc_out), self._enc_positions())
+        x, _, _, a = self._layer_fwd(p, x, kind, positions, rope, cross)
+        return x, a
 
     def _groups(self, encoder: bool):
         """(index, group) of the encoder's groups, or of the others (the
@@ -688,15 +705,18 @@ class Backbone:
     def _run_layers(self, params, groups, x, positions, rope, enc_out,
                     remat: bool):
         """Every layer of ``groups`` over the sequence x; each under
-        ``torch.utils.checkpoint`` with ``remat``. Returns (x, summed aux)."""
+        ``torch.utils.checkpoint`` with ``remat``, by ``remat_policy``.
+        Returns (x, summed aux)."""
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        kw = ({"context_fn": remat_mod.context}
+              if self.remat_policy == "dots" else {})
         for gi, group in groups:
             gp = params[f"g{gi}"]
             for r in range(group.repeat):
                 args = (gp, r, group.pattern, x, positions, rope, enc_out)
                 if remat:
                     x, a = checkpoint(self._train_layer, *args,
-                                      use_reentrant=False)
+                                      use_reentrant=False, **kw)
                 else:
                     x, a = self._train_layer(*args)
                 aux = aux + a

@@ -88,6 +88,15 @@ class ModelConfig:
     def is_enc_dec(self) -> bool:
         return any("dec" in g.pattern or "enc" in g.pattern for g in self.groups)
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True iff no layer needs an unbounded-window attention KV cache."""
+        for g in self.groups:
+            for kind in g.pattern:
+                if kind in ("attn", "enc", "dec"):
+                    return False
+        return True
+
     def layer_kinds(self) -> List[str]:
         out: List[str] = []
         for g in self.groups:

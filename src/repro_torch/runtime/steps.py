@@ -32,8 +32,10 @@ class StepSettings:
     ``launch/train.py``): ZeRO-3 parameter shardings
     (``launch.shardings.param_shardings``), the per-layer gather
     (``make_param_gatherer``, the Backbone's ``param_gather``) and
-    ``moe_impl="ep"``. ``remat`` and ``remat_policy`` are read by the
-    ``Backbone`` (its ``remat`` argument), as in the reference."""
+    ``moe_impl="ep"``. ``remat`` and ``remat_policy`` are the ``Backbone``'s
+    arguments of those names; the dry run passes both on, as the
+    reference's does, and ``launch/train.py`` passes ``remat`` only (the
+    policy stays "full"), as the reference's does."""
 
     zero3: bool = True          # ZeRO-3 "data"-sharded parameters
     gather_weights: bool = True  # per-layer weight all-gather in the scan body

@@ -91,6 +91,16 @@ def test_shapes_and_configs_equal_the_reference():
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_derived_config_properties_equal_the_reference(arch):
+    cfg, jcfg = get_config(arch), j_get_config(arch)
+    for prop in ("n_layers", "hd", "is_enc_dec", "sub_quadratic"):
+        assert getattr(cfg, prop) == getattr(jcfg, prop), prop
+    assert cfg.layer_kinds() == jcfg.layer_kinds()
+    assert cfg.sub_quadratic == (arch in ("recurrentgemma-9b", "rwkv6-3b",
+                                          "mixtral-8x22b"))
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_step_suprema_and_release_points_equal_the_reference(arch):
     cfg, jcfg = get_config(arch), j_get_config(arch)
     for remat in (True, False):

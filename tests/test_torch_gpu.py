@@ -683,6 +683,43 @@ def test_model_grads_kernel_path_match_plain_path(cuda, dtype, remat):
             assert float((a - b).norm()) <= 2.0 ** -4 * float(b.norm())
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("arch,groups", [
+    ("qwen3-4b", (("attn",), 3)), ("recurrentgemma-9b", None),
+    ("rwkv6-3b", (("rwkv",), 2))])
+def test_remat_dots_equals_full_on_the_card(cuda, arch, groups, dtype):
+    """A reduced arch on the kernel path under remat "dots", "full" and
+    off, from one init: the loss and every gradient bit for bit (the
+    recompute gives the forward's values; "dots" hands it the forward's own
+    products), and the kernels' launches under "dots" equal to "full"'s (K1
+    and the scans' forwards run again in the recompute; K1b, K2b and K3b
+    once)."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.steps import value_and_grad
+    dt = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    over = {} if groups is None else {"groups": (LayerGroup(*groups),)}
+    cfg = reduced(get_config(arch), **over)
+    rng = np.random.default_rng(12)
+    toks = rng.integers(0, cfg.vocab, (2, 129), dtype=np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    mods = (fa, fd, fb, rglru, rglru_bwd, rwkv6, rwkv6_bwd)
+    runs = {}
+    for policy in ("off", "full", "dots"):
+        kw = (dict(remat=False) if policy == "off"
+              else dict(remat=True, remat_policy=policy))
+        bb = Backbone(cfg, compute_dtype=dt, device=cuda, **kw)
+        before = [m.launches for m in mods]
+        loss, grads = value_and_grad(bb, bb.init(3), batch)
+        torch.cuda.synchronize()
+        runs[policy] = (loss, tree_leaves(grads),
+                        [m.launches - n for m, n in zip(mods, before)])
+    assert runs["dots"][2] == runs["full"][2] != runs["off"][2]
+    for policy in ("full", "dots"):
+        assert torch.equal(runs[policy][0], runs["off"][0]), policy
+        assert all(torch.equal(a, b) for a, b in zip(
+            runs[policy][1], runs["off"][1])), policy
+
+
 # --------------------------------------------------------------------------- #
 # K2b (RG-LRU backward) and K3b (WKV backward) against their plain versions    #
 # --------------------------------------------------------------------------- #
