@@ -12,7 +12,9 @@ interface (no PyTorch headers, so a build takes seconds)::
 into ``build/kernels/`` at the root of the checkout, at first use. The file
 name carries a hash of the sources and flags, so a library built from other
 sources is never loaded. Nothing here runs at import: the CPU tests import
-every module.
+every module. With ``txtrace.enabled``, :func:`load` records the span
+``kernels.load`` (detail ``built`` or ``loaded``): the program's share of a
+process's set-up.
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Optional
+
+from repro_torch.obs import hostspans
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -107,10 +111,15 @@ def load() -> ctypes.CDLL:
     """The loaded library, built first if it is missing."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build()["path"])
+        span = hostspans.begin("kernels.load")
+        built = build()
+        lib = ctypes.CDLL(built["path"])
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
+        if span is not None:
+            span.detail = "built" if built["seconds"] else "loaded"
+        hostspans.end(span)
     return _lib
 
 

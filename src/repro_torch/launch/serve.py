@@ -12,6 +12,17 @@ archs do not fit one card at full depth). whisper-tiny stops at its first
 prefill with ``KeyError: 'enc_frames'``, as the reference's launcher does:
 ``Server`` prefills tokens only, and an encoder-decoder model is served by
 ``Backbone.prefill`` with the frames and then ``decode_step``.
+
+On the card the kernel library is loaded (built, in a checkout's first run)
+before the requests are served, and its seconds are printed apart. The
+summary gives the Server's own account (``Server.timing``): prefill ms a
+request, decode ms a step split into the token read and the host's issuing,
+and the mean wait from a request's first token to its second.
+``--trace PATH`` turns txtrace on (``obs.hostspans.enable``), runs the
+profiler over the served run, writes one Perfetto file to PATH (the
+profiler's trace with the txtrace sites on its clock,
+``hostspans.write_merged``) and prints the device's idle ms by the
+program's span (``hostspans.idle_by_span``).
 """
 from __future__ import annotations
 
@@ -23,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import Backbone, LayerGroup, get_config, reduced
+from repro_torch.obs import hostspans
 from repro_torch.runtime.serve_loop import Request, Server
 
 
@@ -37,7 +49,11 @@ def main() -> None:
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--depth", type=int, default=None)
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="trace the run and write a Perfetto file to PATH")
     args = ap.parse_args()
+    if args.trace:
+        hostspans.enable()
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -47,6 +63,12 @@ def main() -> None:
             LayerGroup(cfg.groups[0].pattern, args.depth),))
     bb = Backbone(cfg, compute_dtype=torch.float32, device=args.device)
     params = bb.init(0)
+    if bb.device.type == "cuda":
+        from repro_torch.kernels import build
+        t0 = time.monotonic()
+        build.load()
+        print(f"[serve] kernel library loaded in "
+              f"{time.monotonic() - t0:.2f}s")
     srv = Server(bb, params, slots=args.slots, ctx=args.ctx)
 
     rng = np.random.default_rng(0)
@@ -57,14 +79,26 @@ def main() -> None:
             for i in range(args.requests)]
     for r in reqs:
         srv.submit(r)
+    prof = hostspans.start_profiler() if args.trace else None
     t0 = time.monotonic()
     srv.run()
     dt = time.monotonic() - t0
+    if prof is not None:
+        print(hostspans.finish_profiler(prof, args.trace))
     done = sum(r.done.is_set() for r in reqs)
+    st, tm = srv.stats, srv.timing
     print(f"[serve] {cfg.name} on {bb.device}: {done}/{len(reqs)} requests, "
-          f"{srv.stats['tokens']} tokens in {dt:.2f}s "
-          f"({srv.stats['tokens']/max(dt,1e-9):.0f} tok/s incl. kernel "
-          f"build), {srv.stats['steps']} batch steps")
+          f"{st['tokens']} tokens in {dt:.2f}s "
+          f"({st['tokens']/max(dt,1e-9):.0f} tok/s), {st['steps']} batch "
+          f"steps")
+    steps = max(st["steps"], 1)
+    first_gap = tm["first_gap_s"] / max(sum(len(r.out) >= 2 for r in reqs), 1)
+    print(f"[serve] Server: prefill "
+          f"{tm['prefill_s'] / max(st['admitted'], 1) * 1e3:.2f} ms a "
+          f"request; decode {tm['decode_s'] / steps * 1e3:.2f} ms a step "
+          f"(read {tm['decode_read_s'] / steps * 1e3:.2f}, host "
+          f"{(tm['decode_s'] - tm['decode_read_s']) / steps * 1e3:.2f}); "
+          f"first token to second {first_gap * 1e3:.2f} ms a request")
     print("[serve] sample:", reqs[0].out)
 
 

@@ -21,10 +21,19 @@ sharded path. ``--mesh production`` (256 ranks, (data 16, model 16)) and
 
     torchrun --nnodes 32 --nproc-per-node 8 ... \\
         -m repro_torch.launch.train --arch qwen3-4b --mesh production
+
+The last line gives the Trainer's per-step medians of
+``obs.metrics.registry("train")``: data, commit and the host's gap outside
+the step and its reads. ``--trace PATH`` turns txtrace on, trains all but
+the last ``TRACE_STEPS`` steps, runs the profiler over those, writes one
+Perfetto file to PATH (the profiler's trace with the txtrace sites, the
+store's transactions among them, on its clock) and prints the device's idle
+ms by the program's span.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import tempfile
 
@@ -41,9 +50,13 @@ from repro_torch.launch.shardings import (effective_dp, full_dp_active,
 from repro_torch.models import (Backbone, PartitionPlan, get_config,
                                 reduced)
 from repro_torch.models.common import resolve_device
+from repro_torch.obs import hostspans
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.optim import adamw
 from repro_torch.runtime.steps import StepSettings
 from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+
+TRACE_STEPS = 3     # the steps --trace profiles: the last ones
 
 
 def make_mesh(kind: str, device: str):
@@ -83,7 +96,12 @@ def main() -> None:
     ap.add_argument("--zero3", type=int, default=0)
     ap.add_argument("--remat", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="trace the last steps and write a Perfetto file "
+                         "to PATH")
     args = ap.parse_args()
+    if args.trace:
+        hostspans.enable()
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -121,10 +139,26 @@ def main() -> None:
             param_shardings(bb, mesh, zero3=settings.zero3, full_dp=fdp),
             mesh))
     try:
-        trainer.run(trainer.init_or_restore())
+        state = trainer.init_or_restore()
+        if args.trace:
+            # the steps before the traced ones, then the traced ones
+            tcfg = trainer.tcfg
+            split = max(trainer.start_step, args.steps - TRACE_STEPS)
+            trainer.tcfg = dataclasses.replace(tcfg, total_steps=split)
+            state = trainer.run(state)
+            trainer.start_step, trainer.tcfg = split, tcfg
+            prof = hostspans.start_profiler()
+            trainer.run(state)
+            print(hostspans.finish_profiler(prof, args.trace))
+        else:
+            trainer.run(state)
         log = trainer.metrics_log
         print(f"[launch] done: loss {log[0]['loss']:.4f} -> "
               f"{log[-1]['loss']:.4f}; checkpoints {trainer.async_ckpt.saved}")
+        hists = obs_metrics.registry("train").snapshot()["histograms"]
+        print("[launch] per step, median ms: " + ", ".join(
+            f"{name[:-3]} {hists[name]['p50_us'] / 1e3:.3f}"
+            for name in ("data_us", "commit_us", "gap_us") if name in hists))
     finally:
         trainer.shutdown()
         dist.destroy_process_group()

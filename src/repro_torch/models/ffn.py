@@ -10,7 +10,10 @@ gate values. Assignments past an expert's capacity ``C`` are dropped, as
 the reference drops them; the router keeps the Switch load-balancing loss.
 Every shape is fixed by (T, E, K, C), so the layer never syncs with the
 host. :mod:`repro_torch.models.moe_ep` builds its expert-parallel form from
-the same steps.
+the same steps. With ``txtrace.enabled``, :func:`moe_mlp` records its steps
+as the spans ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
+``moe.combine`` (:mod:`repro_torch.obs.hostspans`; detail: the tokens T and
+the capacity rows E·C).
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.obs import hostspans, txtrace
 
 from .remat import residual_product
 
@@ -156,14 +161,26 @@ def moe_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
     xt = x.reshape(T, D)
-    probs, gate_vals, gate_idx = route(xt, params["router"], K)
     C = moe_capacity(T, E, K, cfg.capacity_factor)
+    traced = txtrace.enabled
+    if traced:
+        span = hostspans.begin("moe.route", f"T={T} EC={E * C}")
+    probs, gate_vals, gate_idx = route(xt, params["router"], K)
+    if traced:
+        span = hostspans.then(span, "moe.dispatch")
     flat_idx = gate_idx.reshape(-1)                              # [T*K]
     pos = slot_positions(flat_idx, E)
     keep = pos < C
     safe_pos = torch.where(keep, pos, 0)
     buf = shard(dispatch(xt, keep, flat_idx, safe_pos, (E, C, D)), "moe_buf")
+    if traced:
+        span = hostspans.then(span, "moe.experts")
     out_buf = shard(expert_ffn(buf, params["w_gate"], params["w_up"],
                                params["w_down"]), "moe_buf")
+    if traced:
+        span = hostspans.then(span, "moe.combine")
     y = combine(out_buf, keep, flat_idx, safe_pos, gate_vals.reshape(-1), T)
-    return y.reshape(B, S, D), aux_loss(probs, gate_idx, E)
+    aux = aux_loss(probs, gate_idx, E)
+    if traced:
+        hostspans.end(span)
+    return y.reshape(B, S, D), aux

@@ -12,6 +12,17 @@ of every slot (ROADMAP.md records this). Requests of equal prompt length
 admitted together are served exactly.
 
 Each step reads the argmaxed tokens to the host once (one ``.tolist()``).
+
+``Server.timing`` is the Server's own always-on account, in host seconds:
+``prefill_s`` and ``decode_s`` (each ends in a read of tokens to the host,
+so the device work is inside them), ``decode_read_s`` (the part of
+``decode_s`` blocked in the step's token read) and ``first_gap_s`` (summed
+over requests, from the read of a request's first token to the read of its
+second: its wait behind the later admissions of its wave). With
+``txtrace.enabled`` the Server also records the spans ``serve.queue`` (a
+request's submit to the start of its prefill), ``serve.admit``,
+``serve.prefill``, ``serve.first_token_read``, ``serve.merge``,
+``serve.decode_step`` and ``serve.decode_read`` (:mod:`repro_torch.obs.hostspans`).
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.backbone import Backbone
+from repro_torch.obs import hostspans, txtrace
 
 
 @dataclass
@@ -34,6 +46,7 @@ class Request:
     max_new: int
     out: List[int] = field(default_factory=list)
     done: threading.Event = field(default_factory=threading.Event)
+    queued_at: float = 0.0        # txtrace's clock at submit, when tracing
 
 
 class Server:
@@ -45,11 +58,12 @@ class Server:
         self.ctx = ctx
         self._queue: "queue.Queue[Request]" = queue.Queue()
         self.stats = {"steps": 0, "tokens": 0, "admitted": 0}
-        # host seconds in prefill and decode; each ends in a read of tokens
-        # to the host, so the device work is inside them
-        self.timing = {"prefill_s": 0.0, "decode_s": 0.0}
+        self.timing = {"prefill_s": 0.0, "decode_s": 0.0,
+                       "decode_read_s": 0.0, "first_gap_s": 0.0}
 
     def submit(self, req: Request) -> None:
+        if txtrace.enabled:
+            req.queued_at = time.monotonic()
         self._queue.put(req)
 
     # ------------------------------------------------------------------ #
@@ -60,9 +74,12 @@ class Server:
         active: List[Optional[Request]] = [None] * self.slots
         cache = None
         next_tok = torch.zeros((self.slots, 1), dtype=torch.int32, device=dev)
+        # the host clock at each slot's first token read, until its second
+        first_read: List[Optional[float]] = [None] * self.slots
 
         def admit() -> None:
             nonlocal cache
+            span = None
             for i in range(self.slots):
                 if active[i] is not None:
                     continue
@@ -70,20 +87,31 @@ class Server:
                     req = self._queue.get_nowait()
                 except queue.Empty:
                     break
+                if txtrace.enabled:
+                    if span is None:
+                        span = hostspans.begin("serve.admit")
+                    if req.queued_at:
+                        hostspans.emit("serve.queue", req.queued_at,
+                                       detail=str(len(req.prompt)))
                 # per-request prefill in a batch-1 slice, then merge caches
                 t0 = time.perf_counter()
-                tokens = torch.as_tensor(req.prompt[None, :], device=dev)
-                logits, c1 = bb.prefill(self.params, {"tokens": tokens},
-                                        self.ctx)
-                tok = int(torch.argmax(logits[0, -1, :vocab]))
-                self.timing["prefill_s"] += time.perf_counter() - t0
+                with hostspans.span("serve.prefill", str(len(req.prompt))):
+                    tokens = torch.as_tensor(req.prompt[None, :], device=dev)
+                    logits, c1 = bb.prefill(self.params, {"tokens": tokens},
+                                            self.ctx)
+                with hostspans.span("serve.first_token_read"):
+                    tok = int(torch.argmax(logits[0, -1, :vocab]))
+                first_read[i] = time.perf_counter()
+                self.timing["prefill_s"] += first_read[i] - t0
                 req.out.append(tok)
-                if cache is None:
-                    cache = bb.init_cache(self.slots, self.ctx)
-                _merge_slot(cache, c1, i)
-                next_tok[i, 0] = tok
+                with hostspans.span("serve.merge"):
+                    if cache is None:
+                        cache = bb.init_cache(self.slots, self.ctx)
+                    _merge_slot(cache, c1, i)
+                    next_tok[i, 0] = tok
                 active[i] = req
                 self.stats["admitted"] += 1
+            hostspans.end(span)
 
         for _ in range(max_steps):
             admit()
@@ -92,14 +120,23 @@ class Server:
                     return
                 continue
             t0 = time.perf_counter()
+            span = hostspans.begin("serve.decode_step")
             logits, cache = bb.decode_step(self.params, cache, next_tok)
             toks = torch.argmax(logits[:, -1, :vocab], dim=-1)
-            host_toks = toks.tolist()
-            self.timing["decode_s"] += time.perf_counter() - t0
+            t_read = time.perf_counter()
+            with hostspans.span("serve.decode_read"):
+                host_toks = toks.tolist()
+            t1 = time.perf_counter()
+            hostspans.end(span)
+            self.timing["decode_s"] += t1 - t0
+            self.timing["decode_read_s"] += t1 - t_read
             self.stats["steps"] += 1
             for i, req in enumerate(active):
                 if req is None:
                     continue
+                if first_read[i] is not None:
+                    self.timing["first_gap_s"] += t1 - first_read[i]
+                    first_read[i] = None
                 req.out.append(host_toks[i])
                 self.stats["tokens"] += 1
                 if len(req.out) >= req.max_new:

@@ -33,6 +33,20 @@ reader in another thread copies through ``snapshot(..., host=True)``, which
 refuses a state the next step has begun to overwrite. Each entry of
 ``metrics_log`` also holds the step's ``grad_norm`` (the reference logs
 step, loss and dt).
+
+The operator's per-step view is always on: each step of :meth:`Trainer.run`
+records three histograms in ``obs.metrics.registry("train")`` (read by
+``metrics.dump()`` and, where ``metrics.install_sigusr2()`` was called, on
+SIGUSR2), in microseconds: ``data_us`` (the pipeline's ``next`` and the
+batch's placement), ``commit_us`` (the store's commit of the step) and
+``gap_us`` (the step's host time in ``run`` outside the step function's
+call and the loss and ``grad_norm`` reads; the first step of a call also
+carries the pipeline's set-up, the last the checkpointer's drain). With
+``txtrace.enabled`` the Trainer also records the spans ``train.run_setup``,
+``train.data``, ``train.step`` (the step function's call: host dispatch),
+``train.read`` (the host waiting on the card for the loss and
+``grad_norm``), ``train.log``, ``train.commit`` (the core's transaction
+spans nest under it) and ``train.drain`` (:mod:`repro_torch.obs.hostspans`).
 """
 from __future__ import annotations
 
@@ -53,6 +67,8 @@ from repro_torch.launch.shardings import (batch_shardings, distribute,
                                           tree_distribute)
 from repro_torch.models.backbone import Backbone
 from repro_torch.models.config import ShapeConfig
+from repro_torch.obs import hostspans
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.optim import adamw
 from repro_torch.runtime.steps import (StepSettings, init_train_state,
                                        make_train_step)
@@ -174,28 +190,45 @@ class Trainer:
         keeps to them reads the last step's values, never the ones it
         passed in. A copy of the initial state must be taken before the
         call (``to_host``)."""
-        pipe = Pipeline(self.data_cfg, start_step=self.start_step)
+        reg = obs_metrics.registry("train")
+        data_h, commit_h, gap_h = (reg.histogram(name) for name in
+                                   ("data_us", "commit_us", "gap_us"))
+        t_from = time.monotonic()   # host time not yet charged to a step
+        gap = None                  # the last step's gap, until the drain
+        with hostspans.span("train.run_setup"):
+            pipe = Pipeline(self.data_cfg, start_step=self.start_step)
         for step in range(self.start_step, self.tcfg.total_steps):
-            batch = self._place(next(pipe))
+            t_data = time.monotonic()
+            with hostspans.span("train.data"):
+                batch = self._place(next(pipe))
             t0 = time.monotonic()
             if crash_at is not None and step == crash_at:
                 raise RuntimeError(f"injected crash at step {step}")
-            state, metrics = self._step(state, batch)
+            with hostspans.span("train.step"):
+                state, metrics = self._step(state, batch)
+            read = hostspans.begin("train.read")
             loss = float(_full(metrics["loss"]))
             dt = time.monotonic() - t0
-            if self.straggler.observe(step=step, dt=dt,
-                                      z_thresh=self.tcfg.straggler_zscore,
-                                      warmup=self.tcfg.straggler_warmup):
-                ev = self.straggler.events[-1]
-                print(f"[straggler] step {step}: {dt*1e3:.1f}ms "
-                      f"(z={ev['z']:.1f}) — mitigation hook invoked")
-                if self.straggler_hook:
-                    self.straggler_hook(ev)
-            self.metrics_log.append({"step": step, "loss": loss, "dt": dt,
-                                     "grad_norm": float(_full(
-                                         metrics["grad_norm"]))})
+            grad_norm = float(_full(metrics["grad_norm"]))
+            t_read = time.monotonic()
+            hostspans.end(read)
+            with hostspans.span("train.log"):
+                if self.straggler.observe(
+                        step=step, dt=dt, z_thresh=self.tcfg.straggler_zscore,
+                        warmup=self.tcfg.straggler_warmup):
+                    ev = self.straggler.events[-1]
+                    print(f"[straggler] step {step}: {dt*1e3:.1f}ms "
+                          f"(z={ev['z']:.1f}) — mitigation hook invoked")
+                    if self.straggler_hook:
+                        self.straggler_hook(ev)
+                self.metrics_log.append({"step": step, "loss": loss,
+                                         "dt": dt, "grad_norm": grad_norm})
             # control-plane commit: one write txn over (params, opt, cursor)
-            self.store.commit_step(state["params"], state["opt"], step + 1)
+            t_commit = time.monotonic()
+            with hostspans.span("train.commit"):
+                self.store.commit_step(state["params"], state["opt"],
+                                       step + 1)
+            t_end = time.monotonic()
             if (step + 1) % self.tcfg.ckpt_every == 0:
                 # irrevocable read-only txn -> consistent async snapshot;
                 # copied to the host NOW (the copy-buffer copy): the next
@@ -207,7 +240,17 @@ class Trainer:
             if (step + 1) % self.tcfg.log_every == 0:
                 print(f"[train] step {step+1}: loss={loss:.4f} "
                       f"({dt*1e3:.0f}ms/step)")
-        self.async_ckpt.drain()
+            data_h.record((t0 - t_data) * 1e6)
+            commit_h.record((t_end - t_commit) * 1e6)
+            if gap is not None:
+                gap_h.record(gap * 1e6)
+            t_now = time.monotonic()
+            gap = t_now - t_from - (t_read - t0)
+            t_from = t_now
+        with hostspans.span("train.drain"):
+            self.async_ckpt.drain()
+        if gap is not None:
+            gap_h.record((gap + time.monotonic() - t_from) * 1e6)
         return state
 
     def _place(self, batch: Dict[str, Any]) -> Dict[str, Any]:
