@@ -36,7 +36,14 @@ Phases; each one that fails raises, and the process exits non-zero:
    against their plain versions, two runs bit for bit, each of their
    launches timed at the training shapes (torch.profiler): K2b's maps,
    carry, rescan and da_log sum, K3b's chunk states, chunk cotangents,
-   walk (dv inside it) and du sum.
+   walk (dv inside it) and du sum. The MoE layer's grouped expert kernel
+   (moe_gemm: gate-up, then down) at mixtral's prefill strata 945 / 1500 /
+   2381 and a 256-slot decode, and at qwen3-moe's 512-token prefill and
+   8-slot decode (MOE_GEMM_CASES), each launch against its plain version,
+   timed beside the capacity path's bmm products on the same tokens and
+   beside torch._grouped_mm on the same rows; the no-grad MoE layer run
+   under set_sync_debug_mode("error") and its device launches a call
+   against the capacity path's (MOE_PATH_CASES).
 4. Each served arch at full width and reduced depth (see MODEL_CHECKS: 2
    layers, recurrentgemma-9b one (rec, rec, local) group and gemma2-2b one
    (local, attn) group, each with prompts past its window): in fp32, decode
@@ -55,7 +62,9 @@ Phases; each one that fails raises, and the process exits non-zero:
    synchronised waves of 16 requests. Every launch counter is set to 0 just
    before the run and read just after: each kernel must have launched
    exactly (its layers) x (its calls) times: flash_fwd once a request
-   (prefill), flash_decode once a decode step, the scans once each, the
+   (prefill), flash_decode once a decode step, the MoE expert kernel twice
+   a MoE layer call, every such call on the grouped path, the scans once
+   each, the
    prefills through the scans' chunked bodies and the decode steps through
    their sequential bodies (each body counts its own launches), no
    backward. The first tokens must equal a direct prefill's; a
@@ -139,9 +148,9 @@ Phases; each one that fails raises, and the process exits non-zero:
    published by a write transaction and read back by an irrevocable
    read-only one, bit for bit, with the commit and snapshot seconds and
    GB/s; neither server among the card's compute apps. No kernel runs.
-9. Print the kernels line (seven kernels: flash_fwd, flash_decode,
-   rglru_scan, wkv6_scan, flash_bwd, rglru_bwd, wkv6_bwd), the card line
-   and the result line.
+9. Print the kernels line (eight kernels: flash_fwd, flash_decode,
+   rglru_scan, wkv6_scan, flash_bwd, rglru_bwd, wkv6_bwd, moe_gemm), the
+   card line and the result line.
 
 It exits 2 without a CUDA device, and fails where the repo's sources are
 absent.
@@ -1162,33 +1171,43 @@ def _counters():
     """Each kernel's wrapper module, whose ``launches`` (and, for the scans'
     forwards, ``body_launches``) count its launches."""
     from repro_torch.kernels import (flash_attention, flash_bwd, flash_decode,
-                                     rglru, rglru_bwd, rwkv6, rwkv6_bwd)
+                                     moe_gemm, rglru, rglru_bwd, rwkv6,
+                                     rwkv6_bwd)
     return {"flash_fwd": flash_attention, "flash_decode": flash_decode,
             "rglru_scan": rglru, "wkv6_scan": rwkv6, "flash_bwd": flash_bwd,
-            "rglru_bwd": rglru_bwd, "wkv6_bwd": rwkv6_bwd}
+            "rglru_bwd": rglru_bwd, "wkv6_bwd": rwkv6_bwd,
+            "moe_gemm": moe_gemm}
 
 
 def _counts():
-    """Every count: each kernel's launches, K1b's passes (``flash_bwd.<pass>``)
-    and the scans' forward bodies (``<scan>.<body>``)."""
-    from repro_torch.kernels import flash_bwd
+    """Every count: each kernel's launches, K1b's passes (``flash_bwd.<pass>``),
+    the MoE expert kernel's entries (``moe_gemm.<entry>``), the scans'
+    forward bodies (``<scan>.<body>``) and the MoE layer's calls by path
+    (``moe_mlp.<path>``)."""
+    from repro_torch.kernels import flash_bwd, moe_gemm
+    from repro_torch.models import ffn
     out = {}
     for name, mod in _counters().items():
         out[name] = mod.launches
         for body, n in getattr(mod, "body_launches", {}).items():
             out[f"{name}.{body}"] = n
     out.update({f"flash_bwd.{k}": n for k, n in flash_bwd.kernel_launches.items()})
+    out.update({f"moe_gemm.{k}": n for k, n in moe_gemm.kernel_launches.items()})
+    out.update({f"moe_mlp.{k}": n for k, n in ffn.path_calls.items()})
     return out
 
 
 def _reset_counts():
-    from repro_torch.kernels import flash_bwd
+    from repro_torch.kernels import flash_bwd, moe_gemm
+    from repro_torch.models import ffn
     for mod in _counters().values():
         mod.launches = 0
         for body in getattr(mod, "body_launches", {}):
             mod.body_launches[body] = 0
-    for k in flash_bwd.kernel_launches:
-        flash_bwd.kernel_launches[k] = 0
+    for counts in (flash_bwd.kernel_launches, moe_gemm.kernel_launches,
+                   ffn.path_calls):
+        for k in counts:
+            counts[k] = 0
 
 
 def phase_serve(arch):
@@ -1235,6 +1254,10 @@ def phase_serve(arch):
     launches = {name: mod.launches for name, mod in counters.items()}
     bodies = {name: dict(mod.body_launches) for name, mod in counters.items()
               if hasattr(mod, "body_launches")}
+    every = _counts()
+    launches.update({k: n for k, n in every.items()
+                     if k.startswith("moe_gemm.")})
+    paths = {k[8:]: n for k, n in every.items() if k.startswith("moe_mlp.")}
     peak = torch.cuda.max_memory_allocated()
 
     steps = srv.stats["steps"]
@@ -1248,12 +1271,14 @@ def phase_serve(arch):
                              f"{waves * (spec['max_new'] - 1)}")
     kinds = cfg.layer_kinds()
     n_attn = sum(k in ("attn", "local") for k in kinds)
+    n_moe = len(kinds) if cfg.ffn_kind == "moe" else 0
     # kernel -> (layers that run it, calls of each layer, how they count)
     req, both = spec["requests"], spec["requests"] + steps
     expect = {"flash_fwd": (n_attn, req, f"{req} requests"),
               "flash_decode": (n_attn, steps, f"{steps} decode steps"),
               "rglru_scan": (kinds.count("rec"), both, f"({req} + {steps})"),
               "wkv6_scan": (kinds.count("rwkv"), both, f"({req} + {steps})"),
+              "moe_gemm": (2 * n_moe, both, f"({req} + {steps})"),
               "flash_bwd": (0, 0, "no backward in serving"),
               "rglru_bwd": (0, 0, "no backward in serving"),
               "wkv6_bwd": (0, 0, "no backward in serving")}
@@ -1261,6 +1286,10 @@ def phase_serve(arch):
         if launches[name] != n * calls:
             raise AssertionError(f"{arch}: {name} launched {launches[name]} "
                                  f"times on the main path, want {n} x {why}")
+    # serving takes no gradient: every MoE layer call on the grouped path
+    if paths != {"grouped": n_moe * both, "capacity": 0}:
+        raise AssertionError(f"{arch}: moe_mlp calls by path {paths}, want "
+                             f"{n_moe * both} grouped")
     # the scans: every prefill through the chunked body, every decode step
     # through the sequential one
     for name, n in (("rglru_scan", kinds.count("rec")),
@@ -1281,7 +1310,7 @@ def phase_serve(arch):
     out = {
         "arch": arch, "requests": len(reqs), "prompt_len": spec["prompt_len"],
         "decode_steps": steps, "launches": launches,
-        "body_launches": bodies,
+        "body_launches": bodies, "moe_mlp_calls": paths,
         "prefill_ms_per_request": srv.timing["prefill_s"] / len(reqs) * 1e3,
         "decode_ms_per_step": srv.timing["decode_s"] / steps * 1e3,
         "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
@@ -1495,9 +1524,11 @@ def profile_calls(label, fn, calls=3):
     return r
 
 
-# the MoE layer's steps in repro_torch.models.ffn that the traces time
+# the MoE layer's steps in repro_torch.models.ffn that the traces time: the
+# capacity path's and the grouped path's
 MOE_STEPS = ("route", "slot_positions", "dispatch", "expert_ffn", "combine",
-             "aux_loss")
+             "grouped_rows", "dispatch_rows", "grouped_experts",
+             "combine_rows", "aux_loss")
 
 
 class moe_spans:
@@ -1506,7 +1537,9 @@ class moe_spans:
     ``torch.profiler.record_function`` range, whose device time
     profile_calls sums: the router (route: the fp32 product, softmax and
     top-k), the positions, the dispatch scatter, the expert GEMMs
-    (expert_ffn), the combine and the aux loss."""
+    (expert_ffn), the combine and the aux loss; on the grouped path the
+    rows (grouped_rows), the compact dispatch (dispatch_rows), the grouped
+    kernel (grouped_experts) and its combine (combine_rows)."""
 
     def __enter__(self):
         from repro_torch.models import backbone, ffn
@@ -1579,11 +1612,16 @@ def _train_want(bb, batch, seq, runs, fwd):
                                bb.compute_dtype,
                                sms=flash_bwd.device_sms(DEVICE)).splits > 1
                 for sq, skv in calls) * runs
+    # training takes gradients: every MoE layer call on the capacity path,
+    # the grouped expert kernel never
+    moe = len(kinds) * runs if bb.cfg.ffn_kind == "moe" else 0
     want = {"flash_fwd": attn * fwd, "flash_decode": 0, "flash_bwd": attn,
             "flash_bwd.delta": attn, "flash_bwd.dkdv": attn,
             "flash_bwd.dq": attn, "flash_bwd.reduce": split,
             "rglru_scan": rec * fwd, "rglru_bwd": rec,
-            "wkv6_scan": rwk * fwd, "wkv6_bwd": rwk}
+            "wkv6_scan": rwk * fwd, "wkv6_bwd": rwk,
+            "moe_gemm": 0, "moe_gemm.gate_up": 0, "moe_gemm.down": 0,
+            "moe_mlp.grouped": 0, "moe_mlp.capacity": moe * fwd}
     planned = {"rglru_scan": (rec * fwd, rglru.plan(batch, seq, bb.W,
                                                     bb.compute_dtype).body),
                "wkv6_scan": (rwk * fwd, rwkv6.plan(
@@ -2679,6 +2717,219 @@ def phase_ep():
     return out
 
 
+# The grouped expert kernel (csrc/moe_gemm.cu): (case, arch, tokens T, the
+# capacity factor of the capacity path it stands beside). mixtral at the
+# serving cell's prompt strata (945 / 1500 / 2381, capacity factor 4.0:
+# C = T, nothing drops) and a 256-slot decode; qwen3-moe at its config's
+# 1.25, a 512-token prefill and an 8-slot decode.
+MOE_GEMM_CASES = [
+    ("mixtral_prefill_945", "mixtral-8x22b", 945, 4.0),
+    ("mixtral_prefill_1500", "mixtral-8x22b", 1500, 4.0),
+    ("mixtral_prefill_2381", "mixtral-8x22b", 2381, 4.0),
+    ("mixtral_decode_256", "mixtral-8x22b", 256, 4.0),
+    ("qwen3moe_prefill_512", "qwen3-moe-235b-a22b", 512, 1.25),
+    ("qwen3moe_decode_8", "qwen3-moe-235b-a22b", 8, 1.25),
+]
+# the cases whose no-grad moe_mlp is run under set_sync_debug_mode("error")
+# and whose device launches a call are counted on both paths
+MOE_PATH_CASES = ("mixtral_prefill_945", "mixtral_decode_256",
+                  "qwen3moe_decode_8")
+
+
+def device_launches(fn, calls=3):
+    """Kernels, copies and fills on the card per call of ``fn``
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+            for e in prof.events())
+    return n / calls
+
+
+def grouped_mm_yardstick(buf, ends, wg, wu, wd, want):
+    """PyTorch's own grouped GEMM (``torch._grouped_mm``, which the port
+    never calls) over the same compact rows and each expert's end offset:
+    three products (gate, up, down) with SiLU and the product between them
+    in bf16, and two, with gate and up in one [E, D, 2 Fe] weight made
+    beforehand and not timed. Each version's ms and its largest difference
+    from the kernel's output ``want`` [routed rows, D]; the error instead
+    where this torch has no such operator for these tensors."""
+    import torch.nn.functional as F
+
+    offs = ends.to(torch.int32)
+    wgu = torch.cat((wg, wu), dim=-1)
+
+    def three():
+        g = torch._grouped_mm(buf, wg, offs=offs)
+        u = torch._grouped_mm(buf, wu, offs=offs)
+        return torch._grouped_mm(F.silu(g) * u, wd, offs=offs)
+
+    def two():
+        g, u = torch._grouped_mm(buf, wgu, offs=offs).chunk(2, dim=-1)
+        return torch._grouped_mm(F.silu(g) * u, wd, offs=offs)
+    out = {}
+    try:
+        for name, fn in (("three", three), ("two", two)):
+            got = fn()[:want.shape[0]].float()
+            out[name] = {"ms": time_ms(fn), "err_vs_kernel":
+                         float((got - want.float()).abs().max())}
+            del got
+    except (AttributeError, RuntimeError) as e:
+        out["unavailable"] = f"{type(e).__name__}: {e}"
+    del wgu
+    return out
+
+
+def moe_gemm_case(name, arch, T, cf, leaves):
+    """One case of the grouped expert kernel at the arch's full widths:
+    tokens routed by a router at the init scale, dispatched into the compact
+    buffer as the MoE layer's grouped path does; each launch against its
+    plain version on the same input (the bf16 limit), both launches timed
+    beside the plain version, the capacity path's three bmm products and
+    SiLU over its [E, C, D] buffer on the same tokens (the path the kernel
+    replaces when no gradient is taken), PyTorch's grouped GEMM on the same
+    rows (grouped_mm_yardstick) and the bound: the routed rows'
+    operations (2 x 3 D Fe a row) at the bf16 peak, or every byte once (the
+    weights of the experts that have rows, the buffer, h written and read,
+    the output) at HBM's rate."""
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import ffn, get_config
+
+    cfg = dataclasses.replace(get_config(arch), capacity_factor=cf)
+    D, E, K, Fe = cfg.d_model, cfg.n_experts, cfg.top_k, cfg.moe_d_ff
+    g = _gen(800 + T)
+    x = torch.randn((T, D), generator=g, device=DEVICE).to(torch.bfloat16)
+    wg, wu, wd, router = (leaves[k] for k in ("w_gate", "w_up", "w_down",
+                                               "router"))
+    C = ffn.moe_capacity(T, E, K, cf)
+    _, _, idx = ffn.route(x, router, K)
+    flat = idx.reshape(-1)
+    keep, rows, ends = ffn.grouped_rows(flat, E, C)
+    buf = ffn.dispatch_rows(x, rows)
+    n = int(ends[-1])
+    h = mg.moe_gate_up(buf, ends, wg, wu)
+    out = mg.moe_down(h, ends, wd)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[torch.bfloat16]
+    errs = {}
+    for step, got, want in (
+            ("gate_up", h, ref.moe_gate_up_plain(buf, ends, wg, wu)),
+            ("down", out, ref.moe_down_plain(h, ends, wd))):
+        err = (got[:n].float() - want[:n].float()).abs()
+        errs[step] = float(err.max())
+        if not bool((err <= atol + rtol * want[:n].float().abs()).all()):
+            raise AssertionError(f"moe_gemm {name} {step}: kernel disagrees "
+                                 f"with the plain version, max abs err "
+                                 f"{errs[step]} (atol {atol}, rtol {rtol})")
+        del want, err
+    ms = time_ms(lambda: ops.moe_experts(buf, ends, wg, wu, wd))
+    gate_up_ms = time_ms(lambda: mg.moe_gate_up(buf, ends, wg, wu))
+    down_ms = time_ms(lambda: mg.moe_down(h, ends, wd))
+    plain_ms = time_ms(lambda: ref.moe_experts_plain(buf, ends, wg, wu, wd),
+                       iters=2, warmup=1)
+    safe = torch.where(keep, ffn.slot_positions(flat, E), 0)
+    cap_buf = ffn.dispatch(x, keep, flat, safe, (E, C, D))
+    library_ms = time_ms(lambda: ffn.expert_ffn(cap_buf, wg, wu, wd))
+    del cap_buf
+    grouped_mm = grouped_mm_yardstick(buf, ends, wg, wu, wd, out[:n])
+    used = int((torch.diff(ends, prepend=ends.new_zeros(1)) > 0).sum())
+    flops = 2.0 * 3 * D * Fe * n
+    nbytes = 2.0 * (3 * used * D * Fe + buf.numel() + 2 * h.numel()
+                    + out.numel())
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.bfloat16], nbytes / PEAK_BYTES
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    row = dict(kernel="moe_gemm", case=name, dtype="bfloat16",
+               shape=[T, K, E, D, Fe], capacity_factor=cf, routed_rows=n,
+               capacity_rows=E * C, experts_with_rows=used,
+               max_abs_err=max(errs.values()), errs=errs, atol=atol,
+               rtol=rtol, ms=ms, gate_up_ms=gate_up_ms, down_ms=down_ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               grouped_mm=grouped_mm, bound_ms=bound_ms,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               tflops=flops / ms / 1e9)
+    log(f"[kernel] moe_gemm {name:>22} bfloat16 err {row['max_abs_err']:.3e} "
+        f"kernel {ms:.4f} ms (gate-up {gate_up_ms:.4f}, down {down_ms:.4f}; "
+        f"{row['tflops']:.1f} TFLOP/s over {n} routed rows) plain "
+        f"{plain_ms:.4f} ms capacity bmm {library_ms:.4f} ms ({E * C} rows) "
+        f"torch._grouped_mm {json.dumps(grouped_mm)} "
+        f"bound {bound_ms:.4f} ms ({row['bound_by']})")
+    del buf, h, out
+    return row
+
+
+def moe_path_case(name, arch, T, cf, leaves):
+    """The no-grad moe_mlp at the arch's full widths on T tokens: once under
+    torch.cuda.set_sync_debug_mode("error"), which raises at any op that
+    waits for the card; then its device launches a call on the grouped path
+    against the capacity path's on the same input (the experts requiring
+    grad)."""
+    from repro_torch.models import ffn, get_config
+
+    cfg = dataclasses.replace(get_config(arch), capacity_factor=cf)
+    x = torch.randn((1, T, cfg.d_model), generator=_gen(900 + T),
+                    device=DEVICE).to(torch.bfloat16)
+    with torch.no_grad():
+        ffn.moe_mlp(leaves, x, cfg)
+        torch.cuda.synchronize()
+        calls = dict(ffn.path_calls)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ffn.moe_mlp(leaves, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if ffn.path_calls["grouped"] != calls["grouped"] + 1:
+            raise AssertionError(f"{name}: the no-grad call did not take the "
+                                 "grouped path")
+        grouped = device_launches(lambda: ffn.moe_mlp(leaves, x, cfg))
+    graded = {k: v.detach().requires_grad_(k != "router")
+              for k, v in leaves.items()}
+    capacity = device_launches(lambda: ffn.moe_mlp(graded, x, cfg))
+    del graded
+    log(f"[moe] {name}: the no-grad moe_mlp ran under set_sync_debug_mode"
+        f"(\"error\") without a host sync; device launches a call: grouped "
+        f"{grouped:g}, capacity {capacity:g}")
+    if grouped > capacity:
+        raise AssertionError(f"{name}: the grouped path launches {grouped} "
+                             f"times a call, the capacity path {capacity}")
+    return {"no_host_sync": True, "launches_grouped": grouped,
+            "launches_capacity": capacity}
+
+
+def phase_moe_gemm():
+    """The grouped expert kernel at MOE_GEMM_CASES, and the no-grad MoE
+    layer's host syncs and launches at MOE_PATH_CASES; one arch's leaves
+    (bf16, the init's scale) at a time."""
+    from repro_torch.models import get_config
+
+    rows, paths = [], {}
+    for arch in dict.fromkeys(a for _, a, _, _ in MOE_GEMM_CASES):
+        cfg = get_config(arch)
+        g = _gen(780)
+        D, E, Fe = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+
+        def dense(*shape, dtype=torch.bfloat16):
+            w = torch.randn(shape, generator=g, device=DEVICE)
+            return w.mul_(shape[-2] ** -0.5).to(dtype)
+        leaves = {"router": dense(D, E, dtype=torch.float32),
+                  "w_gate": dense(E, D, Fe), "w_up": dense(E, D, Fe),
+                  "w_down": dense(E, Fe, D)}
+        for name, a, T, cf in MOE_GEMM_CASES:
+            if a != arch:
+                continue
+            rows.append(moe_gemm_case(name, arch, T, cf, leaves))
+            if name in MOE_PATH_CASES:
+                paths[name] = moe_path_case(name, arch, T, cf, leaves)
+            free_memory()
+        del leaves
+        free_memory()
+    return rows, paths
+
+
 # phase_net: qwen3-4b's parameters at full width and NET["depth"] layers,
 # homed on a node server in pieces of at most chunk_bytes (the wire's frames
 # are capped at 256 MiB, wire.MAX_FRAME); the servers' monitor timeout
@@ -2988,16 +3239,19 @@ HEADLINE = {
     "flash_bwd": ("qwen3_train", "src/repro/models/attention.py:163"),
     "rglru_bwd": ("rgemma_train", "src/repro/kernels/ref.py:81"),
     "wkv6_bwd": ("rwkv6_train", "src/repro/kernels/ref.py:52"),
+    "moe_gemm": ("mixtral_prefill_1500",
+                 "none: the reference's expert einsums go to XLA "
+                 "(src/repro/models/ffn.py)"),
 }
 # the source of each kernel's headline body, and every source of the kernel
 SOURCE = {"flash_fwd": "flash_fwd.cu", "flash_decode": "flash_decode.cu",
           "rglru_scan": "rglru_scan.cu", "wkv6_scan": "wkv6_chunk.cu",
           "flash_bwd": "flash_bwd.cu", "rglru_bwd": "rglru_bwd.cu",
-          "wkv6_bwd": "wkv6_bwd.cu"}
+          "wkv6_bwd": "wkv6_bwd.cu", "moe_gemm": "moe_gemm.cu"}
 SOURCES = {"wkv6_scan": ("wkv6_chunk.cu", "wkv6_scan.cu"),
            "wkv6_bwd": ("wkv6_bwd.cu", "wkv6_chunk.cu", "wkv6_chunk.cuh")}
 # the port's kernel names in a profiler trace start with one of these
-TRACE_NAMES = ("flash_", "rglru_", "wkv")
+TRACE_NAMES = ("flash_", "rglru_", "wkv", "moe_gemm")
 
 
 def main() -> int:
@@ -3021,8 +3275,9 @@ def main() -> int:
     log(f"[build] {', '.join(src.name for src in build.SOURCES)}: "
         f"{b['seconds']:.2f} s -> {b['path']}\n{b['log']}")
     sass = sass_hmma(b["path"])
-
     rows = phase_flash() + phase_rglru() + phase_wkv() + phase_scan_bwd()
+    moe_rows, moe_paths = phase_moe_gemm()
+    rows += moe_rows
     model = {arch: phase_model(arch) for arch in MODEL_CHECKS}
     serve = {arch: phase_serve(arch) for arch in SERVES}
     serve_whisper = phase_serve_whisper()
@@ -3075,13 +3330,14 @@ def main() -> int:
                   + (f" ({head['body']} body)" if "body" in head else ""),
             "cases": [r for r in rows if r["kernel"] == name],
         })
-        if name == "flash_bwd":
+        if name in ("flash_bwd", "moe_gemm"):
             kernels[-1]["launches_by_kernel"] = {
                 path: {k.split(".")[1]: n for k, n in paths[path].items()
-                       if k.startswith("flash_bwd.")} for path in by_path}
+                       if k.startswith(f"{name}.")} for path in by_path}
     log("[summary] " + json.dumps({"model": model, "serve": serve,
                                    "serve_whisper": serve_whisper,
-                                   "ep": ep, "train": train,
+                                   "ep": ep, "moe_paths": moe_paths,
+                                   "train": train,
                                    "dist": dist_out, "remat": remat_out,
                                    "net": net,
                                    "hmma_sass": sass,

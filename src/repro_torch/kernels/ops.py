@@ -10,9 +10,11 @@ and the kernel's operations and bytes charged to every sink in ``SINKS``
 (the dry run's cost counter, ``repro_torch.launch.cost``). The operations
 are the bounds' counts in chip_smoke.py: 4 hd per valid (query, key) pair
 and query head for K1, 10 hd for K1b, 9 per element of x for K2 and 20 for
-K2b, 5 hd + 5 per element of r for K3 and 14 hd for K3b. A meta position
-holds no value, so the pairs are counted for query i at position Skv - Sq
-+ i over keys 0..Skv-1, every slot full. The bytes are the inputs' and
+K2b, 5 hd + 5 per element of r for K3 and 14 hd for K3b; 4 D Fe (gate-up)
+and 2 Fe D (down) a row for the MoE experts, every row of the compact
+buffer counted as routed (the most the kernel can compute there). A meta
+position holds no value, so the pairs are counted for query i at position
+Skv - Sq + i over keys 0..Skv-1, every slot full. The bytes are the inputs' and
 outputs' sizes. The plain versions are never the shape functions: the
 attention's materialises [B, H, Sq, Skv] and the RG-LRU's loops over T.
 
@@ -29,7 +31,7 @@ from torch.distributed.tensor import DTensor
 from . import flash_attention as fa
 from . import flash_bwd as fb
 from . import flash_decode as fd
-from . import ref, rglru, rglru_bwd, rwkv6, rwkv6_bwd
+from . import moe_gemm, ref, rglru, rglru_bwd, rwkv6, rwkv6_bwd
 
 
 # callables (kernel name, operations, bytes) charged by the shape functions
@@ -248,3 +250,26 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _same_device(*args)
         return ref.rwkv6_scan_bwd_plain(*args)
     return rwkv6_bwd.wkv6_scan_bwd(*args)
+
+
+def moe_experts(a: torch.Tensor, ends: torch.Tensor, w_gate: torch.Tensor,
+                w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU experts over a compact buffer of routed rows: a [R, D],
+    expert e's rows [ends[e-1], ends[e]) (``ends`` int64 [E], the inclusive
+    prefix of the kept counts, on a's device); w_gate / w_up [E, D, Fe],
+    w_down [E, Fe, D] -> [R, D] in a's dtype, rows past ``ends[-1]``
+    unspecified. On the card two launches (``moe_gemm.moe_gate_up``, then
+    ``moe_gemm.moe_down``), which read ``ends`` there: bf16 only."""
+    route = _device(a, ends, w_gate, w_up, w_down)
+    if route == "meta":
+        (R, D), Fe = a.shape, w_gate.shape[2]
+        h = a.new_empty((R, Fe))
+        out = a.new_empty((R, D))
+        _charge("moe_gate_up", 4 * R * D * Fe, (a, ends, w_gate, w_up), (h,))
+        _charge("moe_down", 2 * R * Fe * D, (h, ends, w_down), (out,))
+        return out
+    if route == "cpu":
+        _same_device(a, ends, w_gate, w_up, w_down)
+        return ref.moe_experts_plain(a, ends, w_gate, w_up, w_down)
+    return moe_gemm.moe_down(moe_gemm.moe_gate_up(a, ends, w_gate, w_up), ends,
+                             w_down)

@@ -792,3 +792,49 @@ def rwkv6_scan_chunked_plain(r: torch.Tensor, k: torch.Tensor,
     if state_out is not None:
         s = state_out.copy_(s)
     return y, s
+
+
+def _expert_rows(ends: torch.Tensor):
+    """(expert, first row, end row) of each expert of a compact buffer whose
+    expert e owns rows [ends[e-1], ends[e]) (one host read of ``ends``)."""
+    start = 0
+    for e, end in enumerate(ends.tolist()):
+        yield e, start, end
+        start = end
+
+
+def moe_gate_up_plain(a: torch.Tensor, ends: torch.Tensor,
+                      w_gate: torch.Tensor, w_up: torch.Tensor
+                      ) -> torch.Tensor:
+    """``moe_gemm.moe_gate_up``'s function, expert by expert: on expert e's
+    rows of a [R, D], silu(a Wg[e]) * (a Wu[e]) with both products and the
+    product of the two in fp32, rounded to a's dtype once: [R, Fe]. Rows at
+    or past ``ends[-1]`` are 0."""
+    h = torch.zeros((a.shape[0], w_gate.shape[2]), dtype=a.dtype,
+                    device=a.device)
+    for e, r0, r1 in _expert_rows(ends):
+        x = a[r0:r1].float()
+        g = x @ w_gate[e].float()
+        h[r0:r1] = (g / (1.0 + torch.exp(-g)) * (x @ w_up[e].float())).to(
+            a.dtype)
+    return h
+
+
+def moe_down_plain(h: torch.Tensor, ends: torch.Tensor,
+                   w_down: torch.Tensor) -> torch.Tensor:
+    """``moe_gemm.moe_down``'s function: h Wd[e] on expert e's rows of h
+    [R, Fe] in fp32, rounded to h's dtype: [R, D], 0 at or past
+    ``ends[-1]``."""
+    out = torch.zeros((h.shape[0], w_down.shape[2]), dtype=h.dtype,
+                      device=h.device)
+    for e, r0, r1 in _expert_rows(ends):
+        out[r0:r1] = (h[r0:r1].float() @ w_down[e].float()).to(h.dtype)
+    return out
+
+
+def moe_experts_plain(a: torch.Tensor, ends: torch.Tensor,
+                      w_gate: torch.Tensor, w_up: torch.Tensor,
+                      w_down: torch.Tensor) -> torch.Tensor:
+    """``ops.moe_experts``' function: the two entries in turn."""
+    return moe_down_plain(moe_gate_up_plain(a, ends, w_gate, w_up), ends,
+                          w_down)

@@ -440,7 +440,7 @@ class Backbone:
         elif self.moe_impl == "ep":
             y, aux = moe_mlp_ep(p, h, cfg, self.model_group, self.data_group)
         else:
-            y, aux = moe_mlp(p, h, cfg, self.shard)
+            y, aux = moe_mlp(p, h, cfg, self.shard, plain=self._plain)
         return self.shard(y, "act_hidden"), aux
 
     def _moe_ep_local(self, p, h):

@@ -2,18 +2,31 @@
 
 The port of ``repro.models.ffn``. The MoE layer routes each token to its
 top-k experts in fp32, gives each (token, k) assignment a position inside
-its expert from a token-major cumulative count, scatters the assignments
-into an ``[E, C, D]`` capacity buffer, runs the experts as batched matrix
-products (``torch.bmm``: the reference leaves its einsums to XLA, so no
-kernel is owed) and gathers and combines the outputs by the renormalised
-gate values. Assignments past an expert's capacity ``C`` are dropped, as
-the reference drops them; the router keeps the Switch load-balancing loss.
-Every shape is fixed by (T, E, K, C), so the layer never syncs with the
-host. :mod:`repro_torch.models.moe_ep` builds its expert-parallel form from
-the same steps. With ``txtrace.enabled``, :func:`moe_mlp` records its steps
-as the spans ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
-``moe.combine`` (:mod:`repro_torch.obs.hostspans`; detail: the tokens T and
-the capacity rows E·C).
+its expert from a token-major cumulative count, and drops the assignments
+past an expert's capacity ``C``, as the reference drops them; the router
+keeps the Switch load-balancing loss. The experts then run on one of two
+paths, which keep the same assignments and combine them alike:
+
+* the capacity path, whenever autograd records the call: the assignments
+  are scattered into an ``[E, C, D]`` capacity buffer and the experts run as
+  batched matrix products (``torch.bmm``: the reference leaves its einsums
+  to XLA, so no kernel is owed), E·C rows of which only the kept ones are
+  routed;
+* the grouped path, when no gradient is taken (serving): the kept
+  assignments go to a compact ``[T·K + 1, D]`` buffer, expert after expert,
+  and the experts run over those rows alone (``kernels.ops.moe_experts``:
+  the grouped SwiGLU kernel ``csrc/moe_gemm.cu`` on the card, which reads
+  each expert's row range on the device). The kernel has no backward, so
+  training keeps the capacity path; a DTensor (a sharded mesh) keeps it too,
+  and on the card so does any dtype but bf16, which is all the kernel takes.
+
+Every shape is fixed by (T, E, K, C) on both paths, so the layer never syncs
+with the host. :mod:`repro_torch.models.moe_ep` builds its expert-parallel
+form from the capacity path's steps. ``path_calls`` counts the calls of each
+path. With ``txtrace.enabled``, :func:`moe_mlp` records its steps as the
+spans ``moe.route``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``
+(:mod:`repro_torch.obs.hostspans`; detail: the tokens T and the path with
+the rows its experts compute, ``grouped rows=T·K`` or ``capacity EC=E·C``).
 """
 from __future__ import annotations
 
@@ -21,10 +34,15 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.kernels import ops, ref
 from repro_torch.obs import hostspans, txtrace
 
 from .remat import residual_product
+
+# Calls of moe_mlp by path since the last reset (set them to 0 to reset).
+path_calls = {"grouped": 0, "capacity": 0}
 
 
 def gated_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, kind: str
@@ -93,17 +111,22 @@ def route(xt: torch.Tensor, router: torch.Tensor, k: int
     return probs, gate_vals, gate_idx
 
 
+def running_counts(dest: torch.Tensor, n_dest: int) -> torch.Tensor:
+    """The reference's cumulative one-hot of ``dest`` [N], held transposed,
+    [n_dest, N]: entry (d, i) counts the assignments to d among the first
+    i + 1. The count runs along the innermost dimension: along the outer one
+    CUDA's scan walks each of the few columns with one thread (1.5 ms a
+    layer of mixtral's 4200-token prefill on an H100, against 0.03 ms this
+    way)."""
+    hits = dest[None, :] == torch.arange(n_dest, device=dest.device)[:, None]
+    return torch.cumsum(hits, dim=1)
+
+
 def slot_positions(dest: torch.Tensor, n_dest: int) -> torch.Tensor:
     """Position of each assignment inside its destination (an expert, or a
     virtual expert): the running count of earlier assignments to it, in
-    the token-major flat order of ``dest`` [N]. The reference's cumulative
-    one-hot, held transposed, [n_dest, N], so that the count runs along the
-    innermost dimension: along the outer one CUDA's scan walks each of the
-    few columns with one thread (1.5 ms a layer of mixtral's 4200-token
-    prefill on an H100, against 0.03 ms this way)."""
-    hits = dest[None, :] == torch.arange(n_dest, device=dest.device)[:, None]
-    counts = torch.cumsum(hits, dim=1)
-    return torch.gather(counts, 0, dest[None, :])[0] - 1
+    the token-major flat order of ``dest`` [N]."""
+    return torch.gather(running_counts(dest, n_dest), 0, dest[None, :])[0] - 1
 
 
 def dispatch(xt: torch.Tensor, keep: torch.Tensor, dest: torch.Tensor,
@@ -135,12 +158,79 @@ def combine(out_buf: torch.Tensor, keep: torch.Tensor, dest: torch.Tensor,
     """Gather each assignment's expert output, zero the dropped ones, weight
     by ``weights`` [N] (cast to the activations' dtype first) and sum each
     token's N / n_tokens assignments: [n_tokens, D]."""
-    gathered = out_buf[dest, slot]
+    return _weighted_sum(out_buf[dest, slot], keep, weights, n_tokens)
+
+
+def _weighted_sum(gathered: torch.Tensor, keep: torch.Tensor,
+                  weights: torch.Tensor, n_tokens: int) -> torch.Tensor:
     gathered = torch.where(keep[:, None], gathered,
                            torch.zeros((), dtype=gathered.dtype,
                                        device=gathered.device))
     w = weights[:, None].to(gathered.dtype)
     return (gathered * w).reshape(n_tokens, -1, gathered.shape[-1]).sum(1)
+
+
+def grouped_path(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                 plain: bool = False) -> bool:
+    """Whether :func:`moe_mlp` runs its experts over the routed rows alone:
+    autograd records nothing (grad mode off, or neither ``x`` nor an expert
+    leaf requires grad), no tensor is a DTensor, and on the card the kernel
+    takes the dtype (bf16; ``plain`` sends the experts to the plain
+    version, which takes any)."""
+    leaves = (x, params["w_gate"], params["w_up"], params["w_down"])
+    if any(isinstance(t, DTensor) for t in leaves):
+        return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        return False
+    return (plain or x.device.type != "cuda"
+            or all(t.dtype == torch.bfloat16 for t in leaves))
+
+
+def grouped_rows(dest: torch.Tensor, n_dest: int, capacity: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(keep [N], rows [N], ends [n_dest]) of the grouped path, from the
+    same cumulative count as :func:`slot_positions`, so that the same
+    assignments are kept: ``ends`` is the inclusive prefix of the experts'
+    kept counts min(count, C), each kept assignment's row is its expert's
+    first row ends[d-1] plus its position, and every dropped one goes to the
+    spare row N."""
+    counts = running_counts(dest, n_dest)
+    pos = torch.gather(counts, 0, dest[None, :])[0] - 1
+    keep = pos < capacity
+    kept = counts[:, -1].clamp(max=capacity)
+    ends = kept.cumsum(0)
+    rows = torch.where(keep, (ends - kept)[dest] + pos, dest.shape[0])
+    return keep, rows, ends
+
+
+def dispatch_rows(xt: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Copy the N assignments of the tokens ``xt`` [T, D] (token-major, N /
+    T a token) into a compact buffer [N + 1, D] at ``rows``: the kept ones
+    expert after expert, the dropped ones all into the spare last row. The
+    rows that no assignment reaches (past the kept ones, where some drop)
+    are left unset: nothing reads them."""
+    N = rows.shape[0]
+    src = xt.repeat_interleave(N // xt.shape[0], 0)
+    buf = torch.empty((N + 1, xt.shape[1]), dtype=xt.dtype, device=xt.device)
+    return buf.index_put_((rows,), src)
+
+
+def grouped_experts(buf: torch.Tensor, ends: torch.Tensor,
+                    params: Dict[str, torch.Tensor], plain: bool = False
+                    ) -> torch.Tensor:
+    """The SwiGLU experts over the compact buffer's routed rows
+    (``ops.moe_experts``; with ``plain``, its plain version wherever the
+    tensors are)."""
+    experts = ref.moe_experts_plain if plain else ops.moe_experts
+    return experts(buf, ends, params["w_gate"], params["w_up"],
+                   params["w_down"])
+
+
+def combine_rows(out: torch.Tensor, keep: torch.Tensor, rows: torch.Tensor,
+                 weights: torch.Tensor, n_tokens: int) -> torch.Tensor:
+    """:func:`combine` for the grouped path: each assignment's output is row
+    ``rows`` of the experts' output ``out`` [N + 1, D]."""
+    return _weighted_sum(out[rows], keep, weights, n_tokens)
 
 
 def aux_loss(probs: torch.Tensor, gate_idx: torch.Tensor, n_experts: int
@@ -152,34 +242,52 @@ def aux_loss(probs: torch.Tensor, gate_idx: torch.Tensor, n_experts: int
 
 
 def moe_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
-            shard=lambda a, name: a) -> Tuple[torch.Tensor, torch.Tensor]:
+            shard=lambda a, name: a, plain: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed MoE. x: [B, S, D] -> (y [B, S, D], aux loss fp32).
     ``params``: router [D, E], w_gate / w_up [E, D, Fe], w_down [E, Fe, D].
     ``shard(buf, "moe_buf")`` places the capacity buffers (the backbone's
-    sharder: experts over "model" on a mesh)."""
+    sharder: experts over "model" on a mesh). The grouped path runs when
+    :func:`grouped_path` says so; ``plain`` sends its experts to their plain
+    version (``Backbone(kernel_impl="plain")``)."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
     xt = x.reshape(T, D)
     C = moe_capacity(T, E, K, cfg.capacity_factor)
+    grouped = grouped_path(params, x, plain)
+    path_calls["grouped" if grouped else "capacity"] += 1
     traced = txtrace.enabled
     if traced:
-        span = hostspans.begin("moe.route", f"T={T} EC={E * C}")
+        span = hostspans.begin("moe.route", f"T={T} grouped rows={T * K}"
+                               if grouped else f"T={T} capacity EC={E * C}")
     probs, gate_vals, gate_idx = route(xt, params["router"], K)
     if traced:
         span = hostspans.then(span, "moe.dispatch")
     flat_idx = gate_idx.reshape(-1)                              # [T*K]
-    pos = slot_positions(flat_idx, E)
-    keep = pos < C
-    safe_pos = torch.where(keep, pos, 0)
-    buf = shard(dispatch(xt, keep, flat_idx, safe_pos, (E, C, D)), "moe_buf")
-    if traced:
-        span = hostspans.then(span, "moe.experts")
-    out_buf = shard(expert_ffn(buf, params["w_gate"], params["w_up"],
-                               params["w_down"]), "moe_buf")
-    if traced:
-        span = hostspans.then(span, "moe.combine")
-    y = combine(out_buf, keep, flat_idx, safe_pos, gate_vals.reshape(-1), T)
+    if grouped:
+        keep, rows, ends = grouped_rows(flat_idx, E, C)
+        buf = dispatch_rows(xt, rows)
+        if traced:
+            span = hostspans.then(span, "moe.experts")
+        out = grouped_experts(buf, ends, params, plain)
+        if traced:
+            span = hostspans.then(span, "moe.combine")
+        y = combine_rows(out, keep, rows, gate_vals.reshape(-1), T)
+    else:
+        pos = slot_positions(flat_idx, E)
+        keep = pos < C
+        safe_pos = torch.where(keep, pos, 0)
+        buf = shard(dispatch(xt, keep, flat_idx, safe_pos, (E, C, D)),
+                    "moe_buf")
+        if traced:
+            span = hostspans.then(span, "moe.experts")
+        out_buf = shard(expert_ffn(buf, params["w_gate"], params["w_up"],
+                                   params["w_down"]), "moe_buf")
+        if traced:
+            span = hostspans.then(span, "moe.combine")
+        y = combine(out_buf, keep, flat_idx, safe_pos, gate_vals.reshape(-1),
+                    T)
     aux = aux_loss(probs, gate_idx, E)
     if traced:
         hostspans.end(span)

@@ -1,6 +1,6 @@
 """The Hopper kernels (K1 attention, K1b its backward, K2 RG-LRU scan, K2b
-its backward, K3 WKV scan, K3b its backward) against their plain versions,
-on the card.
+its backward, K3 WKV scan, K3b its backward, the MoE layer's grouped expert
+kernel) against their plain versions, on the card.
 
 Every test here needs a CUDA device and skips without one (decided in the
 ``cuda`` fixture, never at import). It imports torch and the port only, so
@@ -25,6 +25,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_bwd as fb
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import moe_gemm as mg
 from repro_torch.kernels import ops, ref, rglru, rglru_bwd, rwkv6, rwkv6_bwd
 from repro_torch.models import Backbone, LayerGroup, ffn, get_config, reduced
 
@@ -1017,6 +1018,142 @@ def test_moe_router_is_full_fp32_whatever_tf32_is_set_to(cuda):
         torch.backends.cuda.matmul.allow_tf32 = False
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------- #
+# The grouped expert kernel (csrc/moe_gemm.cu) and the MoE layer's grouped    #
+# path                                                                        #
+# --------------------------------------------------------------------------- #
+# (E, D, Fe, kept rows of each expert, spare rows past them): an expert with
+# no rows, one over several 128-row tiles, one of a single row; widths off
+# the 64-deep stage and the 128 / 256-column tiles; qwen3-moe's 128 experts;
+# one token of a decode, far smaller than a tile
+MOE_GEMM_CASES = [
+    (8, 256, 128, (0, 300, 1, 130, 128, 7, 0, 64), 1),
+    (8, 200, 136, (5, 0, 257, 3, 0, 0, 90, 1), 17),
+    (128, 256, 192, tuple(int(c) for c in np.random.default_rng(7).integers(
+        0, 12, 128) * (np.arange(128) % 5 != 0)), 9),
+    (4, 64, 64, (1, 0, 0, 0), 0),
+]
+
+
+def _moe_gemm_args(E, D, Fe, counts, spare, seed, device):
+    R = sum(counts) + spare
+    a = _randn((R, D), torch.bfloat16, device, seed)
+    w = [_randn(shape, torch.float32, device, seed + i) / shape[1] ** 0.5
+         for i, shape in enumerate(((E, D, Fe), (E, D, Fe), (E, Fe, D)), 1)]
+    ends = torch.tensor(counts, dtype=torch.int64, device=device).cumsum(0)
+    return (a, ends) + tuple(t.bfloat16() for t in w)
+
+
+@pytest.mark.parametrize("case", MOE_GEMM_CASES,
+                         ids=lambda c: f"E{c[0]}-D{c[1]}-Fe{c[2]}")
+def test_moe_gemm_matches_plain(cuda, case):
+    """Each entry of the grouped kernel against its plain version on the
+    same input, on the kept rows, within the bf16 limit (both round an fp32
+    result once); one launch each, counted."""
+    a, ends, wg, wu, wd = _moe_gemm_args(*case, seed=60, device=cuda)
+    n = sum(case[3])
+    before = dict(mg.kernel_launches)
+    h = mg.moe_gate_up(a, ends, wg, wu)
+    out = mg.moe_down(h, ends, wd)
+    torch.cuda.synchronize()
+    assert {k: mg.kernel_launches[k] - before[k] for k in before} == \
+        {"gate_up": 1, "down": 1}
+    atol, rtol = DTYPES["bf16"][1]
+    for got, want in ((h, ref.moe_gate_up_plain(a, ends, wg, wu)),
+                      (out, ref.moe_down_plain(h, ends, wd))):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got[:n].float(), want[:n].float(),
+                                   atol=atol, rtol=rtol)
+
+
+def test_moe_gemm_rejects_what_it_cannot_take(cuda):
+    a, ends, wg, wu, wd = _moe_gemm_args(4, 64, 64, (1, 2, 0, 3), 1, 61,
+                                         cuda)
+    with pytest.raises(TypeError):
+        mg.moe_gate_up(a.float(), ends, wg, wu)
+    with pytest.raises(ValueError):
+        mg.moe_gate_up(a, ends.int(), wg, wu)
+    with pytest.raises(ValueError):
+        mg.moe_down(a[:, :60].contiguous(), ends, wd[:, :60].contiguous())
+    with pytest.raises(ValueError):
+        mg.moe_gate_up(a.cpu(), ends.cpu(), wg.cpu(), wu.cpu())
+
+
+def _moe_bf16(cfg, p, x, device, grad=False):
+    tp = {k: torch.from_numpy(v).to(device, torch.bfloat16).requires_grad_(
+        grad) for k, v in p.items()}
+    return tp, torch.from_numpy(x).to(device, torch.bfloat16)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-235b-a22b"])
+def test_moe_mlp_grouped_path_on_the_card_matches_the_cpu_port(cuda, arch):
+    """bf16 under no_grad: the card's grouped path (the kernel) against the
+    CPU port's (its plain version), at the config's capacity factor (qwen3-
+    moe drops here): the same routes, y within 2**-6 of its largest entry
+    (each side rounds h and y to bf16 once, from sums in another order);
+    one call on the grouped path, two launches. With a gradient the card
+    takes the capacity path and launches nothing."""
+    cfg, p, x = _moe_case(arch, 52)
+    tp, tx = _moe_bf16(cfg, p, x, cuda)
+    cp, cx = _moe_bf16(cfg, p, x, "cpu")
+    calls, before = dict(ffn.path_calls), dict(mg.kernel_launches)
+    with torch.no_grad():
+        got, _ = ffn.moe_mlp(tp, tx, cfg)
+        want, _ = ffn.moe_mlp(cp, cx, cfg)
+    assert ffn.path_calls["grouped"] - calls["grouped"] == 2
+    assert ffn.path_calls["capacity"] == calls["capacity"]
+    assert {k: mg.kernel_launches[k] - before[k] for k in before} == \
+        {"gate_up": 1, "down": 1}
+    _, _, ki = ffn.route(tx.reshape(-1, cfg.d_model), tp["router"],
+                         cfg.top_k)
+    _, _, ci = ffn.route(cx.reshape(-1, cfg.d_model), cp["router"], cfg.top_k)
+    assert torch.equal(ki.cpu(), ci)
+    want = want.float()
+    err = float((got.float().cpu() - want).abs().max())
+    assert err <= 2.0 ** -6 * float(want.abs().max()), err
+    gp, gx = _moe_bf16(cfg, p, x, cuda, grad=True)
+    ffn.moe_mlp(gp, gx, cfg)
+    assert ffn.path_calls["capacity"] == calls["capacity"] + 1
+    assert {k: mg.kernel_launches[k] - before[k] for k in before} == \
+        {"gate_up": 1, "down": 1}
+
+
+def _device_launches(fn, calls=3):
+    """Kernels, copies and fills on the card per call of ``fn``, from a
+    torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+            for e in prof.events())
+    assert n % calls == 0, n
+    return n // calls
+
+
+def test_moe_mlp_grouped_path_makes_no_host_sync_and_fewer_launches(cuda):
+    """mixtral's layer at a narrow width in bf16, 2 x 160 tokens, under
+    no_grad: the grouped path with torch.cuda.set_sync_debug_mode("error")
+    (any op that waits for the card raises), then its device launches a
+    call against the capacity path's on the same input."""
+    cfg, p, x = _moe_case("mixtral-8x22b", 53)
+    tp, tx = _moe_bf16(cfg, p, x, cuda)
+    with torch.no_grad():
+        ffn.moe_mlp(tp, tx, cfg)           # the library's load, warm
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ffn.moe_mlp(tp, tx, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        grouped = _device_launches(lambda: ffn.moe_mlp(tp, tx, cfg))
+    gp, gx = _moe_bf16(cfg, p, x, cuda, grad=True)
+    capacity = _device_launches(lambda: ffn.moe_mlp(gp, gx, cfg))
+    assert grouped <= capacity, (grouped, capacity)
 
 
 # --------------------------------------------------------------------------- #

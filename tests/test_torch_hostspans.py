@@ -212,9 +212,14 @@ def test_moe_layer_records_four_spans_a_call(tracing, monkeypatch):
                                         "moe.experts", "moe.combine"]
     for a, b in zip(evs, evs[1:]):
         assert a["ts"] + a["dur"] <= b["ts"]
-    C = ffn.moe_capacity(10, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
-    assert {e["detail"] for e in evs} == {f"T=10 EC={cfg.n_experts * C}"}
+    # no leaf requires grad: the grouped path, T K rows
+    assert {e["detail"] for e in evs} == {f"T=10 grouped rows={10 * cfg.top_k}"}
     assert {e["site"] for e in evs} == {"host:model"}
+    txtrace.reset()
+    ffn.moe_mlp(layer, x.clone().requires_grad_(), cfg)
+    C = ffn.moe_capacity(10, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
+    assert {e["detail"] for e in _events()} == {
+        f"T=10 capacity EC={cfg.n_experts * C}"}
     monkeypatch.setattr(txtrace, "enabled", False)
     y0, aux0 = ffn.moe_mlp(layer, x, cfg)
     assert torch.equal(y, y0) and torch.equal(aux, aux0)

@@ -13,7 +13,13 @@ chunked online one). The routing itself (which experts, in which order,
 which assignments are dropped) is held exactly. The expert-parallel form at
 world size 1 equals ``moe_mlp`` bit for bit; summed over 8 emulated ranks
 with column-split experts it equals it within 1e-5 (the split sums each
-expert's products in two halves).
+expert's products in two halves). Under ``torch.no_grad()`` the layer takes
+its grouped path (the experts over the routed rows alone): against JAX, y and
+aux within the same 1e-5; against the capacity path on the same input, the
+same kept assignments, y within 1e-6 in fp32 (atol = rtol: the products of
+one row in another order) and within 2**-6 of the largest |y| in bf16 (the
+capacity path rounds the gate and up products, the SiLU and their product to
+bf16, the grouped path only their product: a few bf16 ulps, 2**-8 each).
 """
 import jax
 import jax.numpy as jnp
@@ -114,10 +120,21 @@ def _port_keep(p, x, cfg):
     return idx.numpy(), (pos < C).numpy()
 
 
-def _check_layer(cfg, jcfg, p, x, seed):
+def _check_layer(cfg, jcfg, p, x, seed, no_grad=False):
+    """y, aux and every gradient against JAX's; with ``no_grad``, y and aux
+    of a call under torch.no_grad(), which takes the grouped path."""
     ct = np.random.default_rng(seed).standard_normal(x.shape).astype(
         np.float32)
     jy, jaux, jgp, jgx = _jax_layer(p, x, jcfg, ct, 0.5)
+    if no_grad:
+        calls = dict(ffn.path_calls)
+        with torch.no_grad():
+            ty, taux = ffn.moe_mlp({k: torch.from_numpy(v) for k, v in
+                                    p.items()}, torch.from_numpy(x), cfg)
+        assert ffn.path_calls["grouped"] == calls["grouped"] + 1
+        _close(ty, jy, TOL)
+        _close(taux, jaux, TOL)
+        return
     ty, taux, tgp, tgx = _torch_layer(p, x, cfg, ct, 0.5)
     assert ty.shape == x.shape and taux.dtype == torch.float32
     _close(ty, jy, TOL)
@@ -127,23 +144,29 @@ def _check_layer(cfg, jcfg, p, x, seed):
         _close(tgp[k], jgp[k], TOL)
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_moe_mlp_matches_jax(arch):
+# each arch with gradients (the capacity path), and under torch.no_grad()
+# (the grouped path), which the ids mark
+GRAD_MODES = ([pytest.param(a, False, id=a) for a in MOE_ARCHS]
+              + [pytest.param(a, True, id=f"{a}-no_grad") for a in MOE_ARCHS])
+
+
+@pytest.mark.parametrize("arch,no_grad", GRAD_MODES)
+def test_moe_mlp_matches_jax(arch, no_grad):
     """y, aux and the gradients of every leaf and of x, drop-free
-    (reduced()'s capacity factor 8)."""
+    (reduced()'s capacity factor 8); under no_grad y and aux."""
     cfg, jcfg = reduced(get_config(arch)), jreduced(jget_config(arch))
     p, x = _layer(cfg, 0), _x(cfg, 2, 16, 1)
     idx, keep = _port_keep(p, x, cfg)
     assert keep.all()
     np.testing.assert_array_equal(idx, _jax_keep(p, x, jcfg)[0])
-    _check_layer(cfg, jcfg, p, x, 2)
+    _check_layer(cfg, jcfg, p, x, 2, no_grad)
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_moe_mlp_drops_like_jax(arch):
+@pytest.mark.parametrize("arch,no_grad", GRAD_MODES)
+def test_moe_mlp_drops_like_jax(arch, no_grad):
     """capacity_factor 1.0 at T = 64: C = 32 slots for 128 assignments over
     4 experts, so an unbalanced router drops for certain. The kept set, y,
-    aux and the gradients match JAX's."""
+    aux and the gradients (under no_grad: y and aux) match JAX's."""
     cfg = reduced(get_config(arch), capacity_factor=1.0)
     jcfg = jreduced(jget_config(arch), capacity_factor=1.0)
     p, x = _layer(cfg, 3, router_scale=3.0), _x(cfg, 2, 32, 4)
@@ -152,7 +175,126 @@ def test_moe_mlp_drops_like_jax(arch):
     np.testing.assert_array_equal(idx, jidx)
     np.testing.assert_array_equal(keep, jkeep)
     assert 0 < (~keep).sum() < keep.size
-    _check_layer(cfg, jcfg, p, x, 5)
+    _check_layer(cfg, jcfg, p, x, 5, no_grad)
+
+
+def _skewed_layer(cfg, seed):
+    """A layer and tokens whose feature 0 is 4 everywhere, with router row 0
+    pushing every token to expert 0 (logit +12) and away from the last
+    expert (-12): the last expert gets no rows, and expert 0 overflows
+    wherever its capacity is below T."""
+    p, x = _layer(cfg, seed), _x(cfg, 1, 256, seed + 1)
+    p["router"][0] = 0.0
+    p["router"][0, 0], p["router"][0, -1] = 3.0, -3.0
+    x[..., 0] = 4.0
+    return p, x
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("T", [1, 7, 256])
+@pytest.mark.parametrize("cf", [0.5, 1.25, 4.0])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_grouped_path_matches_capacity_path(arch, cf, T, dtype):
+    """Under no_grad against the capacity path (with a gradient) on the same
+    input: the same kept assignments, an expert with none, expert 0 over
+    its capacity wherever C < T; y within the limits above, aux equal."""
+    cfg = reduced(get_config(arch), capacity_factor=cf)
+    p, x = _skewed_layer(cfg, 20)
+    dt = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    tp = {k: torch.from_numpy(v).to(dt) for k, v in p.items()}
+    tx = torch.from_numpy(x[:, :T]).to(dt)
+    E, K = cfg.n_experts, cfg.top_k
+    C = ffn.moe_capacity(T, E, K, cf)
+    _, _, idx = ffn.route(tx.reshape(T, -1), tp["router"], K)
+    flat = idx.reshape(-1)
+    keep, rows, ends = ffn.grouped_rows(flat, E, C)
+    assert torch.equal(keep, ffn.slot_positions(flat, E) < C)
+    kept = torch.diff(ends, prepend=ends.new_zeros(1))
+    assert int(kept[-1]) == 0
+    assert bool((~keep).any()) == (C < T)
+    assert sorted(rows[keep].tolist()) == list(range(int(ends[-1])))
+    calls = dict(ffn.path_calls)
+    with torch.no_grad():
+        got, got_aux = ffn.moe_mlp(tp, tx, cfg)
+    want, want_aux = ffn.moe_mlp({k: v.requires_grad_() for k, v in
+                                  tp.items()}, tx, cfg)
+    assert ffn.path_calls == {"grouped": calls["grouped"] + 1,
+                              "capacity": calls["capacity"] + 1}
+    assert torch.equal(got_aux, want_aux.detach())
+    want = want.detach().float()
+    if dt == torch.float32:
+        _close(got, want, 1e-6)
+    else:
+        assert got.dtype == dt
+        err = float((got.float() - want).abs().max())
+        assert err <= 2.0 ** -6 * float(want.abs().max()), err
+
+
+def test_grouped_path_is_taken_only_without_a_gradient():
+    """No gradient mode, or nothing that requires grad: grouped. x or an
+    expert leaf requiring grad with grad mode on: capacity. The router alone
+    does not decide (the grouped path's gate values stay differentiable)."""
+    cfg = reduced(get_config("mixtral-8x22b"))
+    p = {k: torch.from_numpy(v) for k, v in _layer(cfg, 21).items()}
+    x = torch.from_numpy(_x(cfg, 1, 5, 22))
+    assert ffn.grouped_path(p, x)
+    assert not ffn.grouped_path(p, x.clone().requires_grad_())
+    with torch.no_grad():
+        assert ffn.grouped_path(p, x.clone().requires_grad_())
+    for k in ("w_gate", "w_up", "w_down"):
+        q = dict(p, **{k: p[k].clone().requires_grad_()})
+        assert not ffn.grouped_path(q, x), k
+    assert ffn.grouped_path(dict(p, router=p["router"].clone()
+                                 .requires_grad_()), x)
+    assert ffn.grouped_path({k: v.to("meta") for k, v in p.items()},
+                            x.to("meta"))
+
+
+def test_grouped_path_on_meta_tensors_charges_the_kernels():
+    """The meta route of ops.moe_experts: the output's shape and dtype, and
+    each launch's operations charged for every row of the compact buffer
+    (4 D Fe a row for gate-up, 2 Fe D for down)."""
+    from repro_torch.kernels import ops
+
+    cfg = reduced(get_config("qwen3-moe-235b-a22b"))
+    p = {k: torch.from_numpy(v).to("meta") for k, v in _layer(cfg, 23).items()}
+    x = torch.empty((2, 5, cfg.d_model), device="meta")
+    charged = []
+    ops.SINKS.append(lambda name, flops, nbytes: charged.append((name, flops)))
+    try:
+        y, aux = ffn.moe_mlp(p, x, cfg)
+    finally:
+        ops.SINKS.pop()
+    R, D, Fe = 10 * cfg.top_k + 1, cfg.d_model, cfg.moe_d_ff
+    assert y.shape == x.shape and y.device.type == "meta"
+    assert charged == [("moe_gate_up", 4.0 * R * D * Fe),
+                       ("moe_down", 2.0 * R * Fe * D)]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_serving_counts_only_grouped_calls_and_training_only_capacity(arch):
+    """ffn.path_calls over a no_grad serve of the reduced arch through
+    Server (each layer once a prefill and once a decode step) and over a
+    train step's loss and gradients (each layer once, remat off)."""
+    from repro_torch.runtime.serve_loop import Request, Server
+
+    _, _, bb, params = _moe_pair(arch, "drops")
+    layers = bb.cfg.n_layers
+    ffn.path_calls.update(grouped=0, capacity=0)
+    srv = Server(bb, params, slots=2, ctx=64)
+    prompts = _tokens(bb.cfg.vocab, 3, 9, 24)
+    reqs = [Request(rid=i, prompt=prompts[i], max_new=4) for i in range(3)]
+    for r in reqs:
+        srv.submit(r)
+    with torch.no_grad():
+        srv.run()
+    calls = layers * (len(reqs) + srv.stats["steps"])
+    assert ffn.path_calls == {"grouped": calls, "capacity": 0}
+    ffn.path_calls.update(grouped=0, capacity=0)
+    toks = _tokens(bb.cfg.vocab, 2, 17, 25)
+    value_and_grad(bb, params, {"tokens": toks[:, :-1],
+                                "labels": toks[:, 1:]})
+    assert ffn.path_calls == {"grouped": 0, "capacity": layers}
 
 
 @pytest.mark.parametrize("E,K", [(4, 2), (8, 2), (128, 8)])
