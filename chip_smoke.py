@@ -73,7 +73,9 @@ Phases; each one that fails raises, and the process exits non-zero:
    dispatch scatter, expert GEMMs, combine, aux loss). Each model is freed
    before the next. Then moe_mlp_ep over a one-rank NCCL group equals
    moe_mlp bit for bit, forward and gradients, on one full-width layer of
-   each MoE arch (phase_ep). whisper-tiny (phase_serve_whisper) is served
+   each MoE arch, and the two halves of tp 2 through _local_moe (each a
+   held range on M1, no gradient) sum to moe_mlp within 2^-6 of its
+   largest |y| (phase_ep). whisper-tiny (phase_serve_whisper) is served
    as the reference serves it, through Backbone.prefill and decode_step
    (its Server takes no frames): two waves of 8 requests with their own
    frames, the counts set to 0 before each wave, flash_fwd exactly 12 a
@@ -2668,7 +2670,10 @@ def phase_ep():
     network) against moe_mlp: one full-width MoE layer of each MoE arch,
     bf16 weights at the init's scale, [1, 512] tokens at the config's own
     capacity factor; y, aux and every gradient (of the leaves and of x) bit
-    for bit, through the all_reduce and its backward."""
+    for bit, through the all_reduce and its backward. Then a real share:
+    the two ranks of tp 2, each with half the whole experts, through
+    _local_moe under no_grad (its held range on M1), summed against
+    moe_mlp's y within 2^-6 of its largest |y|, aux equal."""
     import torch.distributed as dist
 
     from repro_torch.models import ffn, get_config, moe_ep
@@ -2709,8 +2714,34 @@ def phase_ep():
             if not all(same):
                 raise AssertionError(f"{arch}: moe_mlp_ep at world size 1 "
                                      f"differs from moe_mlp: {same}")
-            out[arch] = {"bitwise": True}
-            del leaves, want, got
+            # a real share: the two ranks of tp 2 each hold half the whole
+            # experts; under no_grad each half runs on M1 over its routed
+            # rows (moe_mlp's held range), and the halves sum to the layer
+            V, split = moe_ep.virtualization(cfg, 2)
+            with torch.no_grad():
+                whole, aux = ffn.moe_mlp(leaves, x, cfg)
+                parts = [moe_ep._local_moe(
+                    x[0], leaves["router"],
+                    *(leaves[k][r * V // 2:(r + 1) * V // 2]
+                      for k in ("w_gate", "w_up", "w_down")),
+                    cfg=cfg, V=V, split=split, tp=2, rank=r)
+                    for r in (0, 1)]
+            err = float((parts[0][0].float() + parts[1][0].float()
+                         - whole[0].float()).abs().max())
+            scale = float(whole.float().abs().max())
+            ok = (split == 1 and err <= 2.0 ** -6 * scale
+                  and all(torch.equal(a, aux) for _, a in parts))
+            log(f"[ep] {arch} the two halves of tp 2 through _local_moe "
+                f"(held ranges, no_grad, M1) summed vs moe_mlp: max |diff| "
+                f"{err:.3e} of max |y| {scale:.3e} (limit 2^-6 of it), aux "
+                f"equal: {ok}")
+            if not ok:
+                raise AssertionError(f"{arch}: the halves of tp 2 differ "
+                                     f"from moe_mlp by {err} (max |y| "
+                                     f"{scale}, split {split})")
+            out[arch] = {"bitwise": True, "halves_max_diff": err,
+                         "halves_max_y": scale}
+            del leaves, want, got, whole, parts
             free_memory()
     finally:
         dist.destroy_process_group()

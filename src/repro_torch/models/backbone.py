@@ -56,6 +56,7 @@ from torch.distributed.tensor.experimental import (implicit_replication,
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops, ref
+from repro_torch.obs import txtrace
 
 from . import remat as remat_mod
 from . import rwkv6
@@ -63,7 +64,7 @@ from .attention import flash_attention
 from .common import (apply_rope_table, dense_init, embed_init, resolve_device,
                      rms_norm, rope_table, stable_cross_entropy)
 from .config import ModelConfig
-from .ffn import gated_mlp, moe_mlp
+from .ffn import expert_rows, gated_mlp, held_range, moe_mlp
 from .moe_ep import moe_mlp_ep, virtualization
 from .partition import IDENTITY_PLAN, PartitionPlan
 from .rglru import RGLRUScan, causal_conv1d
@@ -78,6 +79,12 @@ AUX_COEF = 0.01       # weight of the auxiliary (MoE) loss in loss_fn
 
 # per thread, whether Backbone.dist_context is entered
 _DIST = threading.local()
+
+
+def _tree(tree: Params) -> Params:
+    """A copy of a cache's dicts holding the same leaves."""
+    return {k: _tree(v) if isinstance(v, dict) else v
+            for k, v in tree.items()}
 
 
 def _no_shard(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -95,7 +102,9 @@ class Backbone:
                  = _no_shard,
                  param_gather: Optional[Callable[[Params], Params]] = None,
                  mesh=None, dp_axes: Sequence[str] = (),
-                 layer_scope: Callable[[], Any] = contextlib.nullcontext):
+                 layer_scope: Callable[[], Any] = contextlib.nullcontext,
+                 held_experts: Optional[Tuple[int, int]] = None,
+                 prefill_graphs: bool = False):
         """``moe_impl``: ``"gspmd"`` (the scatter path, ``ffn.moe_mlp``) or
         ``"ep"`` (``moe_ep.moe_mlp_ep`` over ``model_group``, a
         ``torch.distributed`` group of ``plan.tp`` ranks, or none at tp 1;
@@ -116,7 +125,22 @@ class Backbone:
 
         ``remat_policy``: ``"full"`` (each layer recomputed whole in the
         backward) or ``"dots"`` (its products without batch dimensions
-        saved, the rest recomputed); read only with ``remat``."""
+        saved, the rest recomputed); read only with ``remat``.
+
+        ``held_experts`` = (first, n): the model holds the experts [first,
+        first + n) of each MoE layer, as one device of an expert-parallel
+        deployment does (the expert leaves ``[R, n, ...]``, the router over
+        all of them); each layer routes over all its experts and passes on
+        its held experts' part (``ffn.moe_mlp``'s ``held``). None: all.
+
+        ``prefill_graphs``: on the card, ``prefill`` captures each shape it
+        meets (batch, length, ctx) in a CUDA graph and replays it from then
+        on, so that the host issues one launch for the whole step where the
+        eager step issues about a hundred a layer (:meth:`_graph_prefill`).
+        The logits and cache leaves it returns are then the graph's own,
+        overwritten by the next prefill of that shape: a caller reads or
+        copies them first, as the Server does. For serving: a replay takes
+        no gradient and keeps the parameters of its capture."""
         plan.check(cfg)
         for kind in cfg.layer_kinds():
             if kind not in _KINDS:
@@ -142,8 +166,16 @@ class Backbone:
         self.mesh = mesh
         self.dp_axes = tuple(dp_axes)
         self.layer_scope = layer_scope
+        self.held_experts = held_range(held_experts, cfg.n_experts)
+        if self.held_experts is not None and (moe_impl == "ep"
+                                              or cfg.ffn_kind != "moe"):
+            raise ValueError("held_experts needs a MoE model on the "
+                             "'gspmd' path (moe_mlp_ep takes its share from "
+                             "its group)")
         if moe_impl == "ep" and cfg.ffn_kind == "moe":
             self.moe_V, self.moe_split = virtualization(cfg, plan.tp)
+        elif self.held_experts is not None:
+            self.moe_V, self.moe_split = self.held_experts[1], 1
         else:
             self.moe_V, self.moe_split = cfg.n_experts, 1
         self.cfg = cfg
@@ -166,6 +198,9 @@ class Backbone:
         # RoPE on the decoder's self-attention; the encoder takes none
         self._has_attn = any(k in ("attn", "local", "dec")
                              for k in cfg.layer_kinds())
+        self.prefill_graphs = prefill_graphs
+        self._graphs: Dict[Tuple, Dict[str, Any]] = {}
+        self._graph_params = None
 
     # ------------------------------------------------------------------ #
     # Parameter construction                                             #
@@ -438,9 +473,11 @@ class Backbone:
         if self.moe_impl == "ep" and self.mesh is not None:
             y, aux = self._moe_ep_local(p, h)
         elif self.moe_impl == "ep":
-            y, aux = moe_mlp_ep(p, h, cfg, self.model_group, self.data_group)
+            y, aux = moe_mlp_ep(p, h, cfg, self.model_group, self.data_group,
+                                plain=self._plain)
         else:
-            y, aux = moe_mlp(p, h, cfg, self.shard, plain=self._plain)
+            y, aux = moe_mlp(p, h, cfg, self.shard, plain=self._plain,
+                             held=self.held_experts)
         return self.shard(y, "act_hidden"), aux
 
     def _moe_ep_local(self, p, h):
@@ -464,7 +501,8 @@ class Backbone:
 
         def part(h, *w):
             y, aux = moe_mlp_ep(dict(zip(names, w)), h, self.cfg,
-                                self.model_group, reduce=False)
+                                self.model_group, reduce=False,
+                                plain=self._plain)
             return y, aux * share
         fn = local_map(
             part, out_placements=(y_out, (Partial(),) * self.mesh.ndim),
@@ -907,7 +945,67 @@ class Backbone:
         keeps its cross keys and values in ``ck``/``cv``.
         """
         with self.dist_context():
+            if self._replays_prefill(batch):
+                return self._graph_prefill(params, batch["tokens"], ctx)
             return self._prefill(params, batch, ctx)
+
+    def _replays_prefill(self, batch: Dict[str, Any]) -> bool:
+        """Whether ``prefill`` runs a captured graph: asked for, on the
+        card, unsharded, tokens alone in the batch, and nothing switched on
+        that reads the eager step's calls as they are made (the profiler,
+        host spans, the MoE layer's row counter): a replay enters none of
+        the Python code."""
+        if not self.prefill_graphs or self.device.type != "cuda":
+            return False
+        if self.mesh is not None or set(batch) != {"tokens"}:
+            return False
+        return not (torch._C._autograd._profiler_enabled()
+                    or txtrace.enabled or expert_rows.on)
+
+    def _graph_prefill(self, params: Params, tokens, ctx: int
+                       ) -> Tuple[torch.Tensor, Params]:
+        """``_prefill`` replayed from a CUDA graph of this shape, captured
+        at its first call (every graph is dropped when the parameters
+        change). Returns the graph's own logits and cache leaves, in a
+        cache tree of its own."""
+        tokens = self._as_input(tokens)
+        if params is not self._graph_params:
+            self.drop_prefill_graphs()
+            self._graph_params = params
+        key = (tuple(tokens.shape), tokens.dtype, ctx)
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self._graphs[key] = self._capture_prefill(params, tokens,
+                                                              ctx)
+        entry["tokens"].copy_(tokens)
+        entry["graph"].replay()
+        return entry["logits"], _tree(entry["cache"])
+
+    def _capture_prefill(self, params: Params, tokens: torch.Tensor,
+                         ctx: int) -> Dict[str, Any]:
+        """One eager ``_prefill`` on a side stream (the kernels' first
+        builds and the libraries' handles stay out of the graph), then its
+        capture; no gradient is recorded."""
+        static = tokens.clone()
+        batch = {"tokens": static}
+        here = torch.cuda.current_stream(self.device)
+        with torch.no_grad():
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(here)
+            with torch.cuda.stream(side):
+                self._prefill(params, batch, ctx)
+            here.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                logits, cache = self._prefill(params, batch, ctx)
+        return {"graph": graph, "tokens": static, "logits": logits,
+                "cache": cache}
+
+    def drop_prefill_graphs(self) -> None:
+        """Forget the captured prefills: their memory goes back to the
+        allocator once no returned leaf is held any more."""
+        self._graphs.clear()
+        self._graph_params = None
 
     def _prefill(self, params: Params, batch: Dict[str, Any], ctx: int
                  ) -> Tuple[torch.Tensor, Params]:

@@ -71,12 +71,13 @@ def stable_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def rope_freqs(head_dim: int, theta: float, rotary_pct: float = 1.0,
                device=None) -> Tuple[int, torch.Tensor]:
     """Return (#rotary dims, inverse frequencies [rot/2]), in fp32 as JAX
-    computes them."""
+    computes them. ``theta`` is made on the device (a fill, not a copy from
+    the host), so that a CUDA graph can capture the table."""
     rot = int(head_dim * rotary_pct)
     rot -= rot % 2
     exponent = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
-    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                       device=device), exponent)
+    inv = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                     device=device), exponent)
     return rot, inv
 
 

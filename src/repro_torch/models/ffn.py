@@ -20,17 +20,28 @@ paths, which keep the same assignments and combine them alike:
   training keeps the capacity path; a DTensor (a sharded mesh) keeps it too,
   and on the card so does any dtype but bf16, which is all the kernel takes.
 
+A layer may hold a share of its experts (``held`` = (first, n): the experts
+[first, first + n) of the router's E, the leaves ``[n, ...]``), as one device
+of an expert-parallel deployment does: it routes every token over all E
+experts and computes only what its own experts give, the assignments to the
+others sent to the spare row like dropped ones. Each held expert counts its
+positions, and so its drops, as the whole layer does, so the shares' outputs
+sum to the whole layer's. Without a share the layer runs as it always has.
+
 Every shape is fixed by (T, E, K, C) on both paths, so the layer never syncs
 with the host. :mod:`repro_torch.models.moe_ep` builds its expert-parallel
-form from the capacity path's steps. ``path_calls`` counts the calls of each
-path. With ``txtrace.enabled``, :func:`moe_mlp` records its steps as the
-spans ``moe.route``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``
+form from these steps. ``path_calls`` counts the calls of each path;
+``expert_rows``, while on, keeps each grouped call's row ends on the device,
+read after the calls as its rows and experts with rows. With
+``txtrace.enabled``, :func:`moe_mlp` records its steps as the spans
+``moe.route``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``
 (:mod:`repro_torch.obs.hostspans`; detail: the tokens T and the path with
-the rows its experts compute, ``grouped rows=T·K`` or ``capacity EC=E·C``).
+the rows its experts compute, ``grouped rows=T·K`` or ``capacity EC=E·C``,
+and with a share ``held=n/E``).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +54,39 @@ from .remat import residual_product
 
 # Calls of moe_mlp by path since the last reset (set them to 0 to reset).
 path_calls = {"grouped": 0, "capacity": 0}
+
+
+class ExpertRows:
+    """The grouped path's work, call by call, while ``on``: each call's
+    ``ends`` (the inclusive prefix of its experts' rows) kept on the device
+    as it is, so that counting launches nothing; :meth:`take` reads them
+    all in one host read, after the calls, and gives each call's rows and
+    experts with at least one row."""
+
+    def __init__(self):
+        self.on = False
+        self._calls: List[torch.Tensor] = []
+
+    def add(self, ends: torch.Tensor) -> None:
+        self._calls.append(ends)
+
+    def take(self) -> List[Tuple[int, int]]:
+        """(rows, experts with rows) of each call counted since the last
+        take, in order; forgets them."""
+        calls, self._calls = self._calls, []
+        if not calls:
+            return []
+        flat = torch.cat(calls).tolist()
+        out, at = [], 0
+        for ends in calls:
+            e = flat[at:at + ends.shape[0]]
+            at += ends.shape[0]
+            out.append((int(e[-1]),
+                        sum(b > a for a, b in zip([0] + e[:-1], e))))
+        return out
+
+
+expert_rows = ExpertRows()
 
 
 def gated_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, kind: str
@@ -129,6 +173,38 @@ def slot_positions(dest: torch.Tensor, n_dest: int) -> torch.Tensor:
     return torch.gather(running_counts(dest, n_dest), 0, dest[None, :])[0] - 1
 
 
+def held_range(held: Optional[Tuple[int, int]], n_experts: int
+               ) -> Optional[Tuple[int, int]]:
+    """``held`` = (first, n) checked against the router's ``n_experts``;
+    None where it holds them all (the layer without a share)."""
+    if held is None:
+        return None
+    first, n = int(held[0]), int(held[1])
+    if n < 1 or first < 0 or first + n > n_experts:
+        raise ValueError(f"held experts [{first}, {first + n}) do not lie "
+                         f"in the router's {n_experts}")
+    return None if n == n_experts else (first, n)
+
+
+def held_slots(dest: torch.Tensor, held: Tuple[int, int], capacity: int
+               ) -> Tuple[torch.Tensor, ...]:
+    """The assignments ``dest`` [N] (experts of the whole layer) that the
+    held experts [first, first + n) take, ``held`` = (first, n): (keep [N],
+    local [N], pos [N], counts [n, N]). ``counts`` is :func:`running_counts`
+    over the held experts alone (an assignment to another expert is counted
+    by none), so each held expert numbers its assignments as the whole
+    layer does; ``local`` is an assignment's expert among the held (0 for
+    the others), ``pos`` its position there, and ``keep`` marks the held
+    assignments within ``capacity``."""
+    first, n = held
+    local = dest - first
+    own = (local >= 0) & (local < n)
+    counts = running_counts(local, n)
+    local = torch.where(own, local, 0)
+    pos = torch.gather(counts, 0, local[None, :])[0] - 1
+    return own & (pos < capacity), local, pos, counts
+
+
 def dispatch(xt: torch.Tensor, keep: torch.Tensor, dest: torch.Tensor,
              slot: torch.Tensor, shape: Tuple[int, int, int]) -> torch.Tensor:
     """Scatter the N assignments of the tokens ``xt`` [T, D] (token-major,
@@ -186,17 +262,24 @@ def grouped_path(params: Dict[str, torch.Tensor], x: torch.Tensor,
             or all(t.dtype == torch.bfloat16 for t in leaves))
 
 
-def grouped_rows(dest: torch.Tensor, n_dest: int, capacity: int
+def grouped_rows(dest: torch.Tensor, n_dest: int, capacity: int,
+                 held: Optional[Tuple[int, int]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(keep [N], rows [N], ends [n_dest]) of the grouped path, from the
-    same cumulative count as :func:`slot_positions`, so that the same
+    """(keep [N], rows [N], ends [n]) of the grouped path, from the same
+    cumulative count as :func:`slot_positions`, so that the same
     assignments are kept: ``ends`` is the inclusive prefix of the experts'
     kept counts min(count, C), each kept assignment's row is its expert's
     first row ends[d-1] plus its position, and every dropped one goes to the
-    spare row N."""
-    counts = running_counts(dest, n_dest)
-    pos = torch.gather(counts, 0, dest[None, :])[0] - 1
-    keep = pos < capacity
+    spare row N. With ``held`` (:func:`held_slots`) the rows and ``ends``
+    are the held experts' alone, and an assignment to another expert goes
+    to the spare row too, so that :func:`dispatch_rows` and
+    :func:`combine_rows` take it as they take a dropped one."""
+    if held is None:
+        counts = running_counts(dest, n_dest)
+        pos = torch.gather(counts, 0, dest[None, :])[0] - 1
+        keep = pos < capacity
+    else:
+        keep, dest, pos, counts = held_slots(dest, held, capacity)
     kept = counts[:, -1].clamp(max=capacity)
     ends = kept.cumsum(0)
     rows = torch.where(keep, (ends - kept)[dest] + pos, dest.shape[0])
@@ -242,16 +325,24 @@ def aux_loss(probs: torch.Tensor, gate_idx: torch.Tensor, n_experts: int
 
 
 def moe_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
-            shard=lambda a, name: a, plain: bool = False
+            shard=lambda a, name: a, plain: bool = False,
+            held: Optional[Tuple[int, int]] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed MoE. x: [B, S, D] -> (y [B, S, D], aux loss fp32).
-    ``params``: router [D, E], w_gate / w_up [E, D, Fe], w_down [E, Fe, D].
-    ``shard(buf, "moe_buf")`` places the capacity buffers (the backbone's
-    sharder: experts over "model" on a mesh). The grouped path runs when
+    ``params``: router [D, E], w_gate / w_up [n, D, Fe], w_down [n, Fe, D]:
+    all E experts (n = E), or with ``held`` = (first, n) the experts [first,
+    first + n), whose part of the layer y then is. ``shard(buf,
+    "moe_buf")`` places the capacity buffers (the backbone's sharder:
+    experts over "model" on a mesh). The grouped path runs when
     :func:`grouped_path` says so; ``plain`` sends its experts to their plain
     version (``Backbone(kernel_impl="plain")``)."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
+    held = held_range(held, E)
+    n = E if held is None else held[1]
+    if params["w_gate"].shape[0] != n:
+        raise ValueError(f"expert leaves hold {params['w_gate'].shape[0]} "
+                         f"experts, want {n}")
     T = B * S
     xt = x.reshape(T, D)
     C = moe_capacity(T, E, K, cfg.capacity_factor)
@@ -259,14 +350,18 @@ def moe_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
     path_calls["grouped" if grouped else "capacity"] += 1
     traced = txtrace.enabled
     if traced:
-        span = hostspans.begin("moe.route", f"T={T} grouped rows={T * K}"
-                               if grouped else f"T={T} capacity EC={E * C}")
+        detail = (f"T={T} grouped rows={T * K}" if grouped
+                  else f"T={T} capacity EC={n * C}")
+        span = hostspans.begin("moe.route", detail if held is None
+                               else f"{detail} held={n}/{E}")
     probs, gate_vals, gate_idx = route(xt, params["router"], K)
     if traced:
         span = hostspans.then(span, "moe.dispatch")
     flat_idx = gate_idx.reshape(-1)                              # [T*K]
     if grouped:
-        keep, rows, ends = grouped_rows(flat_idx, E, C)
+        keep, rows, ends = grouped_rows(flat_idx, E, C, held)
+        if expert_rows.on:
+            expert_rows.add(ends)
         buf = dispatch_rows(xt, rows)
         if traced:
             span = hostspans.then(span, "moe.experts")
@@ -275,10 +370,13 @@ def moe_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
             span = hostspans.then(span, "moe.combine")
         y = combine_rows(out, keep, rows, gate_vals.reshape(-1), T)
     else:
-        pos = slot_positions(flat_idx, E)
-        keep = pos < C
+        if held is None:
+            dest, pos = flat_idx, slot_positions(flat_idx, E)
+            keep = pos < C
+        else:
+            keep, dest, pos, _ = held_slots(flat_idx, held, C)
         safe_pos = torch.where(keep, pos, 0)
-        buf = shard(dispatch(xt, keep, flat_idx, safe_pos, (E, C, D)),
+        buf = shard(dispatch(xt, keep, dest, safe_pos, (n, C, D)),
                     "moe_buf")
         if traced:
             span = hostspans.then(span, "moe.experts")
@@ -286,8 +384,7 @@ def moe_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
                                    params["w_down"]), "moe_buf")
         if traced:
             span = hostspans.then(span, "moe.combine")
-        y = combine(out_buf, keep, flat_idx, safe_pos, gate_vals.reshape(-1),
-                    T)
+        y = combine(out_buf, keep, dest, safe_pos, gate_vals.reshape(-1), T)
     aux = aux_loss(probs, gate_idx, E)
     if traced:
         hostspans.end(span)

@@ -28,7 +28,7 @@ import torch.distributed as dist
 import torch.distributed._functional_collectives as funcol
 
 from .ffn import (aux_loss, combine, dispatch, expert_ffn, moe_capacity,
-                  route, slot_positions)
+                  moe_mlp, route, slot_positions)
 
 
 class AllReduce(torch.autograd.Function):
@@ -60,17 +60,27 @@ def virtualization(cfg, tp: int) -> Tuple[int, int]:
 
 def _local_moe(xt: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
                w_up: torch.Tensor, w_down: torch.Tensor, *, cfg, V: int,
-               split: int, tp: int, rank: int
+               split: int, tp: int, rank: int, plain: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One rank's part. xt: [T, D], the tokens of this rank's data shard
     (the same on every rank of the model group); router [D, E]; w_*: this
     rank's V / tp virtual experts, [V/tp, D, Fe/split] and [V/tp, Fe/split,
     D]. Returns (this rank's partial y [T, D], aux): the partials of the
-    model group's ranks sum to the layer's output."""
+    model group's ranks sum to the layer's output. Unsplit experts go
+    through :func:`ffn.moe_mlp` with the rank's share (its routed-rows path
+    when no gradient is taken, ``plain`` as there); split ones through the
+    capacity path's steps here."""
     T, D = xt.shape
     E, K = cfg.n_experts, cfg.top_k
     V_loc = V // tp
     base = rank * V_loc
+    if split == 1:
+        # whole experts: the rank holds [base, base + V_loc), which moe_mlp
+        # computes on either of its paths
+        y, aux = moe_mlp({"router": router, "w_gate": w_gate, "w_up": w_up,
+                          "w_down": w_down}, xt[None], cfg,
+                         plain=plain, held=(base, V_loc))
+        return y[0], aux
     probs, gate_vals, gate_idx = route(xt, router, K)
     # expert e -> its virtuals e * split + h, in token-major order
     vflat = (gate_idx[..., None] * split
@@ -91,7 +101,8 @@ def _local_moe(xt: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
 def moe_mlp_ep(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
                group: Optional[dist.ProcessGroup] = None,
                data_group: Optional[dist.ProcessGroup] = None, *,
-               reduce: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+               reduce: bool = True, plain: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel MoE. x: [B, S, D] -> (y, aux).
 
     ``params``: router [D, E]; w_gate / w_up [V, D, Fe_v], w_down [V, Fe_v,
@@ -100,7 +111,9 @@ def moe_mlp_ep(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
     size; None: tp = 1, no collective); ``data_group``, where given,
     averages aux over the data ranks, whose tokens differ. ``reduce=False``
     returns this rank's partial y, unsummed (on a DeviceMesh the backbone
-    declares it a partial sum and DTensor sums it)."""
+    declares it a partial sum and DTensor sums it). ``plain`` sends whole
+    experts' routed rows to their plain version, as :func:`ffn.moe_mlp`'s
+    does (``Backbone(kernel_impl="plain")``)."""
     B, S, D = x.shape
     tp = dist.get_world_size(group) if group is not None else 1
     rank = dist.get_rank(group) if group is not None else 0
@@ -115,7 +128,7 @@ def moe_mlp_ep(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
     y, aux = _local_moe(x.reshape(B * S, D), params["router"],
                         params["w_gate"][own], params["w_up"][own],
                         params["w_down"][own], cfg=cfg, V=V, split=split,
-                        tp=tp, rank=rank)
+                        tp=tp, rank=rank, plain=plain)
     if group is not None and reduce:
         y = AllReduce.apply(y, group)
     if data_group is not None:

@@ -1156,6 +1156,120 @@ def test_moe_mlp_grouped_path_makes_no_host_sync_and_fewer_launches(cuda):
     assert grouped <= capacity, (grouped, capacity)
 
 
+@pytest.mark.parametrize("T", [945, 256])
+def test_moe_mlp_share_makes_no_host_sync(cuda, T):
+    """qwen3-moe's layer at full width in bf16 (D 4096, 128 experts of
+    1536, top 8, capacity factor 16 = E / K: nothing dropped) under no_grad,
+    over T tokens (a 945-token prefill, a 256-slot decode step): the call
+    holding experts 64-127 makes no host sync
+    (torch.cuda.set_sync_debug_mode("error")); its device launches a call
+    beside the whole layer's grouped call on the same tokens (printed); the
+    two halves' y sum to the whole
+    layer's within 2**-6 of its largest |y| (each side rounds its experts'
+    h and y to bf16 once, and sums a token's assignments in another
+    order)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"),
+                              capacity_factor=16.0)
+    D, E, Fe = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    gen = torch.Generator(device=cuda).manual_seed(60 + T)
+
+    def randn(*shape, scale):
+        return (torch.randn(shape, generator=gen, device=cuda) * scale).to(
+            torch.bfloat16)
+    whole = {"router": randn(D, E, scale=D ** -0.5),
+             "w_gate": randn(E, D, Fe, scale=D ** -0.5),
+             "w_up": randn(E, D, Fe, scale=D ** -0.5),
+             "w_down": randn(E, Fe, D, scale=Fe ** -0.5)}
+    halves = [dict(whole, **{k: whole[k][f:f + 64].contiguous()
+                             for k in ("w_gate", "w_up", "w_down")})
+              for f in (0, 64)]
+    x = randn(1, T, D, scale=1.0)
+    with torch.no_grad():
+        ffn.moe_mlp(halves[1], x, cfg, held=(64, 64))   # the library, warm
+        torch.cuda.synchronize()
+        calls = dict(ffn.path_calls)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ffn.moe_mlp(halves[1], x, cfg, held=(64, 64))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert ffn.path_calls["grouped"] == calls["grouped"] + 1
+        shared = _device_launches(
+            lambda: ffn.moe_mlp(halves[1], x, cfg, held=(64, 64)))
+        unshared = _device_launches(lambda: ffn.moe_mlp(whole, x, cfg))
+        want, _ = ffn.moe_mlp(whole, x, cfg)
+        got = sum(ffn.moe_mlp(h, x, cfg, held=(f, 64))[0].float()
+                  for h, f in zip(halves, (0, 64)))
+    print(f"[share launches] T {T}: unshared {unshared}, held 64/128 "
+          f"{shared}")
+    assert shared <= unshared + 8, (shared, unshared)
+    want = want.float()
+    err = float((got - want).abs().max())
+    assert err <= 2.0 ** -6 * float(want.abs().max()), err
+
+
+def test_prefill_graphs_replay_the_eager_prefill(cuda):
+    """A small qwen3-moe holding experts 4-7 of 8, bf16 (the grouped path,
+    M1 and K1 inside the graph): ``Backbone(prefill_graphs=True)`` captures
+    each prompt length once, and every replay gives the eager prefill's
+    logits and cache bit for bit (the same kernels on the same inputs), new
+    tokens included; under the profiler it runs eagerly (the MoE layer is
+    called), and a Server on it serves the eager Server's tokens."""
+    from repro_torch.runtime.serve_loop import Request, Server
+
+    cfg = reduced(get_config("qwen3-moe-235b-a22b"), n_experts=8)
+    kw = dict(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+              remat=False, device=cuda, held_experts=(4, 4))
+    eager, graphed = Backbone(cfg, **kw), Backbone(cfg, prefill_graphs=True,
+                                                   **kw)
+    params = eager.init(7)
+    rng = np.random.default_rng(70)
+
+    def leaves(tree, at=""):
+        out = []
+        for k in sorted(tree):
+            v = tree[k]
+            out += (leaves(v, f"{at}/{k}") if isinstance(v, dict)
+                    else [(f"{at}/{k}", v)])
+        return out
+
+    for S in (17, 40, 17):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S),
+                                             dtype=np.int32)).to(cuda)
+        want, wcache = eager.prefill(params, {"tokens": toks}, 64)
+        got, gcache = graphed.prefill(params, {"tokens": toks}, 64)
+        assert torch.equal(got, want), S
+        for (kg, g), (kw_, w) in zip(leaves(gcache), leaves(wcache)):
+            assert kg == kw_
+            assert (torch.equal(g, w) if isinstance(w, torch.Tensor)
+                    else g == w), (S, kg)
+    assert len(graphed._graphs) == 2
+    calls = ffn.path_calls["grouped"]
+    graphed.prefill(params, {"tokens": toks}, 64)
+    assert ffn.path_calls["grouped"] == calls
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        graphed.prefill(params, {"tokens": toks}, 64)
+    assert ffn.path_calls["grouped"] == calls + cfg.n_layers
+    served = []
+    for bb in (eager, graphed):
+        srv = Server(bb, params, slots=3, ctx=64)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, 21,
+                                                   dtype=np.int32)
+                        if bb is eager else served[0][1][i], max_new=6)
+                for i in range(3)]
+        for r in reqs:
+            srv.submit(r)
+        srv.run()
+        served.append(([list(r.out) for r in reqs],
+                       [r.prompt for r in reqs]))
+    assert served[0][0] == served[1][0]
+    graphed.drop_prefill_graphs()
+    assert graphed._graphs == {}
+
+
 # --------------------------------------------------------------------------- #
 # whisper-tiny at full width and full depth (4 enc + 4 dec layers)            #
 # --------------------------------------------------------------------------- #

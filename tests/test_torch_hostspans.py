@@ -225,6 +225,27 @@ def test_moe_layer_records_four_spans_a_call(tracing, monkeypatch):
     assert torch.equal(y, y0) and torch.equal(aux, aux0)
 
 
+def test_moe_layer_span_names_its_share(tracing):
+    """With a share of the experts, moe.route's detail ends with the held
+    count over the router's, on either path."""
+    cfg = reduced(get_config("qwen3-moe-235b-a22b"))
+    bb = Backbone(cfg, compute_dtype=torch.float32, device="cpu")
+    layer = {k: v[0] for k, v in bb.init(0)["g0"]["s0"].items()
+             if k in ("router", "w_gate", "w_up", "w_down")}
+    share = dict(layer, **{k: layer[k][1:4] for k in ("w_gate", "w_up",
+                                                       "w_down")})
+    x = torch.randn(2, 5, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    ffn.moe_mlp(share, x, cfg, held=(1, 3))
+    assert {e["detail"] for e in _events("moe.route")} == {
+        f"T=10 grouped rows={10 * cfg.top_k} held=3/{cfg.n_experts}"}
+    txtrace.reset()
+    ffn.moe_mlp(share, x.clone().requires_grad_(), cfg, held=(1, 3))
+    C = ffn.moe_capacity(10, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
+    assert {e["detail"] for e in _events("moe.route")} == {
+        f"T=10 capacity EC={3 * C} held=3/{cfg.n_experts}"}
+
+
 def test_served_moe_layers_record_four_spans_a_layer_call(tracing):
     srv, reqs = _serve(n=2, arch="mixtral-8x22b")
     layers = reduced(get_config("mixtral-8x22b")).n_layers

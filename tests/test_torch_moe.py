@@ -21,6 +21,8 @@ one row in another order) and within 2**-6 of the largest |y| in bf16 (the
 capacity path rounds the gate and up products, the SiLU and their product to
 bf16, the grouped path only their product: a few bf16 ulps, 2**-8 each).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -269,6 +271,300 @@ def test_grouped_path_on_meta_tensors_charges_the_kernels():
     assert y.shape == x.shape and y.device.type == "meta"
     assert charged == [("moe_gate_up", 4.0 * R * D * Fe),
                        ("moe_down", 2.0 * R * Fe * D)]
+
+
+# --------------------------------------------------------------------------- #
+# A share of the experts (held = (first, n))                                  #
+# --------------------------------------------------------------------------- #
+# ways to cut the reduced archs' 4 experts into shares
+SHARES = {"halves": [(0, 2), (2, 2)], "1+3": [(0, 1), (1, 3)],
+          "quarters": [(0, 1), (1, 1), (2, 1), (3, 1)]}
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def _held(p, first, n):
+    """The layer's leaves as the share [first, first + n) holds them."""
+    return dict(p, **{k: p[k][first:first + n] for k in EXPERT_LEAVES})
+
+
+@pytest.mark.parametrize("shares", list(SHARES))
+@pytest.mark.parametrize("no_grad", [False, True],
+                         ids=["capacity", "grouped"])
+@pytest.mark.parametrize("drops", [False, True], ids=["drop_free", "drops"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_held_shares_sum_to_the_whole_layer(arch, drops, no_grad, shares):
+    """The shares' y sum to the whole layer's y (each held expert numbers
+    its assignments as the whole layer does, so they drop alike) and each
+    share's aux is the whole layer's. On the capacity path the gradients
+    too: x's and the router's summed over the shares, each expert leaf's
+    the whole layer's slice. Drop-free at capacity factor E / K, and with
+    drops at 1.0."""
+    cfg = reduced(get_config(arch))
+    cfg = dataclasses.replace(cfg, capacity_factor=1.0 if drops else
+                              cfg.n_experts / cfg.top_k)
+    p, x = _layer(cfg, 30, router_scale=3.0), _x(cfg, 2, 32, 31)
+    assert _port_keep(p, x, cfg)[1].all() != drops
+    ct = torch.from_numpy(np.random.default_rng(32).standard_normal(
+        x.shape).astype(np.float32))
+
+    def run(leaves, held=None):
+        tp = {k: torch.from_numpy(np.ascontiguousarray(v)).requires_grad_(
+            not no_grad) for k, v in leaves.items()}
+        tx = torch.from_numpy(x).requires_grad_(not no_grad)
+        calls = dict(ffn.path_calls)
+        y, aux = ffn.moe_mlp(tp, tx, cfg, held=held)
+        path = "grouped" if no_grad else "capacity"
+        assert ffn.path_calls[path] == calls[path] + 1
+        if no_grad:
+            return y, aux, None
+        (torch.sum(y * ct) + 0.5 * aux).backward()
+        return y.detach(), aux.detach(), dict(
+            {k: t.grad for k, t in tp.items()}, x=tx.grad)
+
+    whole_y, whole_aux, whole_g = run(p)
+    parts = [run(_held(p, f, n), (f, n)) for f, n in SHARES[shares]]
+    _close(sum(y for y, _, _ in parts), whole_y, TOL)
+    for _, aux, _ in parts:
+        assert torch.equal(aux, whole_aux)
+    if no_grad:
+        return
+    # aux's gradient reaches x and the router in every share alike: the
+    # whole layer's counts it once
+    aux_g = _torch_layer({k: v.copy() for k, v in p.items()}, x, cfg,
+                         np.zeros_like(x), 0.5)[2:]
+    extra = len(parts) - 1
+    _close(sum(g["x"] for _, _, g in parts) - extra * aux_g[1],
+           whole_g["x"], TOL)
+    _close(sum(g["router"] for _, _, g in parts) - extra * aux_g[0]["router"],
+           whole_g["router"], TOL)
+    for (f, n), (_, _, g) in zip(SHARES[shares], parts):
+        for k in EXPERT_LEAVES:
+            _close(g[k], whole_g[k][f:f + n], TOL)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("T", [1, 7, 256])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_held_grouped_path_matches_capacity_path(arch, T, dtype):
+    """A share (experts 2 and 3 of 4, the last of them with no rows) at
+    capacity factor E / K, under no_grad against the capacity path with a
+    gradient: the held assignments kept, all of them and no other, in rows
+    [0, ends[-1]); y within the limits of the unshared comparison, aux
+    equal."""
+    cfg = reduced(get_config(arch))
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    p, x = _skewed_layer(cfg, 33)
+    dt = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    held = (2, 2)
+    tp = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dt)
+          for k, v in _held(p, *held).items()}
+    tx = torch.from_numpy(x[:, :T]).to(dt)
+    E, K = cfg.n_experts, cfg.top_k
+    C = ffn.moe_capacity(T, E, K, cfg.capacity_factor)
+    _, _, idx = ffn.route(tx.reshape(T, -1), tp["router"], K)
+    flat = idx.reshape(-1)
+    keep, rows, ends = ffn.grouped_rows(flat, E, C, held)
+    assert ends.shape == (2,) and int(torch.diff(ends)[0]) == 0
+    assert torch.equal(keep, flat >= 2)
+    assert sorted(rows[keep].tolist()) == list(range(int(ends[-1])))
+    assert bool((rows[~keep] == flat.shape[0]).all())
+    with torch.no_grad():
+        got, got_aux = ffn.moe_mlp(tp, tx, cfg, held=held)
+    want, want_aux = ffn.moe_mlp({k: v.requires_grad_() for k, v in
+                                  tp.items()}, tx, cfg, held=held)
+    assert torch.equal(got_aux, want_aux.detach())
+    want = want.detach().float()
+    if dt == torch.float32:
+        _close(got, want, 1e-6)
+    else:
+        err = float((got.float() - want).abs().max())
+        assert err <= 2.0 ** -6 * float(want.abs().max()), err
+
+
+def test_without_a_share_the_held_code_is_not_entered(monkeypatch):
+    """held None, or a range of all E experts: neither path enters
+    held_slots, and y and aux are those of the layer called as before, bit
+    for bit. A range outside the router's experts, or leaves of another
+    count, is refused."""
+    cfg = reduced(get_config("mixtral-8x22b"), capacity_factor=1.0)
+    p, x = _layer(cfg, 34, router_scale=3.0), _x(cfg, 2, 32, 35)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    tx = torch.from_numpy(x)
+
+    def both(**kw):
+        with torch.no_grad():
+            grouped = ffn.moe_mlp(tp, tx, cfg, **kw)
+        capacity = ffn.moe_mlp(tp, tx.clone().requires_grad_(), cfg, **kw)
+        return grouped + tuple(t.detach() for t in capacity)
+
+    want = both()
+
+    def entered(*args):
+        raise AssertionError("held_slots entered without a share")
+    monkeypatch.setattr(ffn, "held_slots", entered)
+    E = cfg.n_experts
+    for held in (None, (0, E)):
+        for a, b in zip(both(held=held), want):
+            assert torch.equal(a, b)
+    assert ffn.held_range((0, E), E) is None
+    assert ffn.held_range((1, 3), E) == (1, 3)
+    for bad in ((3, 2), (0, 0), (-1, 2)):
+        with pytest.raises(ValueError, match="do not lie"):
+            ffn.held_range(bad, E)
+    with pytest.raises(ValueError, match="expert leaves hold 4"):
+        ffn.moe_mlp(tp, tx, cfg, held=(0, 2))
+
+
+def test_expert_rows_counts_each_grouped_call_while_on():
+    """Off: nothing kept. On: each grouped call's (rows its experts
+    computed, experts with a row), the whole layer's and a share's, read
+    once by take(); a capacity call adds nothing."""
+    cfg = reduced(get_config("qwen3-moe-235b-a22b"))
+    p, x = _skewed_layer(cfg, 36)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    tx = torch.from_numpy(x[:, :40])
+    counter = ffn.expert_rows
+    assert not counter.on and counter.take() == []
+    with torch.no_grad():
+        ffn.moe_mlp(tp, tx, cfg)
+    assert counter.take() == []
+    _, _, idx = ffn.route(tx.reshape(40, -1), tp["router"], cfg.top_k)
+    flat = idx.reshape(-1).tolist()
+    counter.on = True
+    try:
+        with torch.no_grad():
+            ffn.moe_mlp(tp, tx, cfg)
+            ffn.moe_mlp(_held(tp, 1, 3), tx, cfg, held=(1, 3))
+        ffn.moe_mlp(tp, tx.clone().requires_grad_(), cfg)
+    finally:
+        counter.on = False
+    mine = [e for e in flat if e >= 1]
+    assert counter.take() == [(len(flat), len(set(flat))),
+                              (len(mine), len(set(mine)))]
+    assert counter.take() == []
+
+
+def test_expert_rows_add_launches_nothing():
+    """Counting a call runs no operation (it keeps the call's ends as they
+    are); take() reads rows and experts with rows, empty experts and
+    calls of another length too."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    counter = ffn.ExpertRows()
+    calls = [torch.tensor([0, 3, 3, 7]), torch.tensor([2, 2]),
+             torch.tensor([0, 0, 0])]
+    with Ops() as mode:
+        for ends in calls:
+            counter.add(ends)
+    assert mode.ops == []
+    assert counter.take() == [(7, 2), (2, 1), (0, 0)]
+    assert counter.take() == []
+
+
+def test_backbone_holds_its_share_of_the_experts():
+    """Backbone(held_experts=(2, 2)): expert leaves of 2 experts, the
+    router over all 4; its prefill and decode agree (drop-free), and its
+    MoE layers pass their share on. The ep path, a dense model or a range
+    outside the router are refused."""
+    cfg = reduced(get_config("qwen3-moe-235b-a22b"))
+    bb = Backbone(cfg, compute_dtype=torch.float32, device="cpu",
+                  held_experts=(2, 2))
+    meta = bb.init(device="meta")["g0"]["s0"]
+    R, D, Fe = cfg.groups[0].repeat, cfg.d_model, cfg.moe_d_ff
+    assert meta["router"].shape == (R, D, 4)
+    assert meta["w_gate"].shape == meta["w_up"].shape == (R, 2, D, Fe)
+    assert meta["w_down"].shape == (R, 2, Fe, D)
+    params = bb.init(0)
+    toks = torch.from_numpy(_tokens(cfg.vocab, 2, 13, 37))
+    _, cache = bb.prefill(params, {"tokens": toks[:, :12]}, 32)
+    got, _ = bb.decode_step(params, cache, toks[:, 12:13])
+    want, _ = bb.prefill(params, {"tokens": toks}, 32)
+    _close(got[:, -1], want[:, -1], 1e-4)
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append(kw.get("held"))
+        return ffn.moe_mlp(*args, **kw)
+    from repro_torch.models import backbone
+    old = backbone.moe_mlp
+    backbone.moe_mlp = spy
+    try:
+        bb.prefill(params, {"tokens": toks[:, :4]}, 32)
+    finally:
+        backbone.moe_mlp = old
+    assert seen == [(2, 2)] * cfg.n_layers
+    with pytest.raises(ValueError, match="held_experts"):
+        Backbone(cfg, device="cpu", moe_impl="ep", held_experts=(0, 2))
+    with pytest.raises(ValueError):
+        Backbone(reduced(get_config("qwen3-4b")), device="cpu",
+                 held_experts=(0, 1))
+    with pytest.raises(ValueError, match="do not lie"):
+        Backbone(cfg, device="cpu", held_experts=(3, 2))
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_local_moe_runs_whole_experts_through_moe_mlp_with_its_share(
+        monkeypatch, tp):
+    """_local_moe hands a rank's whole experts (split 1) to moe_mlp with
+    the rank's share; column-split experts (tp 8 over 4) stay on its own
+    capacity steps."""
+    cfg = reduced(get_config("mixtral-8x22b"))
+    V, split = moe_ep.virtualization(cfg, tp)
+    p = {k: torch.from_numpy(v) for k, v in _virtualize(
+        _layer(cfg, 38), split).items()}
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append(kw["held"])
+        return ffn.moe_mlp(*args, **kw)
+    monkeypatch.setattr(moe_ep, "moe_mlp", spy)
+    xt = torch.from_numpy(_x(cfg, 1, 9, 39)[0])
+    V_loc = V // tp
+    for r in range(tp):
+        own = slice(r * V_loc, (r + 1) * V_loc)
+        moe_ep._local_moe(xt, p["router"], p["w_gate"][own], p["w_up"][own],
+                          p["w_down"][own], cfg=cfg, V=V, split=split, tp=tp,
+                          rank=r)
+    assert seen == ([(r * V_loc, V_loc) for r in range(tp)] if split == 1
+                    else [])
+
+
+def test_ep_form_passes_plain_to_moe_mlp(monkeypatch):
+    """moe_mlp_ep(plain=) reaches moe_mlp through _local_moe, and
+    Backbone(kernel_impl="plain", moe_impl="ep") sets it, so the plain
+    Backbone sends whole experts' routed rows to their plain version on
+    the ep path as on the gspmd one."""
+    cfg = reduced(get_config("mixtral-8x22b"))
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append(kw["plain"])
+        return ffn.moe_mlp(*args, **kw)
+    monkeypatch.setattr(moe_ep, "moe_mlp", spy)
+    p = {k: torch.from_numpy(v) for k, v in _layer(cfg, 40).items()}
+    x = torch.from_numpy(_x(cfg, 1, 9, 41))
+    for plain in (False, True):
+        moe_ep.moe_mlp_ep(p, x, cfg, plain=plain)
+    assert seen == [False, True]
+    seen.clear()
+    for impl in ("kernel", "plain"):
+        bb = Backbone(cfg, compute_dtype=torch.float32, device="cpu",
+                      moe_impl="ep", kernel_impl=impl)
+        params = bb.init(0)
+        with torch.no_grad():
+            bb.prefill(params,
+                       {"tokens": torch.zeros(1, 8, dtype=torch.int32)}, 16)
+    layers = cfg.n_layers
+    assert seen == [False] * layers + [True] * layers
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
