@@ -25,7 +25,10 @@ Phases; each one that fails raises, and the process exits non-zero:
    slots, a half-empty ring and a ring where every split but one is empty,
    and whisper-tiny's calls (whisper_attention_cases: the encoder's
    non-causal [8, 1500], the decoder's prefill, cross prefill 32 x 1500,
-   the ring decode and the cross decode over 1500 frames);
+   the ring decode and the cross decode over 1500 frames); at the
+   benchmark cells' calls (SM90_CASES: qwen3-moe's prefill strata, mixtral's
+   1500, qwen3-4b's training forward with its LSE) K1's sm90 body beside the
+   mma body it replaced on the same call, SDPA and the bound;
    K2 (rglru_scan) at RGLRU_CASES shapes, a ragged
    chunked shape and recurrentgemma's prefill and decode; K3 (wkv6_scan) at
    RWKV_CASES shapes, a ragged chunked shape, rwkv6-3b's prefill and decode;
@@ -62,7 +65,8 @@ Phases; each one that fails raises, and the process exits non-zero:
    synchronised waves of 16 requests. Every launch counter is set to 0 just
    before the run and read just after: each kernel must have launched
    exactly (its layers) x (its calls) times: flash_fwd once a request
-   (prefill), flash_decode once a decode step, the MoE expert kernel twice
+   (prefill), each on the arch's body (K1_SM90_ARCHS: sm90 at hd 128, mma
+   otherwise), flash_decode once a decode step, the MoE expert kernel twice
    a MoE layer call, every such call on the grouped path, the scans once
    each, the
    prefills through the scans' chunked bodies and the decode steps through
@@ -534,6 +538,128 @@ TAGS = {"qwen3-4b": "qwen3", "recurrentgemma-9b": "rgemma", "rwkv6-3b": "rwkv6",
         "qwen3-moe-235b-a22b": "qwen3moe"}
 
 
+# K1's forward body for an arch's calls, as the runs must show it
+# (kernels/flash_attention.body decides from dtype, head dim and cap): bf16
+# at hd 128 without a cap on the sm90 body (csrc/flash_fwd_sm90.cu);
+# gemma2 (hd 256, cap 50), recurrentgemma (hd 256) and whisper-tiny (hd 64)
+# on the mma body; fp32 on the simt body
+K1_SM90_ARCHS = ("qwen3-4b", "qwen2-7b", "phi4-mini-3.8b", "chameleon-34b",
+                 "mixtral-8x22b", "qwen3-moe-235b-a22b")
+K1_BODIES = ("sm90", "mma", "simt")
+
+
+def k1_body(arch, dtype):
+    if dtype != torch.bfloat16:
+        return "simt"
+    return "sm90" if arch in K1_SM90_ARCHS else "mma"
+
+
+def k1_want(arch, dtype, n):
+    """``flash_fwd.<body>`` counts: n launches, all on the arch's body."""
+    body = k1_body(arch, dtype)
+    return {f"flash_fwd.{b}": (n if b == body else 0) for b in K1_BODIES}
+
+
+def mma_body(q, k, v, kw, return_lse=False):
+    """flash_fwd.cu's mma.sync body on a bf16 call, through the library's
+    entry point (the wrapper sends bf16 at hd 128 to the sm90 body): the
+    yardstick of the sm90 body's lines. The port never calls it so."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, Hkv, Hq // Hkv, Sq), dtype=torch.float32,
+                       device=q.device) if return_lse else None)
+    rc = fa._library().flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kw["q_positions"].data_ptr(),
+        kw["kv_positions"].data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, Sq, Skv, Hq, Hkv, hd, 1,
+        int(kw["causal"]), kw["window"] or 0, 0.0, float(hd ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check_launch("flash_fwd (mma)", rc)
+    return (out, lse) if return_lse else out
+
+
+# K1 at the benchmark cells' calls, bf16 at hd 128, causal: (name, B, S, Hq,
+# Hkv, with LSE): qwen3-moe's prefill strata, mixtral's middle one, qwen3-4b's
+# training forward
+SM90_CASES = [
+    ("qwen3moe_945", 1, 945, 64, 4, False),
+    ("qwen3moe_1500", 1, 1500, 64, 4, False),
+    ("qwen3moe_2381", 1, 2381, 64, 4, False),
+    ("mixtral_1500", 1, 1500, 48, 8, False),
+    ("qwen3_train_lse", 4, 2048, 32, 8, True),
+]
+
+
+def sm90_case(name, B, S, Hq, Hkv, lse):
+    """K1's sm90 body at one cell's call: against attention_plain (and
+    attention_lse_plain with the LSE), timed (CUDA events, inputs rotated
+    past the L2) beside the mma body it replaced on the same call, SDPA with
+    KV repeated (never called by the port) and the bound."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    G, hd = Hq // Hkv, 128
+    nbuf = n_buffers((B * S * Hq + 2 * B * S * Hkv) * hd * 2)
+    bufs = [tuple(torch.randn(shape, generator=gen, device=dev).bfloat16()
+                  for shape in ((B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+            for _ in range(nbuf)]
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, window=None, logit_cap=None, q_positions=pos,
+              kv_positions=pos)
+    q, k, v = bufs[0]
+    before = fa.body_launches["sm90"]
+    got = fa.flash_fwd(q, k, v, return_lse=lse, **kw)
+    torch.cuda.synchronize()
+    if fa.body_launches["sm90"] != before + 1:
+        raise AssertionError(f"{name}: flash_fwd did not take the sm90 body")
+    out, got_lse = got if lse else (got, None)
+    want = ref.attention_plain(q, k, v, **kw).float()
+    atol, rtol = TOL[torch.bfloat16]
+    limit = atol + rtol * want.abs() + P_ROUND * ref.attention_plain(
+        q.float(), k.float(), v.float().abs(), **kw)
+    err = (out.float() - want).abs()
+    if not bool((err <= limit).all()):
+        raise AssertionError(f"{name}: the sm90 body disagrees with the plain "
+                             f"version, max abs err {float(err.max())}")
+    lse_err = None
+    if lse:
+        _, want_lse = ref.attention_lse_plain(q, k, v, **kw)
+        lse_err = float((got_lse - want_lse).abs().max())
+        if lse_err > LSE_TOL:
+            raise AssertionError(f"{name}: LSE err {lse_err}")
+    max_err = float(err.max())
+    del want, limit, err
+    ms = time_ms(rotating(lambda a, b, c: fa.flash_fwd(
+        a, b, c, return_lse=lse, **kw), bufs))
+    mma_ms = time_ms(rotating(lambda a, b, c: mma_body(a, b, c, kw, lse), bufs))
+    lib_bufs = [(a.transpose(1, 2), b.repeat_interleave(G, 2).transpose(1, 2),
+                 c.repeat_interleave(G, 2).transpose(1, 2)) for a, b, c in bufs]
+    library_ms = time_ms(rotating(lambda a, b, c: F.scaled_dot_product_attention(
+        a, b, c, is_causal=True), lib_bufs))
+    del lib_bufs
+    bound_ms, bound_by = attention_bound(q, k, pos, pos, True, None,
+                                         extra_bytes=4 * B * Hq * S if lse else 0)
+    row = dict(kernel="flash_fwd", case=f"{name}_sm90", dtype="bfloat16",
+               body="sm90", shape=[B, S, S, Hq, Hkv, hd], causal=True,
+               window=None, logit_cap=None, max_abs_err=max_err,
+               lse_err=lse_err, ms=ms, mma_ms=mma_ms, plain_ms=None,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"[kernel] flash_fwd sm90 {name:>16} err {max_err:.3e}"
+        + (f" lse err {lse_err:.3e}" if lse else "")
+        + f" sm90 {ms:.4f} ms mma {mma_ms:.4f} ms ({mma_ms / ms:.2f}x) library "
+        f"{library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}): "
+        f"{100 * bound_ms / ms:.1f}% of the bound, mma "
+        f"{100 * bound_ms / mma_ms:.1f}%")
+    return row
+
+
 def serve_attention_cases():
     """K1's calls as phase 5 makes them, for each served arch and each of its
     attention kinds (gemma2-2b's local and global layers): the prefill of one
@@ -626,6 +752,7 @@ def phase_flash():
                                 RG["slots"], 1, 2048, 16, 1, 256, True, 2048,
                                 None, dtype, qpos=[1023],
                                 kpos=_ring(2048, 0, 1023)))
+    rows += [sm90_case(*case) for case in SM90_CASES]
     return rows
 
 
@@ -1292,6 +1419,12 @@ def phase_serve(arch):
     if paths != {"grouped": n_moe * both, "capacity": 0}:
         raise AssertionError(f"{arch}: moe_mlp calls by path {paths}, want "
                              f"{n_moe * both} grouped")
+    # K1: every prefill on the arch's body
+    want_k1 = {k[10:]: n for k, n in k1_want(arch, torch.bfloat16,
+                                             n_attn * req).items()}
+    if bodies["flash_fwd"] != want_k1:
+        raise AssertionError(f"{arch}: flash_fwd bodies launched "
+                             f"{bodies['flash_fwd']}, want {want_k1}")
     # the scans: every prefill through the chunked body, every decode step
     # through the sequential one
     for name, n in (("rglru_scan", kinds.count("rec")),
@@ -1322,7 +1455,9 @@ def phase_serve(arch):
     counts = ", ".join(
         f"{name} {launches[name]} = {n} x {why}"
         + (f" ({bodies[name]['chunked']} chunked, {bodies[name]['sequential']}"
-           " sequential)" if name in bodies else "")
+           " sequential)" if name in ("rglru_scan", "wkv6_scan") else "")
+        + (f" (all {k1_body(arch, torch.bfloat16)})" if name == "flash_fwd"
+           else "")
         for name, (n, _, why) in expect.items() if n)
     log(f"[serve] {arch}: {len(reqs)} requests of {spec['prompt_len']} tokens, "
         f"{steps} decode steps, {tokens} tokens in {wall:.3f} s "
@@ -1398,7 +1533,8 @@ def phase_serve_whisper():
         toks, tp, td = wave(i)
         counts = _counts()
         want = {k: 0 for k in counts}
-        want.update({"flash_fwd": 3 * 4, "flash_decode": 2 * 4 * steps})
+        want.update({"flash_fwd": 3 * 4, "flash_decode": 2 * 4 * steps,
+                     **k1_want("whisper-tiny", torch.bfloat16, 3 * 4)})
         _check_counts(f"whisper-tiny serving wave {i}", counts, want)
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
@@ -1631,6 +1767,7 @@ def _train_want(bb, batch, seq, runs, fwd):
     for name, (n, body) in planned.items():
         for b in BODIES:
             want[f"{name}.{b}"] = n if b == body else 0
+    want.update(k1_want(bb.cfg.name, bb.compute_dtype, attn * fwd))
     return want
 
 
@@ -3322,7 +3459,8 @@ def main() -> int:
     paths = {arch: s["launches"] for arch, s in serve.items()}
     bodies = {arch: s["body_launches"] for arch, s in serve.items()}
     paths["whisper-tiny serve"] = serve_whisper["launches"]
-    bodies["whisper-tiny serve"] = {}  # no scan
+    bodies["whisper-tiny serve"] = {"flash_fwd": {
+        b: serve_whisper["launches"][f"flash_fwd.{b}"] for b in K1_BODIES}}
     for arch, t in train.items():
         if "trainer" in t:
             counts = t["trainer"]["launches"]
@@ -3330,14 +3468,19 @@ def main() -> int:
             bodies[f"{arch} train"] = {
                 scan: {b: counts[f"{scan}.{b}"] for b in BODIES}
                 for scan in ("rglru_scan", "wkv6_scan")}
+            bodies[f"{arch} train"]["flash_fwd"] = {
+                b: counts[f"flash_fwd.{b}"] for b in K1_BODIES}
     paths["qwen3-4b dist train"] = dist_out["launches"]
-    bodies["qwen3-4b dist train"] = {}  # no scan
+    bodies["qwen3-4b dist train"] = {"flash_fwd": {
+        b: dist_out["launches"][f"flash_fwd.{b}"] for b in K1_BODIES}}
     for arch in REMAT["cells"]:
         counts = remat_out[arch]["dots"]["launches"]
         paths[f"{arch} train, remat dots"] = counts
         bodies[f"{arch} train, remat dots"] = {
             scan: {b: counts[f"{scan}.{b}"] for b in BODIES}
             for scan in ("rglru_scan", "wkv6_scan")}
+        bodies[f"{arch} train, remat dots"]["flash_fwd"] = {
+            b: counts[f"flash_fwd.{b}"] for b in K1_BODIES}
 
     kernels = []
     for name, (case, replaces) in HEADLINE.items():

@@ -30,7 +30,9 @@
 // fp32 or bf16; hd a multiple of 8, at most 256.
 //
 // Two bodies, chosen by dtype. ops.attention sends every call with more
-// than one query position here; one query position goes to flash_decode.cu.
+// than one query position to kernels/flash_attention.py, and one query
+// position to flash_decode.cu; the wrapper sends bf16 at hd 128 without a
+// logit cap to flash_fwd_sm90.cu (TMA and wgmma) and every other call here.
 // Both bodies take one CTA per (b, kv head, block of rows), where a row is
 // (query position x one of the G = Hq/Hkv heads that share the kv head):
 // GQA reads each K/V tile once for all G heads and never materialises

@@ -1,4 +1,5 @@
-"""Wrapper of the Hopper flash-attention forward kernel (``csrc/flash_fwd.cu``).
+"""Wrapper of the Hopper flash-attention forward kernels (``csrc/flash_fwd.cu``,
+``csrc/flash_fwd_sm90.cu``).
 
 The kernel replaces ``src/repro/kernels/flash_attention.py::_fwd_kernel``,
 generalised from a contiguous ``q_offset`` to explicit int32 query and key
@@ -10,6 +11,15 @@ query position to :mod:`repro_torch.kernels.flash_decode` instead. With
 log-sum-exp of each query row, which the backward
 (:mod:`repro_torch.kernels.flash_bwd`) reads; its plain version is then
 :func:`repro_torch.kernels.ref.attention_lse_plain`.
+
+Three bodies compute that function, and :func:`body` picks one from what the
+call shows, its dtype, head dim and logit cap: ``sm90``
+(``csrc/flash_fwd_sm90.cu``: TMA, an mbarrier ring and wgmma, Hopper's own
+units) takes bf16 at head dim 128 without a cap, which is every serving
+prefill and training forward of the benchmark's models; ``mma``
+(``csrc/flash_fwd.cu``'s mma.sync body) every other bf16 call (gemma2 and
+recurrentgemma at 256, gemma2's cap, whisper at 64); ``simt`` (its fp32
+body) fp32. ``body_launches`` counts the launches of each.
 """
 from __future__ import annotations
 
@@ -23,8 +33,10 @@ from . import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 
-# Launches of the kernel since the last reset (set it to 0 to reset).
+# Launches of the kernel since the last reset (set it to 0 to reset), and
+# of each body (set each to 0).
 launches = 0
+body_launches = {"sm90": 0, "mma": 0, "simt": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -39,6 +51,10 @@ def _library() -> ctypes.CDLL:
         lib.flash_fwd.argtypes = ([ptr] * 7 + [i32] * 9
                                   + [ctypes.c_float, ctypes.c_float, ptr])
         lib.flash_fwd.restype = i32
+        # as flash_fwd, without dtype and logit_cap
+        lib.flash_fwd_sm90.argtypes = ([ptr] * 7 + [i32] * 8
+                                       + [ctypes.c_float, ptr])
+        lib.flash_fwd_sm90.restype = i32
         _lib = lib
     return _lib
 
@@ -78,6 +94,14 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"logit_cap {logit_cap}: want None or > 0")
 
 
+def body(dtype: torch.dtype, head_dim: int, logit_cap: Optional[float]) -> str:
+    """The body that takes a call: ``sm90`` for bf16 at head dim 128 without
+    a logit cap, ``mma`` for any other bf16 call, ``simt`` for fp32."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    return "sm90" if head_dim == 128 and logit_cap is None else "mma"
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               logit_cap: Optional[float] = None,
@@ -100,14 +124,21 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return (o, lse) if return_lse else o
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    which = body(q.dtype, hd, logit_cap)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
+            kv_positions.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr())
     with torch.cuda.device(q.device):
-        rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           q_positions.data_ptr(), kv_positions.data_ptr(),
-                           o.data_ptr(),
-                           None if lse is None else lse.data_ptr(),
-                           B, Sq, Skv, Hq, Hkv, hd,
-                           _DTYPES[q.dtype], int(causal), window or 0,
-                           float(logit_cap or 0.0), float(hd ** -0.5), stream)
-    build.check_launch("flash_fwd", rc)
+        if which == "sm90":
+            rc = lib.flash_fwd_sm90(*ptrs, B, Sq, Skv, Hq, Hkv, hd,
+                                    int(causal), window or 0,
+                                    float(hd ** -0.5), stream)
+        else:
+            rc = lib.flash_fwd(*ptrs, B, Sq, Skv, Hq, Hkv, hd,
+                               _DTYPES[q.dtype], int(causal), window or 0,
+                               float(logit_cap or 0.0), float(hd ** -0.5),
+                               stream)
+    build.check_launch(f"flash_fwd ({which})", rc)
     launches += 1
+    body_launches[which] += 1
     return (o, lse) if return_lse else o

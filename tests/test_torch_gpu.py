@@ -1271,6 +1271,208 @@ def test_prefill_graphs_replay_the_eager_prefill(cuda):
 
 
 # --------------------------------------------------------------------------- #
+# K1's sm90 body (csrc/flash_fwd_sm90.cu): every bf16 call at hd 128          #
+# --------------------------------------------------------------------------- #
+def _mma_body(q, k, v, kw, return_lse=False):
+    """flash_fwd.cu's mma.sync body on the same call, through the library's
+    entry point: the wrapper sends bf16 at hd 128 to the sm90 body."""
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, Hkv, Hq // Hkv, Sq), dtype=torch.float32,
+                       device=q.device) if return_lse else None)
+    rc = fa._library().flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kw["q_positions"].data_ptr(),
+        kw["kv_positions"].data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, Sq, Skv, Hq, Hkv, hd, 1,
+        int(kw["causal"]), kw["window"] or 0, 0.0, float(hd ** -0.5),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return (out, lse) if return_lse else out
+
+
+def _sm90_call(q, k, v, kw, return_lse=False):
+    """fa.flash_fwd, held to one launch of the sm90 body."""
+    before = dict(fa.body_launches)
+    got = fa.flash_fwd(q, k, v, return_lse=return_lse, **kw)
+    torch.cuda.synchronize()
+    assert {b: fa.body_launches[b] - before[b] for b in before} == {
+        "sm90": 1, "mma": 0, "simt": 0}
+    return got
+
+
+def _assert_sm90_close(q, k, v, kw, return_lse=False):
+    """The sm90 body against attention_plain (rows with a valid key) within
+    the bf16 limit, 0 on a row with no valid key; its LSE against
+    attention_lse_plain within LSE_TOL, -inf on such a row."""
+    got = _sm90_call(q, k, v, kw, return_lse)
+    out, lse = got if return_lse else (got, None)
+    B, Sq, Hq, _ = q.shape
+    G = Hq // k.shape[2]
+    _, want_lse = ref.attention_lse_plain(q, k, v, **kw)
+    seen = want_lse > ref.MASK_VALUE / 2                  # [B, Hkv, G, Sq]
+    rows = seen.permute(0, 3, 1, 2).reshape(B, Sq, Hq)    # [B, Sq, Hq]
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    if bool((~rows).any()):  # a row with no valid key gives 0
+        assert out[~rows].abs().max().item() == 0.0
+    want = ref.attention_plain(q, k, v, **kw).float()
+    limit = (1e-4 + 2.0 ** -6 * want.abs() + P_ROUND * ref.attention_plain(
+        q.float(), k.float(), v.float().abs(), **kw))
+    err = (out.float() - want).abs()
+    ok = (err <= limit) | ~rows[..., None]
+    assert bool(ok.all()), (f"max abs err {float(err[rows].max())}, worst "
+                            f"excess {float((err - limit)[rows].max())}")
+    if return_lse:
+        assert lse.shape == want_lse.shape and lse.dtype == torch.float32
+        _assert_close_elementwise(lse[seen], want_lse[seen], *LSE_TOL, "lse")
+        assert bool(torch.isneginf(lse[~seen]).all())
+    return got
+
+
+# (B, Sq, Skv, Hq, Hkv, window, LSE): the cells' calls at hd 128, causal:
+# qwen3-moe's prefill strata (64/4), mixtral's (48/8) and its registered
+# window of 4096 past the window, qwen3-4b's training forward with its LSE
+SM90_CELL_SHAPES = [
+    (1, 945, 945, 64, 4, None, False),
+    (1, 1500, 1500, 64, 4, None, False),
+    (1, 2381, 2381, 64, 4, None, False),
+    (1, 1500, 1500, 48, 8, None, False),
+    (1, 4200, 4200, 48, 8, 4096, False),
+    (4, 2048, 2048, 32, 8, None, True),
+]
+
+
+@pytest.mark.parametrize("case", SM90_CELL_SHAPES, ids=str)
+def test_sm90_body_at_the_cells_shapes(cuda, case):
+    B, Sq, Skv, Hq, Hkv, window, lse = case
+    q = _randn((B, Sq, Hq, 128), torch.bfloat16, cuda, 80)
+    k = _randn((B, Skv, Hkv, 128), torch.bfloat16, cuda, 81)
+    v = _randn((B, Skv, Hkv, 128), torch.bfloat16, cuda, 82)
+    kw = dict(causal=True, window=window, logit_cap=None,
+              q_positions=torch.arange(Sq, dtype=torch.int32, device=cuda),
+              kv_positions=torch.arange(Skv, dtype=torch.int32, device=cuda))
+    _assert_sm90_close(q, k, v, kw, return_lse=lse)
+
+
+def _sm90_edge_cases():
+    """name -> (B, Sq, Hq, Hkv, causal, window, q positions, kv positions)."""
+    ring = _ring(512, 700, 1180)             # wrapped, 31 empty slots
+    holes = np.arange(333, dtype=np.int32)
+    holes[::5] = -1                          # key 0 too: query 0 sees none
+    return {
+        # Sq and Skv off the 128-row and 128-key tiles, the queries the
+        # last 200 of 333 positions, B > 1
+        "ragged_tail_b2": (2, 200, 32, 8, True, None, np.arange(133, 333),
+                           np.arange(333)),
+        "odd_group_g7": (1, 333, 28, 4, True, None, np.arange(333),
+                         np.arange(333)),
+        "not_causal": (3, 70, 4, 2, False, None, np.arange(70),
+                       np.arange(131)),
+        "empty_slots_and_a_row_without_keys": (2, 333, 16, 1, True, None,
+                                               np.arange(333), holes),
+        "prefill_against_a_ring": (2, 100, 32, 8, True, None,
+                                   np.arange(1081, 1181), ring),
+        "window_inside_a_ring": (1, 100, 32, 8, True, 64,
+                                 np.arange(1081, 1181), ring),
+        "one_query_position": (3, 1, 32, 8, True, None, np.array([1180]),
+                               ring),
+        "no_valid_key_at_all": (1, 5, 8, 2, True, None, np.arange(5),
+                                np.full(300, -1)),
+    }
+
+
+@pytest.mark.parametrize("lse", [False, True])
+@pytest.mark.parametrize("name", list(_sm90_edge_cases()))
+def test_sm90_body_at_the_edges(cuda, name, lse):
+    B, Sq, Hq, Hkv, causal, window, qpos, kpos = _sm90_edge_cases()[name]
+    Skv = len(kpos)
+    q = _randn((B, Sq, Hq, 128), torch.bfloat16, cuda, 83)
+    k = _randn((B, Skv, Hkv, 128), torch.bfloat16, cuda, 84)
+    v = _randn((B, Skv, Hkv, 128), torch.bfloat16, cuda, 85)
+    kw = dict(causal=causal, window=window, logit_cap=None,
+              q_positions=torch.as_tensor(qpos, dtype=torch.int32).to(cuda),
+              kv_positions=torch.as_tensor(kpos, dtype=torch.int32).to(cuda))
+    _assert_sm90_close(q, k, v, kw, return_lse=lse)
+
+
+def test_flash_bwd_on_the_sm90_bodys_output(cuda):
+    """K1b on the sm90 body's O and LSE matches K1b on the mma body's, within
+    K1b's bf16 limit (atol 1e-4, rtol 2^-6 and the rounding of p and ds),
+    at qwen3-4b's heads with empty slots."""
+    case = (2, 512, 512, 32, 8, 128, True, None, None, True)
+    q, k, v, dout, kw = _bwd_inputs(case, torch.bfloat16, cuda, seed=86)
+    out, lse = _sm90_call(q, k, v, kw, return_lse=True)
+    mma_out, mma_lse = _mma_body(q, k, v, kw, return_lse=True)
+    got = fb.flash_bwd(q, k, v, out, lse, dout, **kw)
+    want = fb.flash_bwd(q, k, v, mma_out, mma_lse, dout, **kw)
+    extra = ref.flash_bwd_rounding_plain(q, k, v, mma_out, mma_lse, dout, **kw)
+    atol, rtol = DTYPES["bf16"][1]
+    for name, g, w, e in zip(("dq", "dk", "dv"), got, want, extra):
+        _assert_close_elementwise(g, w, atol, rtol, name, e)
+
+
+def test_sm90_body_syncs_nothing(cuda):
+    """The sm90 body's launch neither synchronises nor reads the card from
+    the host, with and without its LSE."""
+    q = _randn((1, 300, 16, 128), torch.bfloat16, cuda, 87)
+    k = _randn((1, 300, 4, 128), torch.bfloat16, cuda, 88)
+    kw = dict(causal=True, window=None, logit_cap=None,
+              q_positions=torch.arange(300, dtype=torch.int32, device=cuda),
+              kv_positions=torch.arange(300, dtype=torch.int32, device=cuda))
+    want = fa.flash_fwd(q, k, k, **kw)   # the library loaded, the body sized
+    before = fa.body_launches["sm90"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fa.flash_fwd(q, k, k, **kw)
+        out2, _ = fa.flash_fwd(q, k, k, return_lse=True, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fa.body_launches["sm90"] == before + 2
+    assert torch.equal(out, want) and torch.equal(out2, want)
+
+
+def test_sm90_body_inside_the_prefill_graphs(cuda):
+    """A small qwen3-moe with the cell's attention (hd 128, G 16; experts
+    4-7 of 8 held, bf16): the sm90 body takes every prefill's attention,
+    and each CUDA-graph replay of the prefill gives the eager prefill's
+    logits and cache bit for bit, at prompts past one key tile."""
+    cfg = reduced(get_config("qwen3-moe-235b-a22b"), n_experts=8,
+                  head_dim=128, n_heads=16, n_kv_heads=1)
+    kw = dict(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+              remat=False, device=cuda, held_experts=(4, 4))
+    eager, graphed = Backbone(cfg, **kw), Backbone(cfg, prefill_graphs=True,
+                                                   **kw)
+    params = eager.init(9)
+    rng = np.random.default_rng(90)
+    n_attn = sum(kind == "attn" for kind in cfg.layer_kinds())
+    assert n_attn >= 1
+
+    def leaves(tree, at=""):
+        out = []
+        for key in sorted(tree):
+            v = tree[key]
+            out += (leaves(v, f"{at}/{key}") if isinstance(v, dict)
+                    else [(f"{at}/{key}", v)])
+        return out
+
+    for S in (200, 333, 200):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S),
+                                             dtype=np.int32)).to(cuda)
+        before = dict(fa.body_launches)
+        want, wcache = eager.prefill(params, {"tokens": toks}, 512)
+        assert {b: fa.body_launches[b] - before[b] for b in before} == {
+            "sm90": n_attn, "mma": 0, "simt": 0}
+        got, gcache = graphed.prefill(params, {"tokens": toks}, 512)
+        assert torch.equal(got, want), S
+        for (kg, g), (kw_, w) in zip(leaves(gcache), leaves(wcache)):
+            assert kg == kw_
+            assert (torch.equal(g, w) if isinstance(w, torch.Tensor)
+                    else g == w), (S, kg)
+    assert len(graphed._graphs) == 2
+    graphed.drop_prefill_graphs()
+
+
+# --------------------------------------------------------------------------- #
 # whisper-tiny at full width and full depth (4 enc + 4 dec layers)            #
 # --------------------------------------------------------------------------- #
 def _whisper_frames(cfg, B, seed, device):

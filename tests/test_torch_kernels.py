@@ -265,6 +265,47 @@ def test_kernel_wrapper_rejects(name):
                          args["logit_cap"])
 
 
+# (dtype, head dim, logit cap, body): bf16 at hd 128 without a cap takes the
+# sm90 body (TMA and wgmma), any other bf16 call the mma body, fp32 the simt
+# body
+BODY_CASES = [
+    (torch.bfloat16, 128, None, "sm90"),
+    (torch.bfloat16, 128, 50.0, "mma"),
+    (torch.bfloat16, 256, None, "mma"),
+    (torch.bfloat16, 256, 50.0, "mma"),
+    (torch.bfloat16, 64, None, "mma"),
+    (torch.bfloat16, 32, None, "mma"),
+    (torch.bfloat16, 136, None, "mma"),
+    (torch.float32, 128, None, "simt"),
+    (torch.float32, 64, None, "simt"),
+    (torch.float32, 256, 50.0, "simt"),
+]
+
+
+@pytest.mark.parametrize("dtype, hd, cap, want", BODY_CASES, ids=str)
+def test_flash_fwd_body_rule(dtype, hd, cap, want):
+    assert tfa.body(dtype, hd, cap) == want
+    assert set(tfa.body_launches) == {"sm90", "mma", "simt"}
+
+
+# the architectures whose bf16 forward calls of K1 take the sm90 body (hd
+# 128, no cap); gemma2 (hd 256, cap 50), recurrentgemma (hd 256) and
+# whisper-tiny (hd 64) keep the mma body; rwkv6 runs no attention
+SM90_ARCHS = ["qwen3-4b", "qwen2-7b", "phi4-mini-3.8b", "chameleon-34b",
+              "mixtral-8x22b", "qwen3-moe-235b-a22b"]
+MMA_ARCHS = ["gemma2-2b", "recurrentgemma-9b", "whisper-tiny"]
+
+
+@pytest.mark.parametrize("arch", SM90_ARCHS + MMA_ARCHS)
+def test_flash_fwd_body_of_each_architecture(arch):
+    from repro_torch.models import get_config
+
+    cfg = get_config(arch)
+    want = "sm90" if arch in SM90_ARCHS else "mma"
+    assert tfa.body(torch.bfloat16, cfg.hd, cfg.attn_logit_softcap) == want
+    assert tfa.body(torch.float32, cfg.hd, cfg.attn_logit_softcap) == "simt"
+
+
 def test_build_targets_hopper_from_the_repo_sources():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "-shared" in build.LINK_FLAGS and "-shared" not in build.NVCC_FLAGS
