@@ -62,15 +62,15 @@ Phases; each one that fails raises, and the process exits non-zero:
    its 48 layers and the MoE archs at 6, the others at full depth; bf16
    weights and compute,
    weights from a seeded torch.Generator) through ``Server``, two
-   synchronised waves of 16 requests. Every launch counter is set to 0 just
-   before the run and read just after: each kernel must have launched
+   synchronised waves of 16 requests. The port's dispatch ledger is reset
+   just before the run and read just after: each kernel must have launched
    exactly (its layers) x (its calls) times: flash_fwd once a request
    (prefill), each on the arch's body (K1_SM90_ARCHS: sm90 at hd 128, mma
    otherwise), flash_decode once a decode step, the MoE expert kernel twice
    a MoE layer call, every such call on the grouped path, the scans once
    each, the
    prefills through the scans' chunked bodies and the decode steps through
-   their sequential bodies (each body counts its own launches), no
+   their sequential bodies (the ledger counts each body), no
    backward. The first tokens must equal a direct prefill's; a
    torch.profiler trace shows where a prefill's and a decode step's time
    goes, for the MoE archs by step of the MoE layer (router, positions,
@@ -545,19 +545,12 @@ TAGS = {"qwen3-4b": "qwen3", "recurrentgemma-9b": "rgemma", "rwkv6-3b": "rwkv6",
 # on the mma body; fp32 on the simt body
 K1_SM90_ARCHS = ("qwen3-4b", "qwen2-7b", "phi4-mini-3.8b", "chameleon-34b",
                  "mixtral-8x22b", "qwen3-moe-235b-a22b")
-K1_BODIES = ("sm90", "mma", "simt")
 
 
 def k1_body(arch, dtype):
     if dtype != torch.bfloat16:
         return "simt"
     return "sm90" if arch in K1_SM90_ARCHS else "mma"
-
-
-def k1_want(arch, dtype, n):
-    """``flash_fwd.<body>`` counts: n launches, all on the arch's body."""
-    body = k1_body(arch, dtype)
-    return {f"flash_fwd.{b}": (n if b == body else 0) for b in K1_BODIES}
 
 
 def mma_body(q, k, v, kw, return_lse=False):
@@ -572,13 +565,13 @@ def mma_body(q, k, v, kw, return_lse=False):
     out = torch.empty_like(q)
     lse = (torch.empty((B, Hkv, Hq // Hkv, Sq), dtype=torch.float32,
                        device=q.device) if return_lse else None)
-    rc = fa._library().flash_fwd(
+    rc = build.entry("flash_fwd", fa.FWD_ARGS)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kw["q_positions"].data_ptr(),
         kw["kv_positions"].data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), B, Sq, Skv, Hq, Hkv, hd, 1,
         int(kw["causal"]), kw["window"] or 0, 0.0, float(hd ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check_launch("flash_fwd (mma)", rc)
+    build.check_launch("flash_fwd.mma", rc)
     return (out, lse) if return_lse else out
 
 
@@ -614,10 +607,10 @@ def sm90_case(name, B, S, Hq, Hkv, lse):
     kw = dict(causal=True, window=None, logit_cap=None, q_positions=pos,
               kv_positions=pos)
     q, k, v = bufs[0]
-    before = fa.body_launches["sm90"]
+    before = ledger().get("flash_fwd.sm90", 0)
     got = fa.flash_fwd(q, k, v, return_lse=lse, **kw)
     torch.cuda.synchronize()
-    if fa.body_launches["sm90"] != before + 1:
+    if ledger().get("flash_fwd.sm90", 0) != before + 1:
         raise AssertionError(f"{name}: flash_fwd did not take the sm90 body")
     out, got_lse = got if lse else (got, None)
     want = ref.attention_plain(q, k, v, **kw).float()
@@ -1296,47 +1289,31 @@ def phase_moe_model(arch, cfg, n32, n16, ctx):
 # --------------------------------------------------------------------------- #
 # Phase 5: serve each model at full depth                                      #
 # --------------------------------------------------------------------------- #
-def _counters():
-    """Each kernel's wrapper module, whose ``launches`` (and, for the scans'
-    forwards, ``body_launches``) count its launches."""
-    from repro_torch.kernels import (flash_attention, flash_bwd, flash_decode,
-                                     moe_gemm, rglru, rglru_bwd, rwkv6,
-                                     rwkv6_bwd)
-    return {"flash_fwd": flash_attention, "flash_decode": flash_decode,
-            "rglru_scan": rglru, "wkv6_scan": rwkv6, "flash_bwd": flash_bwd,
-            "rglru_bwd": rglru_bwd, "wkv6_bwd": rwkv6_bwd,
-            "moe_gemm": moe_gemm}
+def dispatch():
+    """The port's dispatch ledger, ``metrics.registry("dispatch")``: one
+    count a launch of a C entry point, keyed ``<kernel>.<body or pass>`` or
+    ``<kernel>``, and one a moe_mlp call, ``moe_mlp.<path>``."""
+    from repro_torch.obs import metrics
+    return metrics.registry("dispatch")
 
 
-def _counts():
-    """Every count: each kernel's launches, K1b's passes (``flash_bwd.<pass>``),
-    the MoE expert kernel's entries (``moe_gemm.<entry>``), the scans'
-    forward bodies (``<scan>.<body>``) and the MoE layer's calls by path
-    (``moe_mlp.<path>``)."""
-    from repro_torch.kernels import flash_bwd, moe_gemm
-    from repro_torch.models import ffn
-    out = {}
-    for name, mod in _counters().items():
-        out[name] = mod.launches
-        for body, n in getattr(mod, "body_launches", {}).items():
-            out[f"{name}.{body}"] = n
-    out.update({f"flash_bwd.{k}": n for k, n in flash_bwd.kernel_launches.items()})
-    out.update({f"moe_gemm.{k}": n for k, n in moe_gemm.kernel_launches.items()})
-    out.update({f"moe_mlp.{k}": n for k, n in ffn.path_calls.items()})
-    return out
+def ledger():
+    """The ledger's counts since its last reset (a key that never moved is
+    absent)."""
+    return dispatch().snapshot()["counters"]
 
 
-def _reset_counts():
-    from repro_torch.kernels import flash_bwd, moe_gemm
-    from repro_torch.models import ffn
-    for mod in _counters().values():
-        mod.launches = 0
-        for body in getattr(mod, "body_launches", {}):
-            mod.body_launches[body] = 0
-    for counts in (flash_bwd.kernel_launches, moe_gemm.kernel_launches,
-                   ffn.path_calls):
-        for k in counts:
-            counts[k] = 0
+def with_totals(counts):
+    """Ledger ``counts`` with each kernel's launches beside its keys, as the
+    count lines print them: ``<kernel>``, the sum of its keys, for K1b its
+    calls (one dq launch each); the MoE layer's calls have none."""
+    out = dict(counts)
+    for key, n in counts.items():
+        kernel, _, part = key.partition(".")
+        if part and kernel != "moe_mlp" and (kernel != "flash_bwd"
+                                             or part == "dq"):
+            out[kernel] = out.get(kernel, 0) + n
+    return dict(sorted(out.items()))
 
 
 def phase_serve(arch):
@@ -1374,19 +1351,12 @@ def phase_serve(arch):
             for i in range(spec["requests"])]
     for r in reqs:
         srv.submit(r)
-    counters = _counters()
-    _reset_counts()
+    dispatch().reset()
     t0 = time.perf_counter()
     srv.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: mod.launches for name, mod in counters.items()}
-    bodies = {name: dict(mod.body_launches) for name, mod in counters.items()
-              if hasattr(mod, "body_launches")}
-    every = _counts()
-    launches.update({k: n for k, n in every.items()
-                     if k.startswith("moe_gemm.")})
-    paths = {k[8:]: n for k, n in every.items() if k.startswith("moe_mlp.")}
+    counts = ledger()
     peak = torch.cuda.max_memory_allocated()
 
     steps = srv.stats["steps"]
@@ -1400,39 +1370,28 @@ def phase_serve(arch):
                              f"{waves * (spec['max_new'] - 1)}")
     kinds = cfg.layer_kinds()
     n_attn = sum(k in ("attn", "local") for k in kinds)
+    n_rec, n_rwkv = kinds.count("rec"), kinds.count("rwkv")
     n_moe = len(kinds) if cfg.ffn_kind == "moe" else 0
-    # kernel -> (layers that run it, calls of each layer, how they count)
+    # kernel -> (layers that run it, how many calls each)
     req, both = spec["requests"], spec["requests"] + steps
-    expect = {"flash_fwd": (n_attn, req, f"{req} requests"),
-              "flash_decode": (n_attn, steps, f"{steps} decode steps"),
-              "rglru_scan": (kinds.count("rec"), both, f"({req} + {steps})"),
-              "wkv6_scan": (kinds.count("rwkv"), both, f"({req} + {steps})"),
-              "moe_gemm": (2 * n_moe, both, f"({req} + {steps})"),
-              "flash_bwd": (0, 0, "no backward in serving"),
-              "rglru_bwd": (0, 0, "no backward in serving"),
-              "wkv6_bwd": (0, 0, "no backward in serving")}
-    for name, (n, calls, why) in expect.items():
-        if launches[name] != n * calls:
-            raise AssertionError(f"{arch}: {name} launched {launches[name]} "
-                                 f"times on the main path, want {n} x {why}")
-    # serving takes no gradient: every MoE layer call on the grouped path
-    if paths != {"grouped": n_moe * both, "capacity": 0}:
-        raise AssertionError(f"{arch}: moe_mlp calls by path {paths}, want "
-                             f"{n_moe * both} grouped")
-    # K1: every prefill on the arch's body
-    want_k1 = {k[10:]: n for k, n in k1_want(arch, torch.bfloat16,
-                                             n_attn * req).items()}
-    if bodies["flash_fwd"] != want_k1:
-        raise AssertionError(f"{arch}: flash_fwd bodies launched "
-                             f"{bodies['flash_fwd']}, want {want_k1}")
-    # the scans: every prefill through the chunked body, every decode step
-    # through the sequential one
-    for name, n in (("rglru_scan", kinds.count("rec")),
-                    ("wkv6_scan", kinds.count("rwkv"))):
-        want = {"chunked": n * req, "sequential": n * steps}
-        if bodies[name] != want:
-            raise AssertionError(f"{arch}: {name} bodies launched "
-                                 f"{bodies[name]}, want {want}")
+    expect = {"flash_fwd": (n_attn, f"{req} requests"),
+              "flash_decode": (n_attn, f"{steps} decode steps"),
+              "rglru_scan": (n_rec, f"({req} + {steps})"),
+              "wkv6_scan": (n_rwkv, f"({req} + {steps})"),
+              "moe_gemm": (2 * n_moe, f"({req} + {steps})")}
+    # every prefill on K1's body for the arch and through the scans'
+    # chunked bodies, every decode step through their sequential ones; no
+    # backward; serving takes no gradient: every MoE layer call on the
+    # grouped path
+    _check_counts(f"{arch} on the main path", counts, {
+        f"flash_fwd.{k1_body(arch, torch.bfloat16)}": n_attn * req,
+        "flash_decode": n_attn * steps,
+        "rglru_scan.chunked": n_rec * req,
+        "rglru_scan.sequential": n_rec * steps,
+        "wkv6_scan.chunked": n_rwkv * req,
+        "wkv6_scan.sequential": n_rwkv * steps,
+        "moe_gemm.gate_up": n_moe * both, "moe_gemm.down": n_moe * both,
+        "moe_mlp.grouped": n_moe * both})
     # the first token of a request is the argmax of a direct prefill
     for r in reqs[:2]:
         logits, _ = bb.prefill(params, {"tokens": torch.from_numpy(
@@ -1444,26 +1403,27 @@ def phase_serve(arch):
     tokens = sum(len(r.out) for r in reqs)
     out = {
         "arch": arch, "requests": len(reqs), "prompt_len": spec["prompt_len"],
-        "decode_steps": steps, "launches": launches,
-        "body_launches": bodies, "moe_mlp_calls": paths,
+        "decode_steps": steps, "launches": counts,
         "prefill_ms_per_request": srv.timing["prefill_s"] / len(reqs) * 1e3,
         "decode_ms_per_step": srv.timing["decode_s"] / steps * 1e3,
         "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
         "max_memory_allocated_gb": peak / 1e9,
         "init_max_memory_allocated_gb": init_peak / 1e9,
     }
-    counts = ", ".join(
-        f"{name} {launches[name]} = {n} x {why}"
-        + (f" ({bodies[name]['chunked']} chunked, {bodies[name]['sequential']}"
-           " sequential)" if name in ("rglru_scan", "wkv6_scan") else "")
+    totals = with_totals(counts)
+    line = ", ".join(
+        f"{name} {totals[name]} = {n} x {why}"
+        + (f" ({counts.get(name + '.chunked', 0)} chunked, "
+           f"{counts.get(name + '.sequential', 0)} sequential)"
+           if name in ("rglru_scan", "wkv6_scan") else "")
         + (f" (all {k1_body(arch, torch.bfloat16)})" if name == "flash_fwd"
            else "")
-        for name, (n, _, why) in expect.items() if n)
+        for name, (n, why) in expect.items() if n)
     log(f"[serve] {arch}: {len(reqs)} requests of {spec['prompt_len']} tokens, "
         f"{steps} decode steps, {tokens} tokens in {wall:.3f} s "
         f"({out['tokens_per_s']:.1f} tok/s); prefill "
         f"{out['prefill_ms_per_request']:.2f} ms/request, decode "
-        f"{out['decode_ms_per_step']:.2f} ms/step; launches {counts}; peak "
+        f"{out['decode_ms_per_step']:.2f} ms/step; launches {line}; peak "
         f"memory {out['max_memory_allocated_gb']:.2f} GB")
     log("[serve] " + json.dumps(out))
     out["trace"] = phase_trace(bb, params, prompts, spec)
@@ -1529,13 +1489,12 @@ def phase_serve_whisper():
     launches, tokens, prefill_s, decode_s = {}, [], 0.0, 0.0
     t0 = time.perf_counter()
     for i in range(waves):
-        _reset_counts()
+        dispatch().reset()
         toks, tp, td = wave(i)
-        counts = _counts()
-        want = {k: 0 for k in counts}
-        want.update({"flash_fwd": 3 * 4, "flash_decode": 2 * 4 * steps,
-                     **k1_want("whisper-tiny", torch.bfloat16, 3 * 4)})
-        _check_counts(f"whisper-tiny serving wave {i}", counts, want)
+        counts = ledger()
+        _check_counts(f"whisper-tiny serving wave {i}", counts, {
+            f"flash_fwd.{k1_body('whisper-tiny', torch.bfloat16)}": 3 * 4,
+            "flash_decode": 2 * 4 * steps})
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
         tokens.append(toks)
@@ -1576,8 +1535,9 @@ def phase_serve_whisper():
         f"steps, {n_tok} tokens in {wall:.3f} s ({out['tokens_per_s']:.1f} "
         f"tok/s); prefill {out['prefill_ms_per_wave']:.2f} ms/wave, decode "
         f"{out['decode_ms_per_step']:.2f} ms/step; launches flash_fwd "
-        f"{launches['flash_fwd']} = 12 x {waves} prefills, flash_decode "
-        f"{launches['flash_decode']} = 8 x {waves * steps} decode steps; "
+        f"{with_totals(launches)['flash_fwd']} = 12 x {waves} prefills, "
+        f"flash_decode {launches['flash_decode']} = 8 x {waves * steps} "
+        f"decode steps; "
         f"first-token logit gaps {gaps}; peak memory {peak / 1e9:.3f} GB")
     log("[serve] " + json.dumps(out))
     batch = {"tokens": torch.from_numpy(prompts[:B]).to(DEVICE),
@@ -1753,25 +1713,20 @@ def _train_want(bb, batch, seq, runs, fwd):
     # training takes gradients: every MoE layer call on the capacity path,
     # the grouped expert kernel never
     moe = len(kinds) * runs if bb.cfg.ffn_kind == "moe" else 0
-    want = {"flash_fwd": attn * fwd, "flash_decode": 0, "flash_bwd": attn,
+    rglru_body = rglru.plan(batch, seq, bb.W, bb.compute_dtype).body
+    wkv_body = rwkv6.plan(batch, seq, bb.rwkv_H, bb.cfg.rwkv_head_dim).body
+    return {f"flash_fwd.{k1_body(bb.cfg.name, bb.compute_dtype)}": attn * fwd,
             "flash_bwd.delta": attn, "flash_bwd.dkdv": attn,
             "flash_bwd.dq": attn, "flash_bwd.reduce": split,
-            "rglru_scan": rec * fwd, "rglru_bwd": rec,
-            "wkv6_scan": rwk * fwd, "wkv6_bwd": rwk,
-            "moe_gemm": 0, "moe_gemm.gate_up": 0, "moe_gemm.down": 0,
-            "moe_mlp.grouped": 0, "moe_mlp.capacity": moe * fwd}
-    planned = {"rglru_scan": (rec * fwd, rglru.plan(batch, seq, bb.W,
-                                                    bb.compute_dtype).body),
-               "wkv6_scan": (rwk * fwd, rwkv6.plan(
-                   batch, seq, bb.rwkv_H, bb.cfg.rwkv_head_dim).body)}
-    for name, (n, body) in planned.items():
-        for b in BODIES:
-            want[f"{name}.{b}"] = n if b == body else 0
-    want.update(k1_want(bb.cfg.name, bb.compute_dtype, attn * fwd))
-    return want
+            f"rglru_scan.{rglru_body}": rec * fwd, "rglru_bwd": rec,
+            f"wkv6_scan.{wkv_body}": rwk * fwd, "wkv6_bwd": rwk,
+            "moe_mlp.capacity": moe * fwd}
 
 
 def _check_counts(what, got, want):
+    """Raise unless the ledger's counts ``got`` are ``want`` (whose zeros
+    the ledger leaves out)."""
+    want = {k: n for k, n in want.items() if n}
     if got != want:
         raise AssertionError(f"{what}: launches {got}, want {want}")
 
@@ -1864,13 +1819,13 @@ def bwd_case(name, B, Sq, Skv, Hq, Hkv, hd, causal, window, cap, empty,
               kv_positions=kp)
     out, lse = ref.attention_lse_plain(q, k, v, **kw)
     plan = fb.plan(B, Sq, Skv, Hq, Hkv, hd, dtype, sms=fb.device_sms(DEVICE))
-    before = fb.kernel_launches["reduce"]
+    before = ledger().get("flash_bwd.reduce", 0)
     got = fb.flash_bwd(q, k, v, out, lse, dout, **kw)
     torch.cuda.synchronize()
-    if fb.kernel_launches["reduce"] - before != int(plan.splits > 1):
+    reduced = ledger().get("flash_bwd.reduce", 0) - before
+    if reduced != int(plan.splits > 1):
         raise AssertionError(f"flash_bwd {name}: the reduce pass ran "
-                             f"{fb.kernel_launches['reduce'] - before} times "
-                             f"with {plan.splits} splits")
+                             f"{reduced} times with {plan.splits} splits")
     want = ref.flash_bwd_plain(q, k, v, out, lse, dout, **kw)
     extra = (ref.flash_bwd_rounding_plain(q, k, v, out, lse, dout, **kw)
              if dtype == torch.bfloat16 else (0.0,) * 3)
@@ -2076,11 +2031,11 @@ def train_grads_check(arch, cfg, seq, compute_dtype=torch.bfloat16,
     if cfg.is_enc_dec:
         batch["enc_frames"] = rng.standard_normal(
             (batch_size, cfg.enc_seq, cfg.d_model), dtype=np.float32)
-    _reset_counts()
+    dispatch().reset()
     with Routes() as rk:
         lk, gk = value_and_grad(kern, params, batch)
     torch.cuda.synchronize()
-    counts = _counts()
+    counts = ledger()
     _check_counts(f"{arch} loss_fn + backward (remat)", counts,
                   _train_want(kern, batch_size, seq, 1, 2))
 
@@ -2119,14 +2074,13 @@ def train_grads_check(arch, cfg, seq, compute_dtype=torch.bfloat16,
     loss_err = abs(float(lk) - float(lp))
     grad_err = worst(gp)
     finite = all(bool(torch.isfinite(a).all()) for a in tree_leaves(gk))
-    launched = {k: n for k, n in counts.items() if n}
     log(f"[train] {arch} full width, {cfg.n_layers} layers "
         f"{'+'.join(cfg.layer_kinds())}, [{batch_size}, {seq}] "
         f"{str(compute_dtype)[6:]} compute: kernel path vs plain path, loss "
         f"{float(lk):.6f} vs {float(lp):.6f} (err {loss_err:.3e}, tol "
         f"{loss_rtol} x loss), worst leaf gradient err {grad_err:.3e} of its "
         f"norm (tol {grad_rtol}), {len(tree_leaves(gk))} leaves; launches "
-        f"{launched}{routes}; peak memory {peak / 1e9:.2f} GB")
+        f"{with_totals(counts)}{routes}; peak memory {peak / 1e9:.2f} GB")
     if not finite or not math.isfinite(float(lk)):
         raise AssertionError(f"train {arch}: a gradient or the loss is not "
                              "finite")
@@ -2139,7 +2093,7 @@ def train_grads_check(arch, cfg, seq, compute_dtype=torch.bfloat16,
             "compute_dtype": str(compute_dtype)[6:],
             "loss_kernel": float(lk), "loss_plain": float(lp),
             "loss_err": loss_err, "worst_grad_rel_err": grad_err,
-            "launches": launched, "routes": routes, "unpinned": unpinned,
+            "launches": counts, "routes": routes, "unpinned": unpinned,
             "max_memory_allocated_gb": peak / 1e9}
 
 
@@ -2220,13 +2174,13 @@ def train_run(arch, cfg, batch_size, seq, steps, remat):
             free_memory()
             held = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            _reset_counts()
+            dispatch().reset()
             t0 = time.perf_counter()
             # no reference to the initial state: each step replaces it
             state = tr.run(tr.init_or_restore(SEED))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts = _counts()
+            counts = ledger()
             peak = torch.cuda.max_memory_allocated()
             cursor = tr.store.snapshot(("data_cursor",))["data_cursor"]
             log_ = list(tr.metrics_log)
@@ -2248,7 +2202,6 @@ def train_run(arch, cfg, batch_size, seq, steps, remat):
         raise AssertionError(f"train {arch}: the loss did not fall: "
                              f"{[m['loss'] for m in log_]}")
     steady = [m["dt"] for m in log_[1:]]
-    launched = {k: n for k, n in counts.items() if n}
     out = {"layers": depth, "kinds": cfg.layer_kinds(), "batch": batch_size,
            "seq": seq, "remat": remat, "steps": steps,
            "tokens_per_step": tokens, "log": log_, "launches": counts,
@@ -2261,7 +2214,8 @@ def train_run(arch, cfg, batch_size, seq, steps, remat):
     log(f"[train] {arch} {depth} layers, {out['params'] / 1e9:.3f} B params, "
         f"remat {remat}: {steps} Trainer steps of {batch_size} x {seq} tokens "
         f"in {wall:.3f} s; after the first, "
-        f"{out['tokens_per_s_after_first']:.0f} tokens/s; launches {launched}; "
+        f"{out['tokens_per_s_after_first']:.0f} tokens/s; launches "
+        f"{with_totals(counts)}; "
         f"peak memory {out['max_memory_allocated_gb']:.2f} GB, the step "
         f"donating its state{functional_peak(arch)} "
         f"({out['allocated_before_gb']:.2f} GB allocated before the run) | "
@@ -2531,10 +2485,10 @@ def phase_dist():
         step_fn = make_train_step(bb, opt_cfg, settings, donate=True)
         state = sh.tree_distribute(init_train_state(bb, SEED), st_sh)
         torch.cuda.reset_peak_memory_stats()
-        _reset_counts()
+        dispatch().reset()
         state, got_losses, dist_ms = _dist_steps(state, batches, step_fn,
                                                  place)
-        counts = _counts()
+        counts = ledger()
         peak = torch.cuda.max_memory_allocated()
         _check_counts("qwen3-4b sharded train steps", counts,
                       _train_want(bb, B, S, steps, fwd=1))
@@ -2549,7 +2503,7 @@ def phase_dist():
             f"(max abs diff {worst:.3e}); step ms sharded {dist_ms} vs plain "
             f"{plain_ms}; peak {peak / 1e9:.2f} GB, the step donating its "
             f"state{functional_peak('qwen3-4b dist train')}; launches "
-            f"{ {k: n for k, n in counts.items() if n} } | {card_line()}")
+            f"{with_totals(counts)} | {card_line()}")
         if got_losses != want_losses or same != len(leaves):
             raise AssertionError("the sharded step at world size 1 differs "
                                  "from the plain step")
@@ -2662,7 +2616,7 @@ def remat_run(arch, cfg, batch_size, seq, policy, batches):
     grads = to_host(grads)
     free_memory()
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
+    dispatch().reset()
     losses, host_ms, device_ms = [], [], []
     for batch in batches:
         start = torch.cuda.Event(enable_timing=True)
@@ -2676,7 +2630,7 @@ def remat_run(arch, cfg, batch_size, seq, policy, batches):
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
         device_ms.append(start.elapsed_time(end))
-    counts = _counts()
+    counts = ledger()
     peak = torch.cuda.max_memory_allocated()
     _check_counts(f"{arch} remat {policy}, {steps} steps", counts,
                   _train_want(bb, batch_size, seq, steps, 2 if remat else 1))
@@ -2779,7 +2733,6 @@ def phase_remat():
             worst = max(float((a - b).abs().max()) for a, b in zip(got, want))
             r.update(bitwise_leaves=same, leaves=len(want),
                      max_abs_grad_diff=worst)
-            launched = {k: n for k, n in r["launches"].items() if n}
             busy = r["trace"]["device_busy_ms_per_call"] \
                 if isinstance(r["trace"], dict) else r["trace"]
             log(f"[remat] {arch} {cfg.n_layers} layers, {B} x {S} tokens, "
@@ -2788,7 +2741,7 @@ def phase_remat():
                 f"remat {runs[0]['policy']} (max abs diff {worst:.3e}); peak "
                 f"{r['peak_gb']:.2f} GB; device ms a step {r['device_ms']}, "
                 f"host ms {r['host_ms']}, profiled step device busy {busy}; "
-                f"launches {launched} | {card_line()}")
+                f"launches {with_totals(r['launches'])} | {card_line()}")
             if same != len(want) or r["losses"] != runs[0]["losses"]:
                 raise AssertionError(f"{arch} remat {r['policy']}: the "
                                      "gradients or losses differ from remat "
@@ -3044,13 +2997,13 @@ def moe_path_case(name, arch, T, cf, leaves):
     with torch.no_grad():
         ffn.moe_mlp(leaves, x, cfg)
         torch.cuda.synchronize()
-        calls = dict(ffn.path_calls)
+        calls = ledger().get("moe_mlp.grouped", 0)
         torch.cuda.set_sync_debug_mode("error")
         try:
             ffn.moe_mlp(leaves, x, cfg)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        if ffn.path_calls["grouped"] != calls["grouped"] + 1:
+        if ledger().get("moe_mlp.grouped", 0) != calls + 1:
             raise AssertionError(f"{name}: the no-grad call did not take the "
                                  "grouped path")
         grouped = device_launches(lambda: ffn.moe_mlp(leaves, x, cfg))
@@ -3455,39 +3408,27 @@ def main() -> int:
     dist_out = phase_dist()
     remat_out = phase_remat()
     net = phase_net()
-    # the main path's runs, each read with the counts set to 0 just before
+    # the main path's runs, each read with the ledger reset just before
     paths = {arch: s["launches"] for arch, s in serve.items()}
-    bodies = {arch: s["body_launches"] for arch, s in serve.items()}
     paths["whisper-tiny serve"] = serve_whisper["launches"]
-    bodies["whisper-tiny serve"] = {"flash_fwd": {
-        b: serve_whisper["launches"][f"flash_fwd.{b}"] for b in K1_BODIES}}
     for arch, t in train.items():
         if "trainer" in t:
-            counts = t["trainer"]["launches"]
-            paths[f"{arch} train"] = counts
-            bodies[f"{arch} train"] = {
-                scan: {b: counts[f"{scan}.{b}"] for b in BODIES}
-                for scan in ("rglru_scan", "wkv6_scan")}
-            bodies[f"{arch} train"]["flash_fwd"] = {
-                b: counts[f"flash_fwd.{b}"] for b in K1_BODIES}
+            paths[f"{arch} train"] = t["trainer"]["launches"]
     paths["qwen3-4b dist train"] = dist_out["launches"]
-    bodies["qwen3-4b dist train"] = {"flash_fwd": {
-        b: dist_out["launches"][f"flash_fwd.{b}"] for b in K1_BODIES}}
     for arch in REMAT["cells"]:
-        counts = remat_out[arch]["dots"]["launches"]
-        paths[f"{arch} train, remat dots"] = counts
-        bodies[f"{arch} train, remat dots"] = {
-            scan: {b: counts[f"{scan}.{b}"] for b in BODIES}
-            for scan in ("rglru_scan", "wkv6_scan")}
-        bodies[f"{arch} train, remat dots"]["flash_fwd"] = {
-            b: counts[f"flash_fwd.{b}"] for b in K1_BODIES}
+        paths[f"{arch} train, remat dots"] = \
+            remat_out[arch]["dots"]["launches"]
+    totals = {path: with_totals(counts) for path, counts in paths.items()}
 
     kernels = []
     for name, (case, replaces) in HEADLINE.items():
         head = next(r for r in rows if r["kernel"] == name and r["case"] == case
                     and r["dtype"] == "bfloat16" and r.get("planned", True))
-        by_path = {path: counts[name] for path, counts in paths.items()
-                   if counts.get(name)}
+        by_path = {path: t[name] for path, t in totals.items() if t.get(name)}
+        # each body's launches (K1b's passes', the expert kernel's entries')
+        bodies = {path: {k.partition(".")[2]: n
+                         for k, n in paths[path].items()
+                         if k.startswith(f"{name}.")} for path in by_path}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{SOURCE[name]}",
@@ -3495,8 +3436,7 @@ def main() -> int:
                         for f in SOURCES.get(name, (SOURCE[name],))],
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "launches_by_body": {path: bodies[path][name] for path in by_path
-                                 if name in bodies[path]},
+            "launches_by_body": {p: b for p, b in bodies.items() if b},
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -3504,10 +3444,6 @@ def main() -> int:
                   + (f" ({head['body']} body)" if "body" in head else ""),
             "cases": [r for r in rows if r["kernel"] == name],
         })
-        if name in ("flash_bwd", "moe_gemm"):
-            kernels[-1]["launches_by_kernel"] = {
-                path: {k.split(".")[1]: n for k, n in paths[path].items()
-                       if k.startswith(f"{name}.")} for path in by_path}
     log("[summary] " + json.dumps({"model": model, "serve": serve,
                                    "serve_whisper": serve_whisper,
                                    "ep": ep, "moe_paths": moe_paths,

@@ -15,6 +15,16 @@ sources is never loaded. Nothing here runs at import: the CPU tests import
 every module. With ``txtrace.enabled``, :func:`load` records the span
 ``kernels.load`` (detail ``built`` or ``loaded``): the program's share of a
 process's set-up.
+
+Each wrapper binds its C entry points with :func:`entry` and passes every
+return code to :func:`check_launch`, which counts the launch in the dispatch
+ledger, ``obs.metrics.registry("dispatch")``: one counter per launch, keyed
+``<kernel>.<body or pass>`` (``flash_fwd.sm90``, ``flash_bwd.dkdv``,
+``rglru_scan.chunked``, ``moe_gemm.gate_up``) or ``<kernel>``
+(``flash_decode``, ``rglru_bwd``, ``wkv6_bwd``), beside the MoE layer's calls
+by path (``moe_mlp.grouped``, ``moe_mlp.capacity``, counted in
+``models/ffn.py``). Read it with ``metrics.registry("dispatch").snapshot()``
+(a key that never moved is absent) or ``metrics.dump()``.
 """
 from __future__ import annotations
 
@@ -25,9 +35,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Dict, Optional, Sequence
 
-from repro_torch.obs import hostspans
+from repro_torch.obs import hostspans, metrics
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -39,6 +49,10 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 LINK_FLAGS = ARCH + ("-shared",)
 
 _lib: Optional[ctypes.CDLL] = None
+_entries: Dict[str, Callable[..., int]] = {}
+# Registries are never replaced, so the ledger's is held; its counters are
+# looked up at each launch, since Registry.reset() drops them.
+DISPATCH = metrics.registry("dispatch")
 
 
 def nvcc() -> str:
@@ -123,20 +137,41 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def check_launch(name: str, rc: int) -> None:
-    """Raise if a kernel's C entry point returned a CUDA error code."""
+def entry(name: str, argtypes: Sequence,
+          check: Optional[Callable[[], None]] = None) -> Callable[..., int]:
+    """The library's C entry point ``name`` with ``argtypes`` and an int
+    result, bound at its first request (the library built and loaded first
+    if need be) and cached by name. ``check``, if given, runs at that bind:
+    a wrapper holds the library's constants against its own there, and an
+    entry whose check raises stays unbound."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(load(), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        if check is not None:
+            check()
+        _entries[name] = fn
+    return fn
+
+
+def check_launch(key: str, rc: int) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error code, else
+    count the launch under ``key`` in the dispatch ledger."""
     if rc != 0:
         msg = load().cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: cuda error {rc} ({msg})")
+        raise RuntimeError(f"{key} launch failed: cuda error {rc} ({msg})")
+    DISPATCH.counter(key).inc()
 
 
-def check_steps(name: str, query, want) -> None:
-    """Raise unless ``query`` (a C entry point that writes a kernel's step
-    constants through two int pointers) gives the ``want`` pair that the
+def check_steps(query: str, want) -> None:
+    """Raise unless the C entry point ``query``, which writes a kernel's step
+    constants through two int pointers, gives the ``want`` pair that the
     kernel's wrapper sizes its scratch buffers by."""
     a, b = ctypes.c_int(), ctypes.c_int()
-    rc = query(ctypes.byref(a), ctypes.byref(b))
+    rc = entry(query, (ctypes.c_void_p,) * 2)(ctypes.byref(a),
+                                               ctypes.byref(b))
     got = (a.value, b.value)
     if rc or got != tuple(want):
-        raise RuntimeError(f"{name}: the library's steps are {got} (rc {rc}), "
-                           f"the wrapper's {tuple(want)}")
+        raise RuntimeError(f"{query}: the library's steps are {got} (rc "
+                           f"{rc}), the wrapper's {tuple(want)}")

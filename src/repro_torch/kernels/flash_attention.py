@@ -19,7 +19,8 @@ units) takes bf16 at head dim 128 without a cap, which is every serving
 prefill and training forward of the benchmark's models; ``mma``
 (``csrc/flash_fwd.cu``'s mma.sync body) every other bf16 call (gemma2 and
 recurrentgemma at 256, gemma2's cap, whisper at 64); ``simt`` (its fp32
-body) fp32. ``body_launches`` counts the launches of each.
+body) fp32. The dispatch ledger counts each body's launches,
+``flash_fwd.<body>`` (:mod:`repro_torch.kernels.build`).
 """
 from __future__ import annotations
 
@@ -33,30 +34,12 @@ from . import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 
-# Launches of the kernel since the last reset (set it to 0 to reset), and
-# of each body (set each to 0).
-launches = 0
-body_launches = {"sm90": 0, "mma": 0, "simt": 0}
-
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = build.load()
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # q, k, v, q_pos, kv_pos, out, lse (or NULL); B, Sq, Skv, Hq, Hkv,
-        # hd, dtype, causal, window; logit_cap, scale; stream
-        lib.flash_fwd.argtypes = ([ptr] * 7 + [i32] * 9
-                                  + [ctypes.c_float, ctypes.c_float, ptr])
-        lib.flash_fwd.restype = i32
-        # as flash_fwd, without dtype and logit_cap
-        lib.flash_fwd_sm90.argtypes = ([ptr] * 7 + [i32] * 8
-                                       + [ctypes.c_float, ptr])
-        lib.flash_fwd_sm90.restype = i32
-        _lib = lib
-    return _lib
+_ptr, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# q, k, v, q_pos, kv_pos, out, lse (or NULL); B, Sq, Skv, Hq, Hkv, hd,
+# dtype, causal, window; logit_cap, scale; stream (the mma and simt bodies)
+FWD_ARGS = [_ptr] * 7 + [_i32] * 9 + [_f32, _f32, _ptr]
+# as flash_fwd's, without dtype and logit_cap
+SM90_ARGS = [_ptr] * 7 + [_i32] * 8 + [_f32, _ptr]
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -111,7 +94,6 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Launch the kernel on CUDA tensors: [B,Sq,Hq,hd] out in q's dtype, and
     with ``return_lse`` (out, lse [B,Hkv,G,Sq] fp32; -inf for a row with no
     valid key). Without it no LSE is written."""
-    global launches
     check_inputs(q, k, v, q_positions, kv_positions, window, logit_cap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd runs on CUDA tensors, not {q.device}")
@@ -122,7 +104,6 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        device=q.device) if return_lse else None)
     if o.numel() == 0:
         return (o, lse) if return_lse else o
-    lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     which = body(q.dtype, hd, logit_cap)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
@@ -130,15 +111,13 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             None if lse is None else lse.data_ptr())
     with torch.cuda.device(q.device):
         if which == "sm90":
-            rc = lib.flash_fwd_sm90(*ptrs, B, Sq, Skv, Hq, Hkv, hd,
-                                    int(causal), window or 0,
-                                    float(hd ** -0.5), stream)
+            rc = build.entry("flash_fwd_sm90", SM90_ARGS)(
+                *ptrs, B, Sq, Skv, Hq, Hkv, hd, int(causal), window or 0,
+                float(hd ** -0.5), stream)
         else:
-            rc = lib.flash_fwd(*ptrs, B, Sq, Skv, Hq, Hkv, hd,
-                               _DTYPES[q.dtype], int(causal), window or 0,
-                               float(logit_cap or 0.0), float(hd ** -0.5),
-                               stream)
-    build.check_launch(f"flash_fwd ({which})", rc)
-    launches += 1
-    body_launches[which] += 1
+            rc = build.entry("flash_fwd", FWD_ARGS)(
+                *ptrs, B, Sq, Skv, Hq, Hkv, hd, _DTYPES[q.dtype], int(causal),
+                window or 0, float(logit_cap or 0.0), float(hd ** -0.5),
+                stream)
+    build.check_launch(f"flash_fwd.{which}", rc)
     return (o, lse) if return_lse else o

@@ -6,7 +6,9 @@ exists for it). From the forward's q, k, v and positions, its output and
 the LSE that :func:`repro_torch.kernels.flash_attention.flash_fwd` writes
 with ``return_lse=True``, and dout, it returns (dq, dk, dv) in the inputs'
 dtype. It launches ``delta`` (rowsum(dout * out)), ``dkdv`` and ``dq``, and
-``reduce`` after ``dkdv`` when :func:`plan` splits the dk/dv grid. Its plain
+``reduce`` after ``dkdv`` when :func:`plan` splits the dk/dv grid; the
+dispatch ledger counts each, ``flash_bwd.<pass>``, so a call is one
+``flash_bwd.dq`` (:mod:`repro_torch.kernels.build`). Its plain
 version is :func:`repro_torch.kernels.ref.flash_bwd_plain`;
 :mod:`repro_torch.kernels.ops` picks between the two by the tensors' device.
 """
@@ -19,11 +21,6 @@ import torch
 
 from . import build
 from .flash_attention import _DTYPES, check_inputs as check_forward_inputs
-
-# Calls of flash_bwd since the last reset, and launches of each of its
-# kernels (set them to 0 to reset).
-launches = 0
-kernel_launches = {"delta": 0, "dkdv": 0, "dq": 0, "reduce": 0}
 
 # The dk/dv pass is split when its grid has fewer CTAs than MIN_WAVES x the
 # card's SMs.
@@ -65,46 +62,30 @@ def plan(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, hd: int,
     return Plan(keys, rows, ctas, splits)
 
 
-_lib: Optional[ctypes.CDLL] = None
+_ptr, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# out, dout, delta; B, Sq, Hq, hd, dtype; stream
+_DELTA = [_ptr] * 3 + [_i32] * 5 + [_ptr]
+# q, k, v, dout, lse, delta, q_pos, kv_pos, dk, dv, part; B, Sq, Skv, Hq,
+# Hkv, hd, dtype, causal, window, splits; logit_cap, scale; stream
+_DKDV = [_ptr] * 11 + [_i32] * 10 + [_f32] * 2 + [_ptr]
+# part, dk, dv; n; splits, dtype; stream
+_REDUCE = [_ptr] * 3 + [ctypes.c_longlong] + [_i32] * 2 + [_ptr]
+# q, k, v, dout, lse, delta, q_pos, kv_pos, dq; B, Sq, Skv, Hq, Hkv, hd,
+# dtype, causal, window; logit_cap, scale; stream
+_DQ = [_ptr] * 9 + [_i32] * 9 + [_f32] * 2 + [_ptr]
+# hd, dtype, keys out, rows out
+_TILES = [_i32] * 2 + [_ptr] * 2
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = build.load()
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # out, dout, delta; B, Sq, Hq, hd, dtype; stream
-        lib.flash_bwd_delta.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
-        # q, k, v, dout, lse, delta, q_pos, kv_pos, dk, dv, part; B, Sq,
-        # Skv, Hq, Hkv, hd, dtype, causal, window, splits; logit_cap, scale;
-        # stream
-        lib.flash_bwd_dkdv.argtypes = ([ptr] * 11 + [i32] * 10 + [f32] * 2
-                                       + [ptr])
-        # part, dk, dv; n; splits, dtype; stream
-        lib.flash_bwd_reduce.argtypes = [ptr] * 3 + [ctypes.c_longlong] + \
-            [i32] * 2 + [ptr]
-        # q, k, v, dout, lse, delta, q_pos, kv_pos, dq; B, Sq, Skv, Hq, Hkv,
-        # hd, dtype, causal, window; logit_cap, scale; stream
-        lib.flash_bwd_dq.argtypes = [ptr] * 9 + [i32] * 9 + [f32] * 2 + [ptr]
-        # hd, dtype, keys out, rows out
-        lib.flash_bwd_dkdv_tiles.argtypes = [i32] * 2 + [ptr] * 2
-        for fn in (lib.flash_bwd_delta, lib.flash_bwd_dkdv,
-                   lib.flash_bwd_reduce, lib.flash_bwd_dq,
-                   lib.flash_bwd_dkdv_tiles):
-            fn.restype = i32
-        _check_tiles(lib)
-        _lib = lib
-    return _lib
-
-
-def _check_tiles(lib: ctypes.CDLL) -> None:
+def _check_tiles() -> None:
     """Raise unless the library tiles the dk/dv pass as :func:`dkdv_tiles`
-    says at every head dim the wrapper takes."""
+    says at every head dim the wrapper takes (run when the dk/dv pass is
+    first bound)."""
+    query = build.entry("flash_bwd_dkdv_tiles", _TILES)
     keys, rows = ctypes.c_int(), ctypes.c_int()
     for dtype, code in _DTYPES.items():
         for hd in range(8, 257, 8):
-            rc = lib.flash_bwd_dkdv_tiles(hd, code, ctypes.byref(keys),
-                                          ctypes.byref(rows))
+            rc = query(hd, code, ctypes.byref(keys), ctypes.byref(rows))
             got = (keys.value, rows.value)
             if rc or got != dkdv_tiles(hd, dtype):
                 raise RuntimeError(
@@ -144,7 +125,6 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the kernels on CUDA tensors: (dq, dk, dv) shaped and typed as
     (q, k, v); the dk/dv pass split as :func:`plan` says."""
-    global launches
     check_inputs(q, k, v, out, lse, dout, q_positions, kv_positions, window,
                  logit_cap)
     if q.device.type != "cuda":
@@ -160,37 +140,30 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # fp32 partial dk, dv of each split: [2, splits, B*Skv*Hkv*hd]
     part = (torch.empty((2, splits, k.numel()), dtype=torch.float32,
                         device=q.device) if splits > 1 else None)
-    lib = _library()
     dtype = _DTYPES[q.dtype]
     window_, cap, scale = window or 0, float(logit_cap or 0.0), float(hd ** -0.5)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = lib.flash_bwd_delta(out.data_ptr(), dout.data_ptr(),
-                                 delta.data_ptr(), B, Sq, Hq, hd, dtype, stream)
-        build.check_launch("flash_bwd delta", rc)
-        kernel_launches["delta"] += 1
-        rc = lib.flash_bwd_dkdv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                dout.data_ptr(), lse.data_ptr(),
-                                delta.data_ptr(), q_positions.data_ptr(),
-                                kv_positions.data_ptr(), dk.data_ptr(),
-                                dv.data_ptr(),
-                                None if part is None else part.data_ptr(),
-                                B, Sq, Skv, Hq, Hkv, hd, dtype, int(causal),
-                                window_, splits, cap, scale, stream)
-        build.check_launch("flash_bwd dkdv", rc)
-        kernel_launches["dkdv"] += 1
+        rc = build.entry("flash_bwd_delta", _DELTA)(
+            out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, Sq, Hq, hd,
+            dtype, stream)
+        build.check_launch("flash_bwd.delta", rc)
+        rc = build.entry("flash_bwd_dkdv", _DKDV, _check_tiles)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), q_positions.data_ptr(),
+            kv_positions.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if part is None else part.data_ptr(), B, Sq, Skv, Hq, Hkv,
+            hd, dtype, int(causal), window_, splits, cap, scale, stream)
+        build.check_launch("flash_bwd.dkdv", rc)
         if part is not None:
-            rc = lib.flash_bwd_reduce(part.data_ptr(), dk.data_ptr(),
-                                      dv.data_ptr(), k.numel(), splits, dtype,
-                                      stream)
-            build.check_launch("flash_bwd reduce", rc)
-            kernel_launches["reduce"] += 1
-        rc = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                              q_positions.data_ptr(), kv_positions.data_ptr(),
-                              dq.data_ptr(), B, Sq, Skv, Hq, Hkv, hd, dtype,
-                              int(causal), window_, cap, scale, stream)
-        build.check_launch("flash_bwd dq", rc)
-        kernel_launches["dq"] += 1
-    launches += 1
+            rc = build.entry("flash_bwd_reduce", _REDUCE)(
+                part.data_ptr(), dk.data_ptr(), dv.data_ptr(), k.numel(),
+                splits, dtype, stream)
+            build.check_launch("flash_bwd.reduce", rc)
+        rc = build.entry("flash_bwd_dq", _DQ)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), q_positions.data_ptr(),
+            kv_positions.data_ptr(), dq.data_ptr(), B, Sq, Skv, Hq, Hkv, hd,
+            dtype, int(causal), window_, cap, scale, stream)
+        build.check_launch("flash_bwd.dq", rc)
     return dq, dk, dv

@@ -25,24 +25,10 @@ ROWS_PER_CTA = 16      # query heads of one kv head that a CTA takes
 SMS = 132              # streaming multiprocessors of an H100 SXM
 CTAS_PER_SM = 2        # the split count aims at about two CTAs per SM
 
-# Launches of the kernel since the last reset (set it to 0 to reset).
-launches = 0
-
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = build.load()
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # q, k, v, q_pos, kv_pos, part, out; B, Skv, Hq, Hkv, hd, dtype,
-        # causal, window, n_splits, split_keys; logit_cap, scale; stream
-        lib.flash_decode.argtypes = ([ptr] * 7 + [i32] * 10
-                                     + [ctypes.c_float, ctypes.c_float, ptr])
-        lib.flash_decode.restype = i32
-        _lib = lib
-    return _lib
+_ptr, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# q, k, v, q_pos, kv_pos, part, out; B, Skv, Hq, Hkv, hd, dtype, causal,
+# window, n_splits, split_keys; logit_cap, scale; stream
+_ARGS = [_ptr] * 7 + [_i32] * 10 + [_f32, _f32, _ptr]
 
 
 def split_plan(B: int, Hkv: int, G: int, Skv: int) -> Tuple[int, int]:
@@ -62,7 +48,6 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  ) -> torch.Tensor:
     """Launch the kernel on CUDA tensors with one query position:
     q [B,1,Hq,hd] -> [B,1,Hq,hd] in q's dtype."""
-    global launches
     check_inputs(q, k, v, q_positions, kv_positions, window, logit_cap)
     if q.shape[1] != 1:
         raise ValueError(f"flash_decode takes one query position, got "
@@ -77,15 +62,12 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     n_splits, split_keys = split_plan(B, Hkv, Hq // Hkv, Skv)
     part = torch.empty((B, Hkv, n_splits, Hq // Hkv, hd + 2),
                        dtype=torch.float32, device=q.device)
-    lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = lib.flash_decode(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              q_positions.data_ptr(), kv_positions.data_ptr(),
-                              part.data_ptr(), o.data_ptr(), B, Skv, Hq, Hkv,
-                              hd, _DTYPES[q.dtype], int(causal), window or 0,
-                              n_splits, split_keys, float(logit_cap or 0.0),
-                              float(hd ** -0.5), stream)
+        rc = build.entry("flash_decode", _ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
+            kv_positions.data_ptr(), part.data_ptr(), o.data_ptr(), B, Skv,
+            Hq, Hkv, hd, _DTYPES[q.dtype], int(causal), window or 0, n_splits,
+            split_keys, float(logit_cap or 0.0), float(hd ** -0.5), stream)
     build.check_launch("flash_decode", rc)
-    launches += 1
     return o

@@ -12,14 +12,16 @@ card, so that no count is read on the host:
 * ``moe_down``: out = h Wd[e].
 
 Rows at or past ``ends[E-1]`` are left as they are (``torch.empty``): the
-layer's combine reads only kept rows. The plain version is
+layer's combine reads only kept rows. The dispatch ledger counts each
+entry's launches, ``moe_gemm.gate_up`` and ``moe_gemm.down``
+(:mod:`repro_torch.kernels.build`). The plain version is
 :func:`repro_torch.kernels.ref.moe_experts_plain`; ``kernels/ops.py`` sends
 a CPU call there and a CUDA call here. The kernel takes bf16 only.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from functools import partial
 
 import torch
 
@@ -29,28 +31,13 @@ BM = 128               # rows of a tile (csrc/moe_gemm.cu)
 BN = {"gate_up": 128, "down": 256}  # columns of a tile, held against the library
 MAX_E = 256
 
-# Launches of each entry point since the last reset (set them to 0 to reset).
-launches = 0
-kernel_launches = {"gate_up": 0, "down": 0}
-
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = build.load()
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # in, weight(s), ends, out; rows, E, K, N, grid; stream
-        lib.moe_gate_up.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
-        lib.moe_gate_up.restype = i32
-        lib.moe_down.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
-        lib.moe_down.restype = i32
-        lib.moe_gemm_tiles.restype = i32
-        build.check_steps("moe_gemm", lib.moe_gemm_tiles,
-                          (BN["gate_up"], BN["down"]))
-        _lib = lib
-    return _lib
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+# in, weight(s), ends, out; rows, E, K, N, grid; stream
+_ARGS = {"gate_up": [_ptr] * 5 + [_i32] * 5 + [_ptr],
+         "down": [_ptr] * 4 + [_i32] * 5 + [_ptr]}
+# run when each entry is first bound
+_check_tiles = partial(build.check_steps, "moe_gemm_tiles",
+                       (BN["gate_up"], BN["down"]))
 
 
 def grid(rows: int, n_experts: int, n: int, bn: int, sms: int) -> int:
@@ -90,8 +77,7 @@ def _check(x: torch.Tensor, ends: torch.Tensor, *weights: torch.Tensor
                          "multiples of 8 (16-byte rows for the TMA)")
 
 
-def _launch(name: str, fn, x, weights, ends, n: int) -> torch.Tensor:
-    global launches
+def _launch(name: str, x, weights, ends, n: int) -> torch.Tensor:
     rows = x.shape[0]
     out = torch.empty((rows, n), dtype=x.dtype, device=x.device)
     if rows == 0:
@@ -99,13 +85,12 @@ def _launch(name: str, fn, x, weights, ends, n: int) -> torch.Tensor:
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     E = weights[0].shape[0]
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn = build.entry(f"moe_{name}", _ARGS[name], _check_tiles)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), *(w.data_ptr() for w in weights),
                 ends.data_ptr(), out.data_ptr(), rows, E, x.shape[1], n,
                 grid(rows, E, n, BN[name], sms), stream)
-    build.check_launch(f"moe_{name}", rc)
-    launches += 1
-    kernel_launches[name] += 1
+    build.check_launch(f"moe_gemm.{name}", rc)
     return out
 
 
@@ -116,8 +101,7 @@ def moe_gate_up(a: torch.Tensor, ends: torch.Tensor, w_gate: torch.Tensor,
     _check(a, ends, w_gate, w_up)
     if w_up.shape != w_gate.shape:
         raise ValueError("w_gate and w_up differ in shape")
-    return _launch("gate_up", _library().moe_gate_up, a, (w_gate, w_up), ends,
-                   w_gate.shape[2])
+    return _launch("gate_up", a, (w_gate, w_up), ends, w_gate.shape[2])
 
 
 def moe_down(h: torch.Tensor, ends: torch.Tensor, w_down: torch.Tensor
@@ -125,5 +109,4 @@ def moe_down(h: torch.Tensor, ends: torch.Tensor, w_down: torch.Tensor
     """h [R, Fe] bf16, ``ends`` int64 [E], w_down [E, Fe, D] bf16 -> out
     [R, D] bf16: h Wd[e] on expert e's rows."""
     _check(h, ends, w_down)
-    return _launch("down", _library().moe_down, h, (w_down,), ends,
-                   w_down.shape[2])
+    return _launch("down", h, (w_down,), ends, w_down.shape[2])

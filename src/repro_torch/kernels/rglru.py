@@ -8,7 +8,8 @@ decoupled look-back; prefill). Its plain version is
 :func:`repro_torch.kernels.ref.rglru_scan_plain`, and
 :func:`repro_torch.kernels.ref.rglru_scan_chunked_plain` repeats the chunked
 body's arithmetic; :mod:`repro_torch.kernels.ops` picks between kernel and
-plain version by the tensors' device.
+plain version by the tensors' device. The dispatch ledger counts each body's
+launches, ``rglru_scan.<body>`` (:mod:`repro_torch.kernels.build`).
 """
 from __future__ import annotations
 
@@ -25,10 +26,12 @@ SEQ_THREADS = 64   # sequential body: channels per CTA
 CHUNK = 32         # chunked body: steps per chunk; longer T take this body
 LANES = 32         # chunked body: lanes of a quarter, 16 bytes of channels each
 
-# Launches of the kernel since the last reset (set it to 0 to reset), and of
-# each body (set both entries to 0 to reset).
-launches = 0
-body_launches = {"sequential": 0, "chunked": 0}
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+# x, r, i, a_log, h0, y, h_out; B, T, W, dtype, alog_dtype; stream
+_SEQUENTIAL = [_ptr] * 7 + [_i32] * 5 + [_ptr]
+# x, r, i, a_log, h0, y, h_out, flags, pairs; B, T, W, dtype, alog_dtype,
+# chunk, vector; stream
+_CHUNKED = [_ptr] * 9 + [_i32] * 7 + [_ptr]
 
 
 class Plan(NamedTuple):
@@ -51,25 +54,6 @@ def plan(B: int, T: int, W: int, dtype: torch.dtype = torch.bfloat16,
     per_cta = LANES * 16 // (torch.finfo(dtype).bits // 8)
     return Plan(body, CHUNK,
                 (math.ceil(T / CHUNK) * B * math.ceil(W / per_cta), 1, 1))
-
-
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = build.load()
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # x, r, i, a_log, h0, y, h_out; B, T, W, dtype, alog_dtype; stream
-        lib.rglru_scan.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
-        lib.rglru_scan.restype = i32
-        # x, r, i, a_log, h0, y, h_out, flags, pairs; B, T, W, dtype,
-        # alog_dtype, chunk, vector; stream
-        lib.rglru_scan_chunked.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
-        lib.rglru_scan_chunked.restype = i32
-        _lib = lib
-    return _lib
 
 
 def check_inputs(x: torch.Tensor, a_log: torch.Tensor, gate_r: torch.Tensor,
@@ -112,7 +96,6 @@ def rglru_scan(x: torch.Tensor, a_log: torch.Tensor, gate_r: torch.Tensor,
     """Launch the kernel on CUDA tensors: (y [B,T,W] fp32, h_T [B,W] fp32).
     h_T is written into ``h_out`` when one is given (it may be ``h0``).
     :func:`plan` picks the body unless ``body`` names one."""
-    global launches
     check_inputs(x, a_log, gate_r, gate_i, h0, h_out)
     if x.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on CUDA tensors, not {x.device}")
@@ -121,14 +104,14 @@ def rglru_scan(x: torch.Tensor, a_log: torch.Tensor, gate_r: torch.Tensor,
     if h_out is None:
         h_out = torch.empty_like(h0)
     p = plan(B, T, W, x.dtype, body)
-    lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = (x.data_ptr(), gate_r.data_ptr(), gate_i.data_ptr(),
             a_log.data_ptr(), h0.data_ptr(), y.data_ptr(), h_out.data_ptr())
     with torch.cuda.device(x.device):
         if p.body == "sequential":
-            rc = lib.rglru_scan(*ptrs, B, T, W, _DTYPES[x.dtype],
-                                _DTYPES[a_log.dtype], stream)
+            rc = build.entry("rglru_scan", _SEQUENTIAL)(
+                *ptrs, B, T, W, _DTYPES[x.dtype], _DTYPES[a_log.dtype],
+                stream)
         else:
             n_chunks = math.ceil(T / p.chunk)
             # the look-back's flags, zero, and the ticket after them
@@ -138,11 +121,9 @@ def rglru_scan(x: torch.Tensor, a_log: torch.Tensor, gate_r: torch.Tensor,
                                 device=x.device)
             vector = (W * x.element_size()) % 16 == 0 and all(
                 t.data_ptr() % 16 == 0 for t in (x, gate_r, gate_i))
-            rc = lib.rglru_scan_chunked(*ptrs, flags.data_ptr(),
-                                        pairs.data_ptr(), B, T, W,
-                                        _DTYPES[x.dtype], _DTYPES[a_log.dtype],
-                                        p.chunk, int(vector), stream)
-    build.check_launch(f"rglru_scan ({p.body})", rc)
-    launches += 1
-    body_launches[p.body] += 1
+            rc = build.entry("rglru_scan_chunked", _CHUNKED)(
+                *ptrs, flags.data_ptr(), pairs.data_ptr(), B, T, W,
+                _DTYPES[x.dtype], _DTYPES[a_log.dtype], p.chunk, int(vector),
+                stream)
+    build.check_launch(f"rglru_scan.{p.body}", rc)
     return y, h_out

@@ -10,46 +10,33 @@ every chunk at once, and da_log's sum in a fixed order. Its plain version is
 :func:`repro_torch.kernels.ref.rglru_scan_bwd_plain`;
 :func:`repro_torch.kernels.ref.rglru_scan_bwd_chunked_plain` repeats the
 scheme; :mod:`repro_torch.kernels.ops` picks between kernel and plain version
-by the tensors' device.
+by the tensors' device. The dispatch ledger counts a call once,
+``rglru_bwd`` (:mod:`repro_torch.kernels.build`): four launches inside, the
+chunk maps, the carry over the chunks, the rescan, and da_log's sum over the
+batch rows and chunks.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from functools import partial
+from typing import Tuple
 
 import torch
 
 from . import build, rglru
 
 # steps per chunk and per quarter of the maps pass: L and SUB of
-# csrc/rglru_bwd.cu, which the wrapper checks when it loads the library
+# csrc/rglru_bwd.cu, which the wrapper checks when it binds the kernel
 CHUNK = 32
 SUB = 8
 
-# Calls that launched the kernel since the last reset (set it to 0 to
-# reset). Each call is four launches: the chunk maps, the carry over the
-# chunks, the rescan, and da_log's sum over the batch rows and chunks.
-launches = 0
-
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = build.load()
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # x, r, i, a_log, h0, y, dy, dh_T, dx, dr, di, da_log, dh0, maps,
-        # part; B, T, W, dtype, alog_dtype, vector; stream
-        lib.rglru_scan_bwd.argtypes = [ptr] * 15 + [i32] * 6 + [ptr]
-        lib.rglru_scan_bwd.restype = i32
-        lib.rglru_scan_bwd_steps.argtypes = [ptr] * 2
-        lib.rglru_scan_bwd_steps.restype = i32
-        build.check_steps("rglru_scan_bwd", lib.rglru_scan_bwd_steps,
-                          (CHUNK, SUB))
-        _lib = lib
-    return _lib
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+# x, r, i, a_log, h0, y, dy, dh_T, dx, dr, di, da_log, dh0, maps, part; B,
+# T, W, dtype, alog_dtype, vector; stream
+_ARGS = [_ptr] * 15 + [_i32] * 6 + [_ptr]
+_check_steps = partial(build.check_steps, "rglru_scan_bwd_steps",
+                       (CHUNK, SUB))
 
 
 def check_inputs(x: torch.Tensor, a_log: torch.Tensor, gate_r: torch.Tensor,
@@ -75,7 +62,6 @@ def rglru_scan_bwd(x: torch.Tensor, a_log: torch.Tensor, gate_r: torch.Tensor,
     """Launch K2b on CUDA tensors: (dx, da_log, dgate_r, dgate_i, dh0), each
     in its input's dtype. y is the forward's h sequence, dy and dh_T the
     cotangents of y and h_T."""
-    global launches
     check_inputs(x, a_log, gate_r, gate_i, h0, y, dy, dh_T)
     if x.device.type != "cuda":
         raise ValueError(f"rglru_scan_bwd runs on CUDA tensors, not {x.device}")
@@ -90,17 +76,15 @@ def rglru_scan_bwd(x: torch.Tensor, a_log: torch.Tensor, gate_r: torch.Tensor,
     vector = (W * x.element_size() % 16 == 0
               and all(t.data_ptr() % 16 == 0
                       for t in (x, gate_r, gate_i, h0, y, dy)))
-    lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     dtypes = rglru._DTYPES
     with torch.cuda.device(x.device):
-        rc = lib.rglru_scan_bwd(
+        rc = build.entry("rglru_scan_bwd", _ARGS, _check_steps)(
             x.data_ptr(), gate_r.data_ptr(), gate_i.data_ptr(),
             a_log.data_ptr(), h0.data_ptr(), y.data_ptr(), dy.data_ptr(),
             dh_T.data_ptr(), dx.data_ptr(), dr.data_ptr(), di.data_ptr(),
             da_log.data_ptr(), dh0.data_ptr(), maps.data_ptr(),
             part.data_ptr(), B, T, W, dtypes[x.dtype], dtypes[a_log.dtype],
             int(vector), stream)
-    build.check_launch("rglru_scan_bwd", rc)
-    launches += 1
+    build.check_launch("rglru_bwd", rc)
     return dx, da_log, dr, di, dh0

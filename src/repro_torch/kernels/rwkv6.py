@@ -8,12 +8,14 @@ chunk summaries, carry, outputs; prefill). Its plain version is
 :func:`repro_torch.kernels.ref.rwkv6_scan_plain`, and
 :func:`repro_torch.kernels.ref.rwkv6_scan_chunked_plain` repeats the chunked
 body's arithmetic; :mod:`repro_torch.kernels.ops` picks between kernel and
-plain version by the tensors' device.
+plain version by the tensors' device. The dispatch ledger counts each body's
+launches, ``wkv6_scan.<body>`` (:mod:`repro_torch.kernels.build`).
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from functools import partial
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -23,15 +25,19 @@ from . import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 64
 # chunked body: steps per chunk (longer T take this body) and per sub-chunk,
-# L and SUB of csrc/wkv6_chunk.cu, which the wrapper checks when it loads
-# the library
+# L and SUB of csrc/wkv6_chunk.cu, which the wrapper checks when it binds
+# the body
 CHUNK = 64
 SUB = 16
 
-# Launches of the kernel since the last reset (set it to 0 to reset), and of
-# each body (set both entries to 0 to reset).
-launches = 0
-body_launches = {"sequential": 0, "chunked": 0}
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+# r, k, v, w, u, state, y, state_out; B, T, H, hd, dtype, u_dtype; stream
+_SEQUENTIAL = [_ptr] * 8 + [_i32] * 6 + [_ptr]
+# r, k, v, w, u, state, y, state_out, scratch, decay; B, T, H, hd, dtype,
+# u_dtype, vec; stream
+_CHUNKED = [_ptr] * 10 + [_i32] * 7 + [_ptr]
+_check_steps = partial(build.check_steps, "wkv6_scan_chunked_steps",
+                       (CHUNK, SUB))
 
 
 class Plan(NamedTuple):
@@ -52,30 +58,6 @@ def plan(B: int, T: int, H: int, hd: int, body: Optional[str] = None) -> Plan:
     if body != "chunked":
         raise ValueError(f"body {body!r}: want 'sequential' or 'chunked'")
     return Plan(body, CHUNK, (math.ceil(T / CHUNK), H, B))
-
-
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = build.load()
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # r, k, v, w, u, state, y, state_out; B, T, H, hd, dtype, u_dtype;
-        # stream
-        lib.wkv6_scan.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
-        lib.wkv6_scan.restype = i32
-        # r, k, v, w, u, state, y, state_out, scratch, decay; B, T, H, hd,
-        # dtype, u_dtype, vec; stream
-        lib.wkv6_scan_chunked.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
-        lib.wkv6_scan_chunked.restype = i32
-        lib.wkv6_scan_chunked_steps.argtypes = [ptr] * 2
-        lib.wkv6_scan_chunked_steps.restype = i32
-        build.check_steps("wkv6_scan", lib.wkv6_scan_chunked_steps,
-                          (CHUNK, SUB))
-        _lib = lib
-    return _lib
 
 
 def check_inputs(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -123,7 +105,6 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the kernel on CUDA tensors: (y [B,T,H,hd] fp32, S_T fp32).
     S_T is written into ``state_out`` when one is given (it may be
     ``state``). :func:`plan` picks the body unless ``body`` names one."""
-    global launches
     check_inputs(r, k, v, w, u, state, state_out)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6_scan runs on CUDA tensors, not {r.device}")
@@ -132,14 +113,14 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if state_out is None:
         state_out = torch.empty_like(state)
     p = plan(B, T, H, hd, body)
-    lib = _library()
     stream = torch.cuda.current_stream(r.device).cuda_stream
     ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), state.data_ptr(), y.data_ptr(), state_out.data_ptr())
     dtypes = (_DTYPES[r.dtype], _DTYPES[u.dtype])
     with torch.cuda.device(r.device):
         if p.body == "sequential":
-            rc = lib.wkv6_scan(*ptrs, B, T, H, hd, *dtypes, stream)
+            rc = build.entry("wkv6_scan", _SEQUENTIAL)(*ptrs, B, T, H, hd,
+                                                       *dtypes, stream)
         else:
             n = p.grid[0]
             # each chunk's ΔS, overwritten by its start state; its decay
@@ -149,10 +130,8 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 device=r.device)
             vec = hd % 8 == 0 and all(t.data_ptr() % 16 == 0
                                       for t in (r, k, v, w))
-            rc = lib.wkv6_scan_chunked(*ptrs, scratch.data_ptr(),
-                                       decay.data_ptr(), B, T, H, hd, *dtypes,
-                                       int(vec), stream)
-    build.check_launch(f"wkv6_scan ({p.body})", rc)
-    launches += 1
-    body_launches[p.body] += 1
+            rc = build.entry("wkv6_scan_chunked", _CHUNKED, _check_steps)(
+                *ptrs, scratch.data_ptr(), decay.data_ptr(), B, T, H, hd,
+                *dtypes, int(vec), stream)
+    build.check_launch(f"wkv6_scan.{p.body}", rc)
     return y, state_out

@@ -12,12 +12,17 @@ the chunk's, never by dividing by a decay). Its
 plain version is :func:`repro_torch.kernels.ref.rwkv6_scan_bwd_plain`;
 :func:`repro_torch.kernels.ref.rwkv6_scan_bwd_chunked_plain` repeats the
 scheme; :mod:`repro_torch.kernels.ops` picks between kernel and plain version
-by the tensors' device.
+by the tensors' device. The dispatch ledger counts a call once,
+``wkv6_bwd`` (:mod:`repro_torch.kernels.build`): six launches inside, the
+chunk states (K3's summary and carry), the chunk cotangents (their summary
+and the reverse carry), the chunks' reverse walk, and du's sum over the
+batch rows and chunks.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
@@ -25,35 +30,17 @@ import torch
 from . import build, rwkv6
 
 # steps per chunk and per sub-chunk: L and SUB of csrc/wkv6_bwd.cu (K3's
-# chunk, rwkv6.CHUNK and rwkv6.SUB), which the wrapper checks when it loads
-# the library
+# chunk, rwkv6.CHUNK and rwkv6.SUB), which the wrapper checks when it binds
+# the kernel
 CHUNK = 64
 SUB = 16
 
-# Calls that launched the kernel since the last reset (set it to 0 to
-# reset). Each call is six launches: the chunk states (K3's summary and
-# carry), the chunk cotangents (their summary and the reverse carry), the
-# chunks' reverse walk, and du's sum over the batch rows and chunks.
-launches = 0
-
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = build.load()
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # r, k, v, w, u, state, dy, ds_T, dr, dk, dv, dw, du, ds0, starts,
-        # ends, decay, du_part; B, T, H, hd, dtype, u_dtype, vec; stream
-        lib.wkv6_scan_bwd.argtypes = [ptr] * 18 + [i32] * 7 + [ptr]
-        lib.wkv6_scan_bwd.restype = i32
-        lib.wkv6_scan_bwd_steps.argtypes = [ptr] * 2
-        lib.wkv6_scan_bwd_steps.restype = i32
-        build.check_steps("wkv6_scan_bwd", lib.wkv6_scan_bwd_steps,
-                          (CHUNK, SUB))
-        _lib = lib
-    return _lib
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+# r, k, v, w, u, state, dy, ds_T, dr, dk, dv, dw, du, ds0, starts, ends,
+# decay, du_part; B, T, H, hd, dtype, u_dtype, vec; stream
+_ARGS = [_ptr] * 18 + [_i32] * 7 + [_ptr]
+_check_steps = partial(build.check_steps, "wkv6_scan_bwd_steps",
+                       (CHUNK, SUB))
 
 
 def check_inputs(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -91,7 +78,6 @@ def wkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     input's dtype. dy and ds_T are the cotangents of y and S_T. The scratch
     comes from :func:`scratch`; ``scratch_out`` takes a dict of those
     buffers to use instead (a test reads the chunk states back)."""
-    global launches
     check_inputs(r, k, v, w, u, state, dy, ds_T)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6_scan_bwd runs on CUDA tensors, not {r.device}")
@@ -99,16 +85,14 @@ def wkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dr, dk, dv, dw = (torch.empty_like(t) for t in (r, k, v, w))
     du, ds0 = torch.empty_like(u), torch.empty_like(state)
     sc = scratch(B, T, H, hd, r.device) if scratch_out is None else scratch_out
-    lib = _library()
     stream = torch.cuda.current_stream(r.device).cuda_stream
     dtypes = rwkv6._DTYPES
     vec = hd % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (r, k, v, w, dy))
     with torch.cuda.device(r.device):
-        rc = lib.wkv6_scan_bwd(
+        rc = build.entry("wkv6_scan_bwd", _ARGS, _check_steps)(
             *(t.data_ptr() for t in (r, k, v, w, u, state, dy, ds_T, dr, dk,
                                      dv, dw, du, ds0, sc["starts"],
                                      sc["ends"], sc["decay"], sc["du_part"])),
             B, T, H, hd, dtypes[r.dtype], dtypes[u.dtype], int(vec), stream)
-    build.check_launch("wkv6_scan_bwd", rc)
-    launches += 1
+    build.check_launch("wkv6_bwd", rc)
     return dr, dk, dv, dw, du, ds0

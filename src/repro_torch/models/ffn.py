@@ -30,14 +30,15 @@ sum to the whole layer's. Without a share the layer runs as it always has.
 
 Every shape is fixed by (T, E, K, C) on both paths, so the layer never syncs
 with the host. :mod:`repro_torch.models.moe_ep` builds its expert-parallel
-form from these steps. ``path_calls`` counts the calls of each path;
-``expert_rows``, while on, keeps each grouped call's row ends on the device,
-read after the calls as its rows and experts with rows. With
-``txtrace.enabled``, :func:`moe_mlp` records its steps as the spans
-``moe.route``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``
-(:mod:`repro_torch.obs.hostspans`; detail: the tokens T and the path with
-the rows its experts compute, ``grouped rows=T·K`` or ``capacity EC=E·C``,
-and with a share ``held=n/E``).
+form from these steps. The dispatch ledger counts the calls of each path,
+``moe_mlp.grouped`` and ``moe_mlp.capacity``
+(:mod:`repro_torch.kernels.build`); ``expert_rows``, while on, keeps each
+grouped call's row ends on the device, read after the calls as its rows and
+experts with rows. With ``txtrace.enabled``, :func:`moe_mlp` records its
+steps as the spans ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
+``moe.combine`` (:mod:`repro_torch.obs.hostspans`; detail: the tokens T and
+the path with the rows its experts compute, ``grouped rows=T·K`` or
+``capacity EC=E·C``, and with a share ``held=n/E``).
 """
 from __future__ import annotations
 
@@ -47,13 +48,10 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 from repro_torch.obs import hostspans, txtrace
 
 from .remat import residual_product
-
-# Calls of moe_mlp by path since the last reset (set them to 0 to reset).
-path_calls = {"grouped": 0, "capacity": 0}
 
 
 class ExpertRows:
@@ -347,7 +345,8 @@ def moe_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
     xt = x.reshape(T, D)
     C = moe_capacity(T, E, K, cfg.capacity_factor)
     grouped = grouped_path(params, x, plain)
-    path_calls["grouped" if grouped else "capacity"] += 1
+    build.DISPATCH.counter("moe_mlp.grouped" if grouped
+                           else "moe_mlp.capacity").inc()
     traced = txtrace.enabled
     if traced:
         detail = (f"T={T} grouped rows={T * K}" if grouped

@@ -19,6 +19,9 @@ K1b's bf16 body rounds p and ds to bf16 before the products that take them
 to their bf16 limit (atol 1e-4, rtol 2^-6). An emulation of that arithmetic
 in torch is held here against ``_flash_bwd_impl`` within the same limit.
 """
+import inspect
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +33,7 @@ from repro.models.attention import (_flash_bwd_impl, _flash_fwd_impl,
 from repro_torch.kernels import flash_bwd as fb
 from repro_torch.kernels import ops, ref
 from repro_torch.models.attention import FlashAttention, flash_attention
+from repro_torch.obs import metrics
 
 # the SMs of an H100, the card the plan's splits are set for
 H100_SMS = 132
@@ -318,13 +322,17 @@ def test_plan_splits_the_dkdv_grid_below_two_waves(shape, dtype, splits):
 
 
 def test_wrapper_counts_a_reduce_pass_and_refuses_the_cpu():
-    assert set(fb.kernel_launches) == {"delta", "dkdv", "dq", "reduce"}
+    # each pass's launch is counted in the dispatch ledger, in launch order
+    src = inspect.getsource(fb.flash_bwd)
+    assert re.findall(r'check_launch\("flash_bwd\.(\w+)"', src) == [
+        "delta", "dkdv", "reduce", "dq"]
     case = CASES[0]
     q, k, v, dout, qp, kp = _inputs(case)
     t = [torch.from_numpy(a) for a in (q, k, v, dout)]
     kw = _kw(case, qp, kp)
     out, lse = ref.attention_lse_plain(*t[:3], **kw)
-    before = (fb.launches, dict(fb.kernel_launches))
+    ledger = metrics.registry("dispatch")
+    before = ledger.snapshot()
     with pytest.raises(ValueError, match="CUDA"):
         fb.flash_bwd(*t[:3], out, lse, t[3], **kw)
-    assert (fb.launches, fb.kernel_launches) == before
+    assert ledger.snapshot() == before

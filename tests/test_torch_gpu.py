@@ -22,12 +22,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_bwd as fb
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import moe_gemm as mg
 from repro_torch.kernels import ops, ref, rglru, rglru_bwd, rwkv6, rwkv6_bwd
 from repro_torch.models import Backbone, LayerGroup, ffn, get_config, reduced
+from repro_torch.obs import metrics
 
 pytestmark = pytest.mark.gpu
 
@@ -80,6 +82,30 @@ def cuda():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _ledger():
+    """The dispatch ledger's counts (``metrics.registry("dispatch")``): one
+    a launch of a C entry point, ``<kernel>.<body or pass>`` or
+    ``<kernel>``, and one a moe_mlp call, ``moe_mlp.<path>``."""
+    return metrics.registry("dispatch").snapshot()["counters"]
+
+
+def _moved(before):
+    """The ledger's counts that moved since ``before`` (a :func:`_ledger`),
+    by key."""
+    return {k: n - before.get(k, 0) for k, n in _ledger().items()
+            if n != before.get(k, 0)}
+
+
+def _of(moved, kernel):
+    """The counts of ``moved`` under one kernel's keys."""
+    return {k: n for k, n in moved.items() if k.split(".")[0] == kernel}
+
+
+def _total(moved, kernel):
+    """A kernel's launches in ``moved``: the sum of its keys."""
+    return sum(_of(moved, kernel).values())
 
 
 def _randn(shape, dtype, device, seed):
@@ -239,24 +265,24 @@ def test_ops_attention_picks_the_kernel_by_query_length(cuda):
     q = _randn((2, 5, 4, 32), torch.bfloat16, cuda, 40)
     k = _randn((2, 9, 2, 32), torch.bfloat16, cuda, 41)
     kp = torch.arange(9, dtype=torch.int32, device=cuda)
-    for sq, moved in ((1, (0, 1)), (5, (1, 0))):
-        before = (fa.launches, fd.launches)
+    for sq, moved in ((1, {"flash_decode": 1}), (5, {"flash_fwd.mma": 1})):
+        before = _ledger()
         ops.attention(q[:, :sq].contiguous(), k, k, kv_positions=kp,
                       q_positions=torch.arange(9 - sq, 9, dtype=torch.int32,
                                                device=cuda))
-        assert (fa.launches - before[0], fd.launches - before[1]) == moved
+        assert _moved(before) == moved
 
 
 def test_wrapper_counts_launches_and_rejects_what_it_cannot_take(cuda):
     q = _randn((1, 8, 4, 32), torch.bfloat16, cuda, 8)
     k = _randn((1, 8, 2, 32), torch.bfloat16, cuda, 9)
-    before = fa.launches
+    before = _ledger()
     ops.flash_attention(q, k, k)
     ops.flash_attention(q, k, k)
-    assert fa.launches == before + 2
+    assert _total(_moved(before), "flash_fwd") == 2
     with pytest.raises(ValueError):
         ops.flash_attention(q.half(), k.half(), k.half())
-    assert fa.launches == before + 2
+    assert _total(_moved(before), "flash_fwd") == 2
 
 
 def test_model_decode_matches_prefill_on_the_card(cuda):
@@ -430,27 +456,23 @@ def test_each_body_counts_its_launches(cuda):
     for T, body in ((1, "sequential"), (200, "chunked")):
         x, a_log, gr, gi, h0 = _rglru_args(2, T, 256, torch.bfloat16, cuda)
         r, k, v, w, u, s0 = _wkv_args(2, T, 4, 64, torch.bfloat16, cuda)
-        before = (rglru.launches, dict(rglru.body_launches),
-                  rwkv6.launches, dict(rwkv6.body_launches))
+        before = _ledger()
         assert rglru.plan(2, T, 256).body == rwkv6.plan(2, T, 4, 64).body == body
         ops.rglru_scan(x, a_log, gr, gi, h0)
         ops.rwkv6_scan(r, k, v, w, u, s0)
-        assert rglru.launches == before[0] + 1
-        assert rwkv6.launches == before[2] + 1
-        for counts, old in ((rglru.body_launches, before[1]),
-                            (rwkv6.body_launches, before[3])):
-            assert counts[body] == old[body] + 1
-            assert sum(counts.values()) == sum(old.values()) + 1
+        assert _moved(before) == {f"rglru_scan.{body}": 1,
+                                  f"wkv6_scan.{body}": 1}
 
 
 def test_scan_wrappers_count_launches_and_reject_what_they_cannot_take(cuda):
     x, a_log, gr, gi, h0 = _rglru_args(1, 8, 64, torch.bfloat16, cuda)
     r, k, v, w, u, s0 = _wkv_args(1, 8, 2, 64, torch.bfloat16, cuda)
-    before = (rglru.launches, rwkv6.launches)
+    before = _ledger()
     ops.rglru_scan(x, a_log, gr, gi, h0)
     ops.rwkv6_scan(r, k, v, w, u, s0)
     ops.rwkv6_scan(r, k, v, w, u, s0)
-    assert (rglru.launches, rwkv6.launches) == (before[0] + 1, before[1] + 2)
+    counted = {"rglru_scan.sequential": 1, "wkv6_scan.sequential": 2}
+    assert _moved(before) == counted
     with pytest.raises(ValueError):
         ops.rglru_scan(x.half(), a_log, gr.half(), gi.half(), h0)
     with pytest.raises(ValueError):
@@ -464,7 +486,7 @@ def test_scan_wrappers_count_launches_and_reject_what_they_cannot_take(cuda):
         ops.rwkv6_scan(*big)
     with pytest.raises(ValueError):
         ops.rwkv6_scan(r, k, v, w, u, s0.cpu())
-    assert (rglru.launches, rwkv6.launches) == (before[0] + 1, before[1] + 2)
+    assert _moved(before) == counted
 
 
 @pytest.mark.parametrize("arch,groups", [
@@ -476,12 +498,13 @@ def test_recurrent_decode_matches_prefill_on_the_card(cuda, arch, groups):
     params = bb.init(0)
     toks = torch.from_numpy(np.random.default_rng(10).integers(
         0, cfg.vocab, (2, 41), dtype=np.int32)).to(cuda)
-    launched = (fa.launches, rglru.launches, rwkv6.launches)
+    before = _ledger()
     _, cache = bb.prefill(params, {"tokens": toks[:, :40]}, 64)
     got, _ = bb.decode_step(params, cache, toks[:, 40:])
     want, _ = bb.prefill(params, {"tokens": toks}, 64)
     torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
-    scans = (rglru.launches - launched[1], rwkv6.launches - launched[2])
+    moved = _moved(before)
+    scans = (_total(moved, "rglru_scan"), _total(moved, "wkv6_scan"))
     assert scans == ((3 * 3, 0) if arch == "recurrentgemma-9b" else (0, 3 * 3))
 
 
@@ -595,15 +618,15 @@ def test_flash_bwd_matches_plain(cuda, case, dtype):
     dt = DTYPES[dtype][0]
     q, k, v, dout, kw = _bwd_inputs(case, dt, cuda)
     out, lse = ref.attention_lse_plain(q, k, v, **kw)
-    before = dict(fb.kernel_launches)
+    before = _ledger()
     got = fb.flash_bwd(q, k, v, out, lse, dout, **kw)
     torch.cuda.synchronize()
     _assert_bwd_close(got, q, k, v, out, lse, dout, kw, dtype)
     B, Sq, Skv, Hq, Hkv, hd = case[:6]
     split = fb.plan(B, Sq, Skv, Hq, Hkv, hd, dt,
                     sms=fb.device_sms(q.device)).splits > 1
-    assert {n: fb.kernel_launches[n] - before[n] for n in before} == {
-        "delta": 1, "dkdv": 1, "dq": 1, "reduce": int(split)}
+    passes = ("delta", "dkdv", "dq") + (("reduce",) if split else ())
+    assert _moved(before) == {f"flash_bwd.{p}": 1 for p in passes}
     # no atomics: a second run gives the same bits
     again = fb.flash_bwd(q, k, v, out, lse, dout, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -627,24 +650,23 @@ def test_flash_bwd_takes_the_kernels_lse_and_masks_empty_rows(cuda):
 def test_flash_bwd_rejects_what_it_cannot_take(cuda):
     q, k, v, dout, kw = _bwd_inputs(BWD_CASES[1], torch.bfloat16, cuda)
     out, lse = ref.attention_lse_plain(q, k, v, **kw)
-    before = fb.launches
+    before = _ledger()
     for bad in (dict(lse=lse[..., 1:].contiguous()), dict(out=out.float()),
                 dict(dout=dout[:, 1:].contiguous()), dict(lse=lse.cpu())):
         args = dict(q=q, k=k, v=v, out=out, lse=lse, dout=dout)
         args.update(bad)
         with pytest.raises(ValueError):
             fb.flash_bwd(**args, **kw)
-    assert fb.launches == before
+    assert _moved(before) == {}
 
 
 def test_flash_bwd_plan_tiles_as_the_library(cuda, monkeypatch):
     """flash_bwd.plan splits by the library's own dk/dv tiles, and a library
-    that tiles otherwise is refused at load."""
-    lib = fb._library()
-    fb._check_tiles(lib)
+    that tiles otherwise is refused when the dk/dv pass is first bound."""
+    fb._check_tiles()
     monkeypatch.setattr(fb, "dkdv_tiles", lambda hd, dtype: (128, 32))
     with pytest.raises(RuntimeError, match="tiles dk/dv"):
-        fb._check_tiles(lib)
+        fb._check_tiles()
 
 
 @pytest.mark.parametrize("remat", [False, True])
@@ -668,11 +690,12 @@ def test_model_grads_kernel_path_match_plain_path(cuda, dtype, remat):
     rng = np.random.default_rng(11)
     toks = rng.integers(0, cfg.vocab, (2, 65), dtype=np.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    before = (fa.launches, fd.launches, fb.launches)
+    before = _ledger()
     lk, gk = value_and_grad(kern, params, batch)
     torch.cuda.synchronize()
-    assert (fa.launches - before[0], fd.launches - before[1],
-            fb.launches - before[2]) == (3 * (2 if remat else 1), 0, 3)
+    moved = _moved(before)
+    assert (_total(moved, "flash_fwd"), _total(moved, "flash_decode"),
+            moved.get("flash_bwd.dq", 0)) == (3 * (2 if remat else 1), 0, 3)
     lp, gp = value_and_grad(plain, params, batch)
     if dt == torch.float32:
         torch.testing.assert_close(lk, lp, atol=1e-5, rtol=1e-5)
@@ -703,17 +726,15 @@ def test_remat_dots_equals_full_on_the_card(cuda, arch, groups, dtype):
     rng = np.random.default_rng(12)
     toks = rng.integers(0, cfg.vocab, (2, 129), dtype=np.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    mods = (fa, fd, fb, rglru, rglru_bwd, rwkv6, rwkv6_bwd)
     runs = {}
     for policy in ("off", "full", "dots"):
         kw = (dict(remat=False) if policy == "off"
               else dict(remat=True, remat_policy=policy))
         bb = Backbone(cfg, compute_dtype=dt, device=cuda, **kw)
-        before = [m.launches for m in mods]
+        before = _ledger()
         loss, grads = value_and_grad(bb, bb.init(3), batch)
         torch.cuda.synchronize()
-        runs[policy] = (loss, tree_leaves(grads),
-                        [m.launches - n for m, n in zip(mods, before)])
+        runs[policy] = (loss, tree_leaves(grads), _moved(before))
     assert runs["dots"][2] == runs["full"][2] != runs["off"][2]
     for policy in ("full", "dots"):
         assert torch.equal(runs[policy][0], runs["off"][0]), policy
@@ -778,10 +799,10 @@ def _rglru_bwd_args(B, T, W, dt, dev, a_log=None):
 @pytest.mark.parametrize("shape", RGLRU_BWD_SHAPES, ids=str)
 def test_rglru_bwd_matches_plain(cuda, shape, dtype):
     args = _rglru_bwd_args(*shape, SCAN_DTYPES[dtype], cuda)
-    before = rglru_bwd.launches
+    before = _ledger()
     got = rglru_bwd.rglru_scan_bwd(*args)
     torch.cuda.synchronize()
-    assert rglru_bwd.launches == before + 1
+    assert _moved(before) == {"rglru_bwd": 1}
     _assert_grads_close_on_card(got, ref.rglru_scan_bwd_plain(*args),
                                 "rglru_scan_bwd")
     # no atomics: a rerun gives the same bits
@@ -826,10 +847,10 @@ def _wkv_bwd_args(B, T, H, hd, dt, dev, w=None):
 @pytest.mark.parametrize("shape", WKV_BWD_SHAPES, ids=str)
 def test_wkv_bwd_matches_plain(cuda, shape, dtype):
     args = _wkv_bwd_args(*shape, SCAN_DTYPES[dtype], cuda)
-    before = rwkv6_bwd.launches
+    before = _ledger()
     got = rwkv6_bwd.wkv6_scan_bwd(*args)
     torch.cuda.synchronize()
-    assert rwkv6_bwd.launches == before + 1
+    assert _moved(before) == {"wkv6_bwd": 1}
     _assert_grads_close_on_card(got, ref.rwkv6_scan_bwd_plain(*args),
                                 "wkv6_scan_bwd")
     again = rwkv6_bwd.wkv6_scan_bwd(*args)
@@ -885,7 +906,7 @@ def test_scan_bwd_wrappers_reject_what_they_cannot_take(cuda):
                                                     cuda)
     r, k, v, w, u, s0, dyw, ds = _wkv_bwd_args(1, 8, 2, 64, torch.bfloat16,
                                                cuda)
-    before = (rglru_bwd.launches, rwkv6_bwd.launches)
+    before = _ledger()
     for bad in (dict(y=y.bfloat16()), dict(dy=dy[:, 1:].contiguous()),
                 dict(dh_T=dh.cpu()), dict(x=x.half(), gate_r=gr.half(),
                                           gate_i=gi.half())):
@@ -900,7 +921,7 @@ def test_scan_bwd_wrappers_reject_what_they_cannot_take(cuda):
         a.update(bad)
         with pytest.raises(ValueError):
             ops.rwkv6_scan_bwd(**a)
-    assert (rglru_bwd.launches, rwkv6_bwd.launches) == before
+    assert _moved(before) == {}
 
 
 @pytest.mark.parametrize("remat", [False, True])
@@ -928,14 +949,14 @@ def test_recurrent_model_grads_kernel_path_match_plain_path(cuda, arch, groups,
     toks = np.random.default_rng(12).integers(0, cfg.vocab, (2, 66),
                                               dtype=np.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    before = (rglru.launches, rglru_bwd.launches, rwkv6.launches,
-              rwkv6_bwd.launches)
+    before = _ledger()
     lk, gk = value_and_grad(kern, params, batch)
     torch.cuda.synchronize()
     kinds = cfg.layer_kinds()
     fwd = 2 if remat else 1
-    assert (rglru.launches - before[0], rglru_bwd.launches - before[1],
-            rwkv6.launches - before[2], rwkv6_bwd.launches - before[3]) == (
+    moved = _moved(before)
+    assert (_total(moved, "rglru_scan"), moved.get("rglru_bwd", 0),
+            _total(moved, "wkv6_scan"), moved.get("wkv6_bwd", 0)) == (
         fwd * kinds.count("rec"), kinds.count("rec"),
         fwd * kinds.count("rwkv"), kinds.count("rwkv"))
     lp, gp = value_and_grad(plain, params, batch)
@@ -1054,12 +1075,11 @@ def test_moe_gemm_matches_plain(cuda, case):
     result once); one launch each, counted."""
     a, ends, wg, wu, wd = _moe_gemm_args(*case, seed=60, device=cuda)
     n = sum(case[3])
-    before = dict(mg.kernel_launches)
+    before = _ledger()
     h = mg.moe_gate_up(a, ends, wg, wu)
     out = mg.moe_down(h, ends, wd)
     torch.cuda.synchronize()
-    assert {k: mg.kernel_launches[k] - before[k] for k in before} == \
-        {"gate_up": 1, "down": 1}
+    assert _moved(before) == {"moe_gemm.gate_up": 1, "moe_gemm.down": 1}
     atol, rtol = DTYPES["bf16"][1]
     for got, want in ((h, ref.moe_gate_up_plain(a, ends, wg, wu)),
                       (out, ref.moe_down_plain(h, ends, wd))):
@@ -1098,14 +1118,13 @@ def test_moe_mlp_grouped_path_on_the_card_matches_the_cpu_port(cuda, arch):
     cfg, p, x = _moe_case(arch, 52)
     tp, tx = _moe_bf16(cfg, p, x, cuda)
     cp, cx = _moe_bf16(cfg, p, x, "cpu")
-    calls, before = dict(ffn.path_calls), dict(mg.kernel_launches)
+    before = _ledger()
     with torch.no_grad():
         got, _ = ffn.moe_mlp(tp, tx, cfg)
         want, _ = ffn.moe_mlp(cp, cx, cfg)
-    assert ffn.path_calls["grouped"] - calls["grouped"] == 2
-    assert ffn.path_calls["capacity"] == calls["capacity"]
-    assert {k: mg.kernel_launches[k] - before[k] for k in before} == \
-        {"gate_up": 1, "down": 1}
+    counted = {"moe_mlp.grouped": 2, "moe_gemm.gate_up": 1,
+               "moe_gemm.down": 1}
+    assert _moved(before) == counted
     _, _, ki = ffn.route(tx.reshape(-1, cfg.d_model), tp["router"],
                          cfg.top_k)
     _, _, ci = ffn.route(cx.reshape(-1, cfg.d_model), cp["router"], cfg.top_k)
@@ -1115,9 +1134,7 @@ def test_moe_mlp_grouped_path_on_the_card_matches_the_cpu_port(cuda, arch):
     assert err <= 2.0 ** -6 * float(want.abs().max()), err
     gp, gx = _moe_bf16(cfg, p, x, cuda, grad=True)
     ffn.moe_mlp(gp, gx, cfg)
-    assert ffn.path_calls["capacity"] == calls["capacity"] + 1
-    assert {k: mg.kernel_launches[k] - before[k] for k in before} == \
-        {"gate_up": 1, "down": 1}
+    assert _moved(before) == dict(counted, **{"moe_mlp.capacity": 1})
 
 
 def _device_launches(fn, calls=3):
@@ -1189,13 +1206,13 @@ def test_moe_mlp_share_makes_no_host_sync(cuda, T):
     with torch.no_grad():
         ffn.moe_mlp(halves[1], x, cfg, held=(64, 64))   # the library, warm
         torch.cuda.synchronize()
-        calls = dict(ffn.path_calls)
+        before = _ledger()
         torch.cuda.set_sync_debug_mode("error")
         try:
             ffn.moe_mlp(halves[1], x, cfg, held=(64, 64))
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        assert ffn.path_calls["grouped"] == calls["grouped"] + 1
+        assert _of(_moved(before), "moe_mlp") == {"moe_mlp.grouped": 1}
         shared = _device_launches(
             lambda: ffn.moe_mlp(halves[1], x, cfg, held=(64, 64)))
         unshared = _device_launches(lambda: ffn.moe_mlp(whole, x, cfg))
@@ -1246,13 +1263,13 @@ def test_prefill_graphs_replay_the_eager_prefill(cuda):
             assert (torch.equal(g, w) if isinstance(w, torch.Tensor)
                     else g == w), (S, kg)
     assert len(graphed._graphs) == 2
-    calls = ffn.path_calls["grouped"]
+    before = _ledger()
     graphed.prefill(params, {"tokens": toks}, 64)
-    assert ffn.path_calls["grouped"] == calls
+    assert _of(_moved(before), "moe_mlp") == {}
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
         graphed.prefill(params, {"tokens": toks}, 64)
-    assert ffn.path_calls["grouped"] == calls + cfg.n_layers
+    assert _of(_moved(before), "moe_mlp") == {"moe_mlp.grouped": cfg.n_layers}
     served = []
     for bb in (eager, graphed):
         srv = Server(bb, params, slots=3, ctx=64)
@@ -1281,7 +1298,7 @@ def _mma_body(q, k, v, kw, return_lse=False):
     out = torch.empty_like(q)
     lse = (torch.empty((B, Hkv, Hq // Hkv, Sq), dtype=torch.float32,
                        device=q.device) if return_lse else None)
-    rc = fa._library().flash_fwd(
+    rc = build.entry("flash_fwd", fa.FWD_ARGS)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kw["q_positions"].data_ptr(),
         kw["kv_positions"].data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), B, Sq, Skv, Hq, Hkv, hd, 1,
@@ -1293,11 +1310,10 @@ def _mma_body(q, k, v, kw, return_lse=False):
 
 def _sm90_call(q, k, v, kw, return_lse=False):
     """fa.flash_fwd, held to one launch of the sm90 body."""
-    before = dict(fa.body_launches)
+    before = _ledger()
     got = fa.flash_fwd(q, k, v, return_lse=return_lse, **kw)
     torch.cuda.synchronize()
-    assert {b: fa.body_launches[b] - before[b] for b in before} == {
-        "sm90": 1, "mma": 0, "simt": 0}
+    assert _moved(before) == {"flash_fwd.sm90": 1}
     return got
 
 
@@ -1420,14 +1436,14 @@ def test_sm90_body_syncs_nothing(cuda):
               q_positions=torch.arange(300, dtype=torch.int32, device=cuda),
               kv_positions=torch.arange(300, dtype=torch.int32, device=cuda))
     want = fa.flash_fwd(q, k, k, **kw)   # the library loaded, the body sized
-    before = fa.body_launches["sm90"]
+    before = _ledger()
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = fa.flash_fwd(q, k, k, **kw)
         out2, _ = fa.flash_fwd(q, k, k, return_lse=True, **kw)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert fa.body_launches["sm90"] == before + 2
+    assert _moved(before) == {"flash_fwd.sm90": 2}
     assert torch.equal(out, want) and torch.equal(out2, want)
 
 
@@ -1458,10 +1474,9 @@ def test_sm90_body_inside_the_prefill_graphs(cuda):
     for S in (200, 333, 200):
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S),
                                              dtype=np.int32)).to(cuda)
-        before = dict(fa.body_launches)
+        before = _ledger()
         want, wcache = eager.prefill(params, {"tokens": toks}, 512)
-        assert {b: fa.body_launches[b] - before[b] for b in before} == {
-            "sm90": n_attn, "mma": 0, "simt": 0}
+        assert _of(_moved(before), "flash_fwd") == {"flash_fwd.sm90": n_attn}
         got, gcache = graphed.prefill(params, {"tokens": toks}, 512)
         assert torch.equal(got, want), S
         for (kg, g), (kw_, w) in zip(leaves(gcache), leaves(wcache)):
@@ -1492,14 +1507,18 @@ def test_whisper_prefill_and_decode_on_the_card(cuda):
         0, cfg.vocab, (2, 37), dtype=np.int32)).to(cuda)
     bb = Backbone(cfg, compute_dtype=torch.float32, device=cuda)
     params = bb.init(0)
-    before = (fa.launches, fd.launches)
+    before = _ledger()
     _, cache = bb.prefill(params, {"tokens": toks[:, :32],
                                    "enc_frames": frames}, 448)
-    assert (fa.launches - before[0], fd.launches - before[1]) == (12, 0)
+    moved = _moved(before)
+    assert (_total(moved, "flash_fwd"), _total(moved, "flash_decode")) == (
+        12, 0)
     assert set(cache) == {"pos", "g1"}
     assert cache["g1"]["s0"]["ck"].shape == (4, 2, 1500, 6, 64)
     got, _ = bb.decode_step(params, cache, toks[:, 32:33])
-    assert (fa.launches - before[0], fd.launches - before[1]) == (12, 8)
+    moved = _moved(before)
+    assert (_total(moved, "flash_fwd"), _total(moved, "flash_decode")) == (
+        12, 8)
     want, _ = bb.prefill(params, {"tokens": toks[:, :33],
                                   "enc_frames": frames}, 448)
     torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
@@ -1541,11 +1560,12 @@ def test_whisper_grads_kernel_path_match_plain_path(cuda, dtype):
                                               dtype=np.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
              "enc_frames": _whisper_frames(cfg, 2, 14, cuda)}
-    before = (fa.launches, fd.launches, fb.launches)
+    before = _ledger()
     lk, gk = value_and_grad(kern, params, batch)
     torch.cuda.synchronize()
-    assert (fa.launches - before[0], fd.launches - before[1],
-            fb.launches - before[2]) == (24, 0, 12)
+    moved = _moved(before)
+    assert (_total(moved, "flash_fwd"), _total(moved, "flash_decode"),
+            moved.get("flash_bwd.dq", 0)) == (24, 0, 12)
     lp, gp = value_and_grad(plain, params, batch)
     if dt == torch.float32:
         torch.testing.assert_close(lk, lp, atol=1e-5, rtol=1e-5)

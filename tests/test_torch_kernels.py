@@ -19,6 +19,7 @@ from repro_torch.kernels import build, ops
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import ref as tref
+from repro_torch.obs import metrics
 from test_kernels import FLASH_CASES
 
 
@@ -203,9 +204,10 @@ def test_split_plan_at_the_serving_shapes():
 def test_cpu_tensors_take_the_plain_version():
     q = torch.randn(1, 4, 4, 16)
     k = torch.randn(1, 4, 2, 16)
-    before = tfa.launches
+    ledger = metrics.registry("dispatch")
+    before = ledger.snapshot()
     out = ops.flash_attention(q, k, k)
-    assert tfa.launches == before
+    assert ledger.snapshot() == before
     torch.testing.assert_close(out, tref.flash_attention_ref(q, k, k),
                                atol=0, rtol=0)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -218,9 +220,10 @@ def test_cpu_decode_takes_the_plain_version():
     q, k = torch.randn(2, 1, 4, 16), torch.randn(2, 6, 2, 16)
     kw = dict(q_positions=torch.tensor([5], dtype=torch.int32),
               kv_positions=torch.arange(6, dtype=torch.int32), window=4)
-    before = (tfa.launches, tfd.launches)
+    ledger = metrics.registry("dispatch")
+    before = ledger.snapshot()
     out = ops.attention(q, k, k, **kw)
-    assert (tfa.launches, tfd.launches) == before
+    assert ledger.snapshot() == before
     torch.testing.assert_close(out, tref.attention_plain(q, k, k, **kw),
                                atol=0, rtol=0)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -285,7 +288,8 @@ BODY_CASES = [
 @pytest.mark.parametrize("dtype, hd, cap, want", BODY_CASES, ids=str)
 def test_flash_fwd_body_rule(dtype, hd, cap, want):
     assert tfa.body(dtype, hd, cap) == want
-    assert set(tfa.body_launches) == {"sm90", "mma", "simt"}
+    # the cases take every body the dispatch ledger counts, flash_fwd.<body>
+    assert {case[-1] for case in BODY_CASES} == {"sm90", "mma", "simt"}
 
 
 # the architectures whose bf16 forward calls of K1 take the sm90 body (hd

@@ -38,11 +38,26 @@ from repro.models import reduced as jreduced
 from repro_torch import bridge
 from repro_torch.models import Backbone, get_config, reduced
 from repro_torch.models import ffn, moe_ep
+from repro_torch.obs import metrics
 from repro_torch.optim import adamw
 from repro_torch.runtime.steps import value_and_grad
 
 MOE_ARCHS = ["mixtral-8x22b", "qwen3-moe-235b-a22b"]
 TOL = 1e-5
+
+
+def _paths():
+    """moe_mlp's calls by path in the dispatch ledger."""
+    counts = metrics.registry("dispatch").snapshot()["counters"]
+    return {k[len("moe_mlp."):]: n for k, n in counts.items()
+            if k.startswith("moe_mlp.")}
+
+
+def _moved(before):
+    """moe_mlp's calls by path since ``before`` (a :func:`_paths`), the
+    paths that moved."""
+    return {k: n - before.get(k, 0) for k, n in _paths().items()
+            if n != before.get(k, 0)}
 
 
 def _close(got, want, tol):
@@ -129,11 +144,11 @@ def _check_layer(cfg, jcfg, p, x, seed, no_grad=False):
         np.float32)
     jy, jaux, jgp, jgx = _jax_layer(p, x, jcfg, ct, 0.5)
     if no_grad:
-        calls = dict(ffn.path_calls)
+        calls = _paths()
         with torch.no_grad():
             ty, taux = ffn.moe_mlp({k: torch.from_numpy(v) for k, v in
                                     p.items()}, torch.from_numpy(x), cfg)
-        assert ffn.path_calls["grouped"] == calls["grouped"] + 1
+        assert _moved(calls) == {"grouped": 1}
         _close(ty, jy, TOL)
         _close(taux, jaux, TOL)
         return
@@ -215,13 +230,12 @@ def test_grouped_path_matches_capacity_path(arch, cf, T, dtype):
     assert int(kept[-1]) == 0
     assert bool((~keep).any()) == (C < T)
     assert sorted(rows[keep].tolist()) == list(range(int(ends[-1])))
-    calls = dict(ffn.path_calls)
+    calls = _paths()
     with torch.no_grad():
         got, got_aux = ffn.moe_mlp(tp, tx, cfg)
     want, want_aux = ffn.moe_mlp({k: v.requires_grad_() for k, v in
                                   tp.items()}, tx, cfg)
-    assert ffn.path_calls == {"grouped": calls["grouped"] + 1,
-                              "capacity": calls["capacity"] + 1}
+    assert _moved(calls) == {"grouped": 1, "capacity": 1}
     assert torch.equal(got_aux, want_aux.detach())
     want = want.detach().float()
     if dt == torch.float32:
@@ -311,10 +325,9 @@ def test_held_shares_sum_to_the_whole_layer(arch, drops, no_grad, shares):
         tp = {k: torch.from_numpy(np.ascontiguousarray(v)).requires_grad_(
             not no_grad) for k, v in leaves.items()}
         tx = torch.from_numpy(x).requires_grad_(not no_grad)
-        calls = dict(ffn.path_calls)
+        calls = _paths()
         y, aux = ffn.moe_mlp(tp, tx, cfg, held=held)
-        path = "grouped" if no_grad else "capacity"
-        assert ffn.path_calls[path] == calls[path] + 1
+        assert _moved(calls) == {"grouped" if no_grad else "capacity": 1}
         if no_grad:
             return y, aux, None
         (torch.sum(y * ct) + 0.5 * aux).backward()
@@ -569,14 +582,15 @@ def test_ep_form_passes_plain_to_moe_mlp(monkeypatch):
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_serving_counts_only_grouped_calls_and_training_only_capacity(arch):
-    """ffn.path_calls over a no_grad serve of the reduced arch through
-    Server (each layer once a prefill and once a decode step) and over a
-    train step's loss and gradients (each layer once, remat off)."""
+    """moe_mlp's calls by path in the dispatch ledger over a no_grad serve
+    of the reduced arch through Server (each layer once a prefill and once a
+    decode step) and over a train step's loss and gradients (each layer
+    once, remat off), each read after a reset of the ledger."""
     from repro_torch.runtime.serve_loop import Request, Server
 
     _, _, bb, params = _moe_pair(arch, "drops")
     layers = bb.cfg.n_layers
-    ffn.path_calls.update(grouped=0, capacity=0)
+    metrics.registry("dispatch").reset()
     srv = Server(bb, params, slots=2, ctx=64)
     prompts = _tokens(bb.cfg.vocab, 3, 9, 24)
     reqs = [Request(rid=i, prompt=prompts[i], max_new=4) for i in range(3)]
@@ -585,12 +599,43 @@ def test_serving_counts_only_grouped_calls_and_training_only_capacity(arch):
     with torch.no_grad():
         srv.run()
     calls = layers * (len(reqs) + srv.stats["steps"])
-    assert ffn.path_calls == {"grouped": calls, "capacity": 0}
-    ffn.path_calls.update(grouped=0, capacity=0)
+    assert _paths() == {"grouped": calls}
+    metrics.registry("dispatch").reset()
     toks = _tokens(bb.cfg.vocab, 2, 17, 25)
     value_and_grad(bb, params, {"tokens": toks[:, :-1],
                                 "labels": toks[:, 1:]})
-    assert ffn.path_calls == {"grouped": 0, "capacity": layers}
+    assert _paths() == {"capacity": layers}
+
+
+@pytest.mark.parametrize("reset", ["dispatch", "every registry"])
+def test_the_dispatch_ledger_counts_paths_after_a_reset(reset):
+    """After ``metrics.registry("dispatch").reset()`` or ``metrics.reset()``
+    (each drops the registry's counters) the ledger counts on: a no-grad
+    moe_mlp on the CPU is one ``moe_mlp.grouped``, one under autograd one
+    ``moe_mlp.capacity``, and ``metrics.dump()`` shows the dispatch site."""
+    import io
+    import json
+
+    cfg = reduced(get_config("mixtral-8x22b"))
+    p, x = _layer(cfg, 40), _x(cfg, 1, 8, 41)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    for _ in range(2):
+        ffn.moe_mlp(tp, torch.from_numpy(x), cfg)
+        if reset == "dispatch":
+            metrics.registry("dispatch").reset()
+        else:
+            metrics.reset()
+        assert _paths() == {}
+        with torch.no_grad():
+            ffn.moe_mlp(tp, torch.from_numpy(x), cfg)
+        assert _paths() == {"grouped": 1}
+        ffn.moe_mlp({k: v.clone().requires_grad_() for k, v in tp.items()},
+                    torch.from_numpy(x), cfg)
+        assert _paths() == {"grouped": 1, "capacity": 1}
+    out = io.StringIO()
+    metrics.dump(out)
+    sites = {r["site"]: r for r in json.loads(out.getvalue())}
+    assert sites["dispatch"]["counters"]["moe_mlp.capacity"] == 1
 
 
 @pytest.mark.parametrize("E,K", [(4, 2), (8, 2), (128, 8)])

@@ -37,6 +37,7 @@ from repro_torch.kernels import rglru as krglru
 from repro_torch.kernels import rwkv6 as krwkv6
 from repro_torch.models import Backbone, LayerGroup, get_config, reduced
 from repro_torch.models import rglru, rwkv6
+from repro_torch.obs import metrics
 from repro_torch.runtime.serve_loop import Request, Server, _merge_slot
 from test_kernels import RGLRU_CASES, RWKV_CASES
 
@@ -144,12 +145,13 @@ def test_scans_write_the_state_in_place():
 def test_cpu_tensors_take_the_plain_versions():
     _, targs = _rglru_inputs(1, 4, 16, jnp.float32)
     _, wargs = _wkv_inputs(1, 4, 2, 8, jnp.float32)
-    before = (krglru.launches, krwkv6.launches)
+    ledger = metrics.registry("dispatch")
+    before = ledger.snapshot()
     torch.testing.assert_close(ops.rglru_scan(*targs)[0],
                                ref.rglru_scan_plain(*targs)[0], atol=0, rtol=0)
     torch.testing.assert_close(ops.rwkv6_scan(*wargs)[0],
                                ref.rwkv6_scan_plain(*wargs)[0], atol=0, rtol=0)
-    assert (krglru.launches, krwkv6.launches) == before
+    assert ledger.snapshot() == before
     with pytest.raises(ValueError, match="CUDA tensors"):
         krglru.rglru_scan(*targs)
     with pytest.raises(ValueError, match="CUDA tensors"):

@@ -362,14 +362,16 @@ def test_wrapper_steps_match_the_kernel_source(source, module, names):
 
 @pytest.mark.parametrize("library,ok", [((64, 16), True), ((16, 16), False),
                                         ((64, 4), False)])
-def test_check_steps_raises_when_library_and_wrapper_differ(library, ok):
+def test_check_steps_raises_when_library_and_wrapper_differ(library, ok,
+                                                            monkeypatch):
     from repro_torch.kernels import build
 
     def query(steps, sub):
         steps._obj.value, sub._obj.value = library
         return 0
+    monkeypatch.setattr(build, "entry", lambda name, argtypes: query)
     if ok:
-        build.check_steps("wkv6_scan_bwd", query, (64, 16))
+        build.check_steps("wkv6_scan_bwd_steps", (64, 16))
     else:
         with pytest.raises(RuntimeError, match="wkv6_scan_bwd"):
-            build.check_steps("wkv6_scan_bwd", query, (64, 16))
+            build.check_steps("wkv6_scan_bwd_steps", (64, 16))
