@@ -83,7 +83,8 @@ Phases; each one that fails raises, and the process exits non-zero:
    as the reference serves it, through Backbone.prefill and decode_step
    (its Server takes no frames): two waves of 8 requests with their own
    frames, the counts set to 0 before each wave, flash_fwd exactly 12 a
-   prefill and flash_decode 8 a decode step.
+   prefill and flash_decode 8 a decode step, and the encoder's pass one
+   ``layer_views.unbind`` a prefill.
 6. Training. K1 with its LSE against the plain LSE; K1b (flash_bwd: delta,
    dkdv, dq, and reduce where its plan splits the dk/dv grid) against
    flash_bwd_plain in fp32 and bf16 (causal, GQA 32/8, 28/4 and 24/8, MQA
@@ -97,7 +98,8 @@ Phases; each one that fails raises, and the process exits non-zero:
    every leaf's gradient compared, with exact launch counts; then the
    ``Trainer`` of launch/train.py takes 6 steps of 4 x 2048 tokens, each
    committed through the transactional store, with exact launch counts
-   (flash_fwd and each kernel of flash_bwd once a layer and step), finite
+   (flash_fwd and each kernel of flash_bwd once a layer and step, and
+   ``layer_views.unbind`` once a group and step), finite
    and falling loss, step ms, tokens/s, peak memory and a profiled step's
    idle share. The same gradient check for gemma2-2b at depth 2 (one
    (local, attn) group) past its window, and for recurrentgemma-9b (one
@@ -143,7 +145,8 @@ Phases; each one that fails raises, and the process exits non-zero:
    first configuration's, equal losses over 3 donating steps, peak
    memory, device (CUDA events) and host ms a step, a profiled step, exact
    launches (K1 and the scans' forwards twice a layer and step under
-   either policy: "dots" saves products, not kernels' outputs); and the
+   either policy: "dots" saves products, not kernels' outputs; the group's
+   layer views once a group and step, outside the recompute); and the
    dry run of qwen3-4b x train_4k x single under both policies ("dots"
    counts "full"'s FLOPs less the saved products' forward FLOPs).
 8. The OptSVA-CF wire (phase_net): two node servers spawned with
@@ -1292,7 +1295,8 @@ def phase_moe_model(arch, cfg, n32, n16, ctx):
 def dispatch():
     """The port's dispatch ledger, ``metrics.registry("dispatch")``: one
     count a launch of a C entry point, keyed ``<kernel>.<body or pass>`` or
-    ``<kernel>``, and one a moe_mlp call, ``moe_mlp.<path>``."""
+    ``<kernel>``, one a moe_mlp call, ``moe_mlp.<path>``, and one a group's
+    layer views in a training forward, ``layer_views.unbind``."""
     from repro_torch.obs import metrics
     return metrics.registry("dispatch")
 
@@ -1306,12 +1310,13 @@ def ledger():
 def with_totals(counts):
     """Ledger ``counts`` with each kernel's launches beside its keys, as the
     count lines print them: ``<kernel>``, the sum of its keys, for K1b its
-    calls (one dq launch each); the MoE layer's calls have none."""
+    calls (one dq launch each); the MoE layer's calls and the layer views
+    have none."""
     out = dict(counts)
     for key, n in counts.items():
         kernel, _, part = key.partition(".")
-        if part and kernel != "moe_mlp" and (kernel != "flash_bwd"
-                                             or part == "dq"):
+        if part and kernel not in ("moe_mlp", "layer_views") and (
+                kernel != "flash_bwd" or part == "dq"):
             out[kernel] = out.get(kernel, 0) + n
     return dict(sorted(out.items()))
 
@@ -1440,9 +1445,10 @@ def phase_serve_whisper():
     is one batched prefill and max_new - 1 greedy decode steps, each ending
     in a read of its tokens. The counts are set to 0 just before each wave
     and read just after: flash_fwd 12 a prefill (4 encoder, 4 decoder
-    self-attention, 4 cross), flash_decode 8 a decode step (4 + 4), nothing
-    else. Each request's first token must be the top logit, within
-    MODEL_BF16_TOL, of a batch-1 prefill of its own prompt and frames (the
+    self-attention, 4 cross), flash_decode 8 a decode step (4 + 4), the
+    encoder's layer views once a prefill, nothing else. Each request's
+    first token must be the top logit, within MODEL_BF16_TOL, of a batch-1
+    prefill of its own prompt and frames (the
     wave's rows land in their slots); then a torch.profiler trace of a
     wave's prefill and of a decode step."""
     from repro_torch.models import Backbone, get_config
@@ -1494,7 +1500,9 @@ def phase_serve_whisper():
         counts = ledger()
         _check_counts(f"whisper-tiny serving wave {i}", counts, {
             f"flash_fwd.{k1_body('whisper-tiny', torch.bfloat16)}": 3 * 4,
-            "flash_decode": 2 * 4 * steps})
+            "flash_decode": 2 * 4 * steps,
+            "layer_views.unbind": sum("enc" in g.pattern
+                                      for g in cfg.groups)})
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
         tokens.append(toks)
@@ -1696,7 +1704,8 @@ def _train_want(bb, batch, seq, runs, fwd):
     its LSE) once a forward of an attention layer and K1b's passes once a
     backward (the reduce pass only where its plan splits); each scan once a
     forward of its layers, through the body its plan picks, and its
-    backward once a pass."""
+    backward once a pass; the layer views once a group and pass (remat's
+    recompute makes none)."""
     from repro_torch.kernels import flash_bwd, rglru, rwkv6
     kinds = bb.cfg.layer_kinds()
     Se = bb.cfg.enc_seq
@@ -1720,7 +1729,8 @@ def _train_want(bb, batch, seq, runs, fwd):
             "flash_bwd.dq": attn, "flash_bwd.reduce": split,
             f"rglru_scan.{rglru_body}": rec * fwd, "rglru_bwd": rec,
             f"wkv6_scan.{wkv_body}": rwk * fwd, "wkv6_bwd": rwk,
-            "moe_mlp.capacity": moe * fwd}
+            "moe_mlp.capacity": moe * fwd,
+            "layer_views.unbind": len(bb.cfg.groups) * runs}
 
 
 def _check_counts(what, got, want):

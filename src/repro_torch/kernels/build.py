@@ -23,8 +23,10 @@ ledger, ``obs.metrics.registry("dispatch")``: one counter per launch, keyed
 ``rglru_scan.chunked``, ``moe_gemm.gate_up``) or ``<kernel>``
 (``flash_decode``, ``rglru_bwd``, ``wkv6_bwd``), beside the MoE layer's calls
 by path (``moe_mlp.grouped``, ``moe_mlp.capacity``, counted in
-``models/ffn.py``). Read it with ``metrics.registry("dispatch").snapshot()``
-(a key that never moved is absent) or ``metrics.dump()``.
+``models/ffn.py``) and the training forward's layer views, one a group
+(``layer_views.unbind``, counted in ``models/backbone.py``). Read it with
+``metrics.registry("dispatch").snapshot()`` (a key that never moved is
+absent) or ``metrics.dump()``.
 """
 from __future__ import annotations
 

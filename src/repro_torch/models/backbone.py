@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -55,7 +55,7 @@ from torch.distributed.tensor.experimental import (implicit_replication,
                                                    local_map)
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 from repro_torch.obs import txtrace
 
 from . import remat as remat_mod
@@ -329,16 +329,26 @@ class Backbone:
                 for si, kind in enumerate(group.pattern)}
         return params
 
-    def _layer_params(self, gp: Params, r: int) -> Params:
-        """Layer ``r`` of a group: views of the stacked leaves, cast to the
-        compute dtype (no copy when the dtypes agree), then gathered by
+    def _layer_views(self, gp: Params, repeat: int) -> List[Params]:
+        """Every layer's views of a group's stacked leaves: one ``unbind``
+        of each leaf. In training autograd then keeps one slot a layer for
+        the leaf's gradient and stacks the slots once, where a view
+        ``leaf[r]`` a layer would pad each layer's gradient to the leaf's
+        size with zeros and add the ``repeat`` padded tensors."""
+        views = {s: {name: leaf.unbind(0) for name, leaf in sub.items()}
+                 for s, sub in gp.items()}
+        return [{s: {name: v[r] for name, v in sub.items()}
+                 for s, sub in views.items()} for r in range(repeat)]
+
+    def _cast_layer(self, lp: Params) -> Params:
+        """One layer's views of the stacked leaves, cast to the compute
+        dtype (no copy when the dtypes agree), then gathered by
         ``param_gather`` where one is given."""
         cd = self.compute_dtype
-        out = {s: {name: leaf[r].to(cd)
-                   if leaf.is_floating_point() and leaf.dtype != cd
-                   else leaf[r]
-                   for name, leaf in sub.items()}
-               for s, sub in gp.items()}
+        out = {s: {name: v.to(cd)
+                   if v.is_floating_point() and v.dtype != cd else v
+                   for name, v in sub.items()}
+               for s, sub in lp.items()}
         if self.param_gather is not None:
             # per-layer weight all-gather (prefetch / early-release schedule)
             out = self.param_gather(out)
@@ -700,21 +710,21 @@ class Backbone:
     # ------------------------------------------------------------------ #
     # Training: loss                                                      #
     # ------------------------------------------------------------------ #
-    def _train_layer(self, gp, r: int, pattern, x, positions, rope,
-                     enc_out=None):
-        """Layer ``r`` of a group in training (and in the encoder's pass of
-        prefill): its parameters sliced and cast inside, so that remat
-        recomputes the cast (and the MoE layers' routing, and a ``dec``
-        layer's cross keys and values from ``enc_out``) as the reference's
-        scan body does. Returns (x, the layer's aux loss). Remat runs it
-        again in the backward, hence the distribution context here too."""
+    def _train_layer(self, lp, pattern, x, positions, rope, enc_out=None):
+        """One layer in training (and in the encoder's pass of prefill),
+        from its views ``lp`` of the stacked leaves (:meth:`_layer_views`):
+        its parameters cast and gathered inside (:meth:`_cast_layer`), so
+        that remat recomputes the cast (and the MoE layers' routing, and a
+        ``dec`` layer's cross keys and values from ``enc_out``) as the
+        reference's scan body does. Returns (x, the layer's aux loss). Remat
+        runs it again in the backward, hence the distribution context here
+        too."""
         with self.dist_context(), self.layer_scope():
-            return self._train_layer_body(gp, r, pattern, x, positions, rope,
+            return self._train_layer_body(lp, pattern, x, positions, rope,
                                           enc_out)
 
-    def _train_layer_body(self, gp, r: int, pattern, x, positions, rope,
-                          enc_out):
-        lp = self._layer_params(gp, r)
+    def _train_layer_body(self, lp, pattern, x, positions, rope, enc_out):
+        lp = self._cast_layer(lp)
         aux = 0.0
         last = len(pattern) - 1
         for si, kind in enumerate(pattern):
@@ -744,14 +754,16 @@ class Backbone:
                     remat: bool):
         """Every layer of ``groups`` over the sequence x; each under
         ``torch.utils.checkpoint`` with ``remat``, by ``remat_policy``.
-        Returns (x, summed aux)."""
+        Returns (x, summed aux). Each group's layer views are made once,
+        outside the checkpoint, and counted in the dispatch ledger as
+        ``layer_views.unbind``."""
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         kw = ({"context_fn": remat_mod.context}
               if self.remat_policy == "dots" else {})
         for gi, group in groups:
-            gp = params[f"g{gi}"]
-            for r in range(group.repeat):
-                args = (gp, r, group.pattern, x, positions, rope, enc_out)
+            build.DISPATCH.counter("layer_views.unbind").inc()
+            for lp in self._layer_views(params[f"g{gi}"], group.repeat):
+                args = (lp, group.pattern, x, positions, rope, enc_out)
                 if remat:
                     x, a = checkpoint(self._train_layer, *args,
                                       use_reentrant=False, **kw)
@@ -895,9 +907,9 @@ class Backbone:
     def _serve_layers(self, gp, group):
         """(r, layer r's parameters) of a group, each layer's step run
         inside ``layer_scope``."""
-        for r in range(group.repeat):
+        for r, lp in enumerate(self._layer_views(gp, group.repeat)):
             with self.layer_scope():
-                yield r, self._layer_params(gp, r)
+                yield r, self._cast_layer(lp)
 
     def decode_step(self, params: Params, cache: Params, tokens
                     ) -> Tuple[torch.Tensor, Params]:

@@ -1660,3 +1660,59 @@ def test_donating_step_matches_the_functional_step_on_the_card(cuda):
     n = sum(int(t.numel()) for t in leaves)
     slack = 4 * 4 * max(int(t.numel()) for t in leaves)
     assert f_peak - d_peak >= 12 * n - slack, (f_peak, d_peak, n, slack)
+
+
+def _indexed_views(bb, gp, repeat):
+    """Layer r's views as ``leaf[r]``, one select a layer: the yardstick of
+    ``Backbone._layer_views``, whose backward pads each layer's gradient to
+    the leaf's size with zeros and adds the padded tensors."""
+    return [{s: {name: leaf[r] for name, leaf in sub.items()}
+             for s, sub in gp.items()} for r in range(repeat)]
+
+
+def test_layer_views_match_indexing_on_the_card(cuda, monkeypatch):
+    """4 layers of qwen3-4b's kind in one group at d_model 1024 (the
+    donating test's widths), fp32 parameters, bf16 compute on the kernel
+    path, [2, 128] tokens, from one init: the group's unbind views against
+    the per-layer ``leaf[r]`` views. The gradients of value_and_grad and
+    the state after one donating step are equal bit for bit (each removed
+    add added zeros), and the step's peak above what was allocated before
+    it is no higher. The ledger counts one ``layer_views.unbind`` a
+    forward."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import (StepSettings, init_train_state,
+                                           make_train_step, value_and_grad)
+    cfg = reduced(get_config("qwen3-4b"), d_model=1024, n_heads=8,
+                  n_kv_heads=4, head_dim=128, d_ff=4096, vocab=4096,
+                  groups=(LayerGroup(("attn",), 4),))
+    bb = Backbone(cfg, compute_dtype=torch.bfloat16,
+                  param_dtype=torch.float32, remat=False, device=cuda)
+    settings = StepSettings(remat=False)
+    opt = adamw.AdamWConfig(lr=5e-3, warmup_steps=1, total_steps=10)
+    batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                  global_batch=2), 0)
+    init = init_train_state(bb, 0, settings)
+
+    def run():
+        state = adamw.tree_map(torch.clone, init)
+        before = _ledger()
+        _, grads = value_and_grad(bb, state["params"], batch)
+        step = make_train_step(bb, opt, settings, donate=True)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        return (adamw.tree_leaves(grads), adamw.tree_leaves(state), m, peak,
+                _moved(before).get("layer_views.unbind", 0))
+
+    grads, state, m, peak, unbinds = run()
+    monkeypatch.setattr(Backbone, "_layer_views", _indexed_views)
+    w_grads, w_state, w_m, w_peak, _ = run()
+    assert unbinds == 2
+    assert all(torch.equal(a, b) for a, b in zip(grads, w_grads))
+    assert all(torch.equal(a, b) for a, b in zip(state, w_state))
+    assert all(torch.equal(m[k], w_m[k]) for k in ("loss", "grad_norm"))
+    assert peak <= w_peak, (peak, w_peak)

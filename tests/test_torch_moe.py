@@ -905,8 +905,9 @@ def test_backbone_loss_adds_the_aux_loss(arch):
     loss = bb.loss_fn(params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
     x = bb._embed_tokens(params, torch.from_numpy(toks[:, :-1]))
     pos = torch.arange(24, dtype=torch.int32)
-    x, aux = bb._train_layer(params["g0"], 0, bb.cfg.groups[0].pattern, x,
-                             pos, bb._rope(pos))
+    lp, = bb._layer_views(params["g0"], 1)
+    x, aux = bb._train_layer(lp, bb.cfg.groups[0].pattern, x, pos,
+                             bb._rope(pos))
     ce = common.stable_cross_entropy(bb._logits(params, x),
                                      torch.from_numpy(toks[:, 1:]))
     assert float(aux) >= 1.0 - 1e-3

@@ -1,5 +1,6 @@
 """The reference's ``remat_policy="dots"`` in the port
-(``repro_torch.models.remat``), on the CPU in fp32 at reduced widths.
+(``repro_torch.models.remat``), on the CPU in fp32 at reduced widths (the
+layer views' cases also in bf16 compute).
 
 What the port saves under "dots" (the outputs SAC caches in the forward,
 the products its policy marks MUST_SAVE) against what the reference saves:
@@ -15,6 +16,9 @@ reference under "dots" within the tolerances of the existing parity tests
 under "dots": the FLOPs of "full" less the saved products' forward FLOPs,
 exactly; at least remat-off's; its peak above "full"'s by at most the
 saved bytes.
+The layers' views of a group's stacked leaves (one ``unbind`` a leaf)
+against per-layer indexing, under every policy: the gradients bit for bit,
+and no full-size zero-fill or add of a stacked leaf's gradient.
 """
 import collections
 import dataclasses
@@ -37,7 +41,8 @@ from repro_torch import bridge
 from repro_torch.models import (Backbone, LayerGroup, ShapeConfig, get_config,
                                 reduced, remat)
 from repro_torch.optim import adamw
-from repro_torch.runtime.steps import StepSettings, value_and_grad
+from repro_torch.runtime.steps import (StepSettings, init_train_state,
+                                       make_train_step, value_and_grad)
 
 ARCHS = ("qwen3-4b", "gemma2-2b", "recurrentgemma-9b", "rwkv6-3b",
          "mixtral-8x22b", "qwen3-moe-235b-a22b", "whisper-tiny")
@@ -187,15 +192,18 @@ def test_dots_gradients_match_jax_under_dots(arch):
 def test_dryrun_counts_dots_as_full_less_the_saved_products(arch,
                                                             monkeypatch):
     """The dry run's train cell (launch/dryrun.py: ZeRO-3, the per-layer
-    gather, bf16 compute) of a reduced arch with four layers a group, on a
-    (1, 1) mesh over the fake group, under the cost counter: a product SAC
-    serves from its cache in the recompute never reaches the counter, so
-    "dots" counts the FLOPs of "full" less the saved products' forward
-    FLOPs (2 M K N each), exactly, and no fewer than remat-off's. Its peak
-    lies above "full"'s by at most the saved bytes: by all of them where
-    the peak falls where every layer's cache is held, less where "full"'s
-    peak falls later in the step (at two layers a group rwkv6-3b's and
-    whisper-tiny's peaks are equal)."""
+    gather, bf16 compute) of a reduced arch with four layers a group and
+    2 x 64 tokens, on a (1, 1) mesh over the fake group, under the cost
+    counter: a product SAC serves from its cache in the recompute never
+    reaches the counter, so "dots" counts the FLOPs of "full" less the
+    saved products' forward FLOPs (2 M K N each), exactly, and no fewer
+    than remat-off's. Its peak lies above "full"'s by at most the saved
+    bytes: by all of them where the peak falls where every layer's cache
+    is held, less where "full"'s peak falls later in the step. The tokens
+    are enough that the caches, not the reduced models' gradients, set the
+    peak: at 2 x 32, rwkv6-3b's and whisper-tiny's peaks fall where no
+    cache is held, equal under both policies, once each stacked leaf's
+    gradient grows one layer's slot at a time."""
     import torch.distributed as dist
 
     from repro_torch.launch import dryrun, mesh
@@ -203,7 +211,7 @@ def test_dryrun_counts_dots_as_full_less_the_saved_products(arch,
     cfg = reduced(get_config(arch))
     cfg = dataclasses.replace(cfg, groups=tuple(
         LayerGroup(g.pattern, 4) for g in cfg.groups))
-    shape = ShapeConfig("train", 32, 2, "train")
+    shape = ShapeConfig("train", 64, 2, "train")
     saves = _Saves(monkeypatch)
     mesh.init_fake_world(1)
     try:
@@ -223,6 +231,157 @@ def test_dryrun_counts_dots_as_full_less_the_saved_products(arch,
     assert counted["dots"][0] >= counted["off"][0]
     assert counted["full"][1] < counted["dots"][1] <= (counted["full"][1]
                                                        + nbytes)
+
+
+# ---------------------------------------------------------------------------
+# A group's layer views: one unbind a stacked leaf, not leaf[r] a layer
+# ---------------------------------------------------------------------------
+VIEW_REPEATS = {"qwen3-4b": 4, "mixtral-8x22b": 3, "recurrentgemma-9b": 2,
+                "rwkv6-3b": 3, "whisper-tiny": 3}
+VIEW_CASES = ([(arch, policy, 1, "bf16") for arch in VIEW_REPEATS
+               for policy in POLICIES]
+              + [("qwen3-4b", "full", 2, "bf16"), ("qwen3-4b", "off", 1,
+                                                   "fp32")])
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+def _repeated(arch, repeat=None):
+    """A reduced arch with every group repeated (``VIEW_REPEATS``)."""
+    cfg = reduced(get_config(arch))
+    return dataclasses.replace(cfg, groups=tuple(
+        LayerGroup(g.pattern, repeat or VIEW_REPEATS[arch])
+        for g in cfg.groups))
+
+
+def _indexed_views(bb, gp, repeat):
+    """The yardstick: layer r's views as ``leaf[r]``, one select a layer,
+    whose backward pads the layer's gradient to the leaf's size with
+    zeros; autograd adds the ``repeat`` padded tensors."""
+    return [{s: {name: leaf[r] for name, leaf in sub.items()}
+             for s, sub in gp.items()} for r in range(repeat)]
+
+
+def _step_or_grads(bb, microbatches, policy):
+    """(loss, gradients) of ``value_and_grad``, or with microbatches the
+    leaves of the state after one functional train step and its metrics."""
+    cfg = bb.cfg
+    if microbatches == 1:
+        loss, grads = value_and_grad(bb, bb.init(0), _batch(cfg))
+        return [loss], adamw.tree_leaves(grads)
+    settings = StepSettings(microbatches=microbatches, **POLICIES[policy])
+    step = make_train_step(bb, adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                 total_steps=4), settings)
+    state, out = step(init_train_state(bb, 0, settings), _batch(cfg))
+    return ([out["loss"], out["grad_norm"]],
+            adamw.tree_leaves(state["params"])
+            + adamw.tree_leaves(state["opt"]))
+
+
+@pytest.mark.parametrize("arch,policy,microbatches,dtype", VIEW_CASES,
+                         ids=str)
+def test_layer_views_give_the_indexed_gradients_bit_for_bit(
+        arch, policy, microbatches, dtype, monkeypatch):
+    """The loss and every gradient (with microbatches: the state after a
+    step) from a group's unbind views equal those of the per-layer
+    ``leaf[r]`` views bit for bit: each add the indexing makes adds zeros
+    (``torch.equal`` takes -0 for 0). fp32 leaves, in the training cell's
+    bf16 compute (the cast's backward feeds the unbind) and in fp32."""
+    bb = Backbone(_repeated(arch), compute_dtype=DTYPES[dtype],
+                  device="cpu", **POLICIES[policy])
+    got = _step_or_grads(bb, microbatches, policy)
+    monkeypatch.setattr(Backbone, "_layer_views", _indexed_views)
+    want = _step_or_grads(bb, microbatches, policy)
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        assert all(torch.equal(a, b) for a, b in zip(g, w))
+
+
+def _at_leaf_shape(event):
+    """The shape an autograd op of the backward writes, where the profiler
+    records it: ``add_``'s own input, ``zeros``' fill (its ``zero_`` or
+    ``fill_`` child), ``stack``'s final view (the size it is given)."""
+    if event.name == "aten::add_":
+        return tuple(event.input_shapes[0])
+    for child in event.cpu_children:
+        if event.name == "aten::zeros" and child.name == "aten::zero_":
+            return tuple(child.input_shapes[0])
+        if event.name == "aten::stack" and child.name == "aten::view":
+            return tuple(child.concrete_inputs[1])
+    return None
+
+
+def _full_size_ops(bb, params, batch):
+    """(op, a stacked leaf's shape) -> count in ``value_and_grad``, for the
+    zero-fills, the in-place adds and the stacks at a stacked leaf's whole
+    shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    shapes = {tuple(leaf.shape) for gi in range(len(bb.cfg.groups))
+              for leaf in adamw.tree_leaves(params[f"g{gi}"])}
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        value_and_grad(bb, params, batch)
+    return collections.Counter(
+        (e.name.removeprefix("aten::"), _at_leaf_shape(e))
+        for e in prof.events()
+        if e.name in ("aten::zeros", "aten::add_", "aten::stack")
+        and _at_leaf_shape(e) in shapes)
+
+
+def test_layer_views_leave_no_full_size_fill_or_add(monkeypatch):
+    """A 4-layer reduced qwen3's backward under the profiler: the indexed
+    views zero-fill each stacked leaf's gradient at its whole size 4 times
+    and add 3 times; the unbind views do neither and stack it once. The
+    dispatch ledger counts ``layer_views.unbind`` once a group a training
+    forward (remat's recompute makes none), and none in a Server's prefills
+    and decode steps."""
+    from repro_torch.obs import metrics
+    from repro_torch.runtime.serve_loop import Request, Server
+
+    cfg = _repeated("qwen3-4b")
+    R = cfg.groups[0].repeat
+    bb = Backbone(cfg, compute_dtype=torch.bfloat16, device="cpu",
+                  remat=False)
+    params = bb.init(0)
+    leaves = collections.Counter(tuple(leaf.shape) for leaf
+                                 in adamw.tree_leaves(params["g0"]))
+    got = _full_size_ops(bb, params, _batch(cfg))
+    assert got == collections.Counter(
+        {("stack", shape): n for shape, n in leaves.items()})
+    with monkeypatch.context() as m:
+        m.setattr(Backbone, "_layer_views", _indexed_views)
+        indexed = _full_size_ops(bb, params, _batch(cfg))
+    assert indexed == collections.Counter(
+        {**{("zeros", shape): R * n for shape, n in leaves.items()},
+         **{("add_", shape): (R - 1) * n for shape, n in leaves.items()}})
+
+    ledger = metrics.registry("dispatch")
+
+    def unbinds(run):
+        before = ledger.snapshot()["counters"].get("layer_views.unbind", 0)
+        run()
+        return (ledger.snapshot()["counters"].get("layer_views.unbind", 0)
+                - before)
+
+    two = dataclasses.replace(cfg, groups=(LayerGroup(("attn",), 2),) * 2)
+    for remat_kw in ({"remat": False}, {"remat": True},
+                     {"remat": True, "remat_policy": "dots"}):
+        bb2 = Backbone(two, compute_dtype=torch.float32, device="cpu",
+                       **remat_kw)
+        assert unbinds(lambda: value_and_grad(bb2, bb2.init(0),
+                                              _batch(two))) == 2, remat_kw
+    srv = Server(bb2, bb2.init(0), slots=2, ctx=64)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, two.vocab, 8,
+                                               dtype=np.int32), max_new=4)
+            for i in range(3)]
+
+    def serve():
+        for r in reqs:
+            srv.submit(r)
+        srv.run(max_steps=100)
+    assert unbinds(serve) == 0
+    assert all(len(r.out) == 4 for r in reqs)
 
 
 def test_an_unknown_policy_raises():
